@@ -1,0 +1,464 @@
+"""Drive the PyTorch port's flagship serving path once on an NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from the sources in robocupvision_tpu_torch/csrc,
+holds each kernel against its plain PyTorch version at the shapes the
+serving path gives it, serves full-width VGA frames through the packed
+ROBO-UNet (``build_packed_infer(..., torch.bfloat16, pallas=True)``) and
+scores them with the confusion-count kernel, and checks the launch
+counters. Every phase prints one JSON line; the line before the last is the
+card's name and power limit as nvidia-smi reports them, and the last line
+is ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if
+any phase fails, and at once when no CUDA device is present.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
+PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
+              torch.float32: 67e12}    # f32 outside the tensor cores
+VGA = (480, 640)
+N_FRAMES = 32
+SEED = 0
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean time of ``fn`` on the current stream, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+class Checks:
+    def __init__(self) -> None:
+        self.failed = []
+
+    def expect(self, ok: bool, what: str) -> bool:
+        if not ok:
+            self.failed.append(what)
+        return ok
+
+
+# ---------------------------------------------------------------------------
+# K1: confusion counts
+# ---------------------------------------------------------------------------
+
+
+def phase_k1(dev, chk: Checks) -> dict:
+    """K1 against its plain count at B=8 (the issue's check) and at B=1 (the
+    serving path scores one frame per call); returns the results by B."""
+    from robocupvision_tpu_torch.ops.cuda_kernels import (confusion_count,
+                                                          confusion_count_plain)
+
+    C = 5
+    g = torch.Generator(device="cpu").manual_seed(SEED + 1)
+    results = {}
+    for B in (8, 1):
+        # labels in [-1, C + 2): out-of-range values on both maps
+        pred = torch.randint(-1, C + 2, (B, *VGA), generator=g,
+                             dtype=torch.int32).to(dev)
+        tgt = torch.randint(-1, C + 2, (B, *VGA), generator=g,
+                            dtype=torch.int32).to(dev)
+        got = confusion_count(pred, tgt, C)
+        ref = confusion_count_plain(pred, tgt, C)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(got, ref))
+        chk.expect(exact, f"K1 B={B}: counts differ from the plain count")
+        # the library yardstick: one bincount over b*C*C + pred*C + tgt (the
+        # flat index, with out-of-range labels dropped, is built outside the
+        # timed call); used nowhere in the port
+        valid = (pred >= 0) & (pred < C) & (tgt >= 0) & (tgt < C)
+        bidx = torch.arange(B, device=dev).view(B, 1, 1).expand_as(pred)
+        flat = (bidx * C * C + pred * C + tgt)[valid].long()
+        lib = torch.bincount(flat, minlength=B * C * C).view(B, C, C).float()
+        chk.expect(bool(torch.equal(lib, ref)),
+                   f"K1 B={B}: bincount yardstick disagrees")
+        ms = cuda_ms(lambda: confusion_count(pred, tgt, C), 200)
+        plain_ms = cuda_ms(lambda: confusion_count_plain(pred, tgt, C), 20)
+        lib_ms = cuda_ms(lambda: torch.bincount(flat, minlength=B * C * C), 200)
+        moved = nbytes(pred) + nbytes(tgt) + B * C * C * 4
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        res = {"phase": "k1_confusion_count", "shape": [B, *VGA],
+               "classes": C, "exact": exact,
+               "max_abs_err": float((got - ref).abs().max()),
+               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "bound_us": bound_ms * 1e3, "bound_by": "bytes",
+               "bytes": moved}
+        emit(res)
+        results[B] = res
+    return results
+
+
+# ---------------------------------------------------------------------------
+# K2: fused conv chains, on the inputs the serving path gives them
+# ---------------------------------------------------------------------------
+
+
+def record_chain_calls(pi, fn, x):
+    """Run ``fn(x)`` on PackedInfer ``pi`` and return every chain call it
+    made as (x, stages, skips), in order."""
+    calls = []
+    orig = pi._chain
+
+    def recorder(cx, stages, skips=()):
+        calls.append((cx.contiguous(), list(stages),
+                      [s.contiguous() for s in skips]))
+        return orig(cx, stages, skips)
+
+    pi._chain = recorder
+    try:
+        fn(x)
+    finally:
+        del pi._chain
+    torch.cuda.synchronize()
+    return calls
+
+
+def chain_work(x, stages, skips, outs):
+    """Bytes the chain must move (inputs once, outputs once, kernels at the
+    chain dtype, bias and affine in f32) and its operations (2 per multiply-add): ``dense`` is what the kernel
+    issues over every packed tap, ``needed`` counts only the taps whose
+    packed weight is non-zero -- the packing scatters each original weight
+    into one phase, so most packed taps are structural zeros, and
+    ``needed`` equals the unpacked convolutions' own work."""
+    moved = nbytes(x) + sum(nbytes(s) for s in skips) \
+        + sum(nbytes(o) for o in outs)
+    dense = needed = 0
+    n, h, w, _ = x.shape
+    for st in stages:
+        moved += x.element_size() * st.w.numel() + 4 * (
+            st.b.numel() + (0 if st.scale is None else 2 * st.scale.numel()))
+        dense += 2 * n * h * w * st.w.numel()
+        needed += 2 * n * h * w * int(torch.count_nonzero(st.w))
+    return moved, dense, needed
+
+
+def check_chain(tag, call, chk: Checks, iters: int) -> dict:
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    x, stages, skips = call
+    dt = x.dtype
+    got = ckp.fused_conv_chain(x, stages, skips)
+    ref = ckp.chain_reference(x, stages, skips)
+    torch.cuda.synchronize()
+    res = {"phase": "k2_fused_conv_chain", "case": tag, "dtype": str(dt),
+           "input": list(x.shape), "stages": len(stages),
+           "band": ckp.choose_band(x.shape[0], x.shape[1], x.device)}
+    err = 0.0
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g.dtype == torch.int32:
+            agree = float((g == r).float().mean())
+            res["label_agreement"] = agree
+            chk.expect(agree >= (0.999 if dt == torch.bfloat16 else 0.9999),
+                       f"K2 {tag}: label agreement {agree}")
+            continue
+        # f32: rtol = atol = 2e-4; bf16: two ulps of |ref| + 2^-8 max|ref|
+        # per element, never more than 0.05, and a relative L2 error under
+        # 1e-2
+        g, r = g.float(), r.float()
+        d = (g - r).abs()
+        e = float(d.max())
+        err = max(err, e)
+        rel_l2 = float(torch.linalg.vector_norm(g - r)
+                       / torch.linalg.vector_norm(r))
+        if dt == torch.bfloat16:
+            ok = bool((d <= ckp.bf16_tolerance(r)).all()) and e <= 0.05 \
+                and rel_l2 < 1e-2
+        else:
+            ok = bool(torch.allclose(g, r, rtol=2e-4, atol=2e-4))
+        res.setdefault("outputs", []).append(
+            {"max_abs_err": e, "ref_mean_abs": float(r.abs().mean()),
+             "ref_max_abs": float(r.abs().max()), "rel_l2": rel_l2})
+        chk.expect(ok, f"K2 {tag}: output {i} max abs err {e}, "
+                       f"rel L2 {rel_l2}")
+    res["max_abs_err"] = err
+    moved, dense, needed = chain_work(x, stages, skips, got)
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = needed / PEAK_FLOPS[dt] * 1e3
+    res.update(kernel_ms=cuda_ms(lambda: ckp.fused_conv_chain(x, stages, skips),
+                                 iters),
+               plain_ms=cuda_ms(lambda: ckp.chain_reference(x, stages, skips),
+                                iters),
+               bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=moved, flops_needed=needed, flops_dense=dense)
+    emit(res)
+    return res
+
+
+def phase_k2(model, dev, chk: Checks) -> dict:
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+
+    results = {}
+    g = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    for dt in (torch.bfloat16, torch.float32):
+        pi = packed.build_packed_infer(model, None, dt, pallas=True, device=dev)
+        fn, _ = pi.infer_u8_packed()
+        for b in (1, 8):
+            frames = torch.randint(0, 256, (b, *VGA, 3), generator=g,
+                                   dtype=torch.uint8).to(dev)
+            x = raw_camera_preprocess(frames)
+            down, up = record_chain_calls(pi, pi.logits, x)
+            _, up_head = record_chain_calls(pi, fn, x)
+            iters = 20 if b == 1 else 5
+            for tag, call in (("down", down), ("up", up), ("up_argmax", up_head)):
+                key = f"{tag}_b{b}_{'bf16' if dt == torch.bfloat16 else 'f32'}"
+                results[key] = check_chain(key, call, chk, iters)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# serving: the main path
+# ---------------------------------------------------------------------------
+
+
+def serve(pi, frames, device_fn, host_unpack=None):
+    from robocupvision_tpu_torch.utils.serving import ServingPipeline
+
+    pipe = ServingPipeline(device_fn, host_postprocess=host_unpack, depth=2,
+                           device=pi.device)
+    out = list(pipe.map(frames))
+    return np.stack([np.asarray(o).reshape(VGA) for o in out])
+
+
+def camera_packed(pi):
+    """``infer_u8_packed``'s pair for raw uint8 camera frames: the device
+    function preprocesses on the card (as ``infer_u8_io`` does) first."""
+    from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+
+    device_fn, host_unpack = pi.infer_u8_packed()
+    return (lambda x_u8: device_fn(raw_camera_preprocess(x_u8))), host_unpack
+
+
+def phase_serving(model, dev, chk: Checks) -> dict:
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops import metrics
+    from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+    from robocupvision_tpu_torch.ops.cuda_kernels import confusion_count
+    from robocupvision_tpu_torch.ops.cuda_packed import fused_conv_chain
+
+    rng = np.random.default_rng(SEED + 3)
+    frames = [rng.integers(0, 256, (1, *VGA, 3), dtype=np.uint8)
+              for _ in range(N_FRAMES)]
+    targets = rng.integers(0, 5, (N_FRAMES, 1, *VGA)).astype(np.int32)
+    res = {"phase": "serving", "frames": N_FRAMES, "shape": [1, *VGA, 3]}
+
+    # the plain zoo forward in f32 (TF32 off) is the reference
+    with torch.no_grad():
+        ref_logits = torch.cat([model(raw_camera_preprocess(
+            torch.from_numpy(f).to(dev))) for f in frames]).float()
+    ref_lab = ref_logits.argmax(-1).cpu().numpy()
+    top2 = ref_logits.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+
+    pi = packed.build_packed_infer(model, None, torch.bfloat16, pallas=True,
+                                   device=dev)
+    device_fn, host_unpack = camera_packed(pi)
+
+    # --- the main path: serve through the pipeline, score every frame ----
+    fused_conv_chain.launches = 0
+    confusion_count.launches = 0
+    t0 = time.perf_counter()
+    served = serve(pi, frames, device_fn, host_unpack)
+    acc = metrics.SegAccum.zero(5)
+    for lab, tgt in zip(served, targets):
+        acc = acc + metrics.seg_batch_stats_host(lab[None], tgt, 5,
+                                                     device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_conv_chain": fused_conv_chain.launches,
+                "confusion_count": confusion_count.launches}
+    res["main_path_launches"] = launches
+    res["main_path_s"] = wall
+    chk.expect(launches["fused_conv_chain"] == 2 * N_FRAMES,
+               f"chain launches {launches['fused_conv_chain']} != 2/frame")
+    chk.expect(launches["confusion_count"] == N_FRAMES,
+               f"K1 launches {launches['confusion_count']} != 1/scored batch")
+
+    # served bf16 labels against the f32 reference, beside a witness that
+    # runs no K2: the plain packed bf16 graph (pallas=False) on the same
+    # frames. Its logit error against the reference is the bf16 tie band.
+    # The chain graph may disagree with the reference at most 0.1% of
+    # pixels more often than the plain bf16 graph does, and only where the
+    # reference's top-2 logits lie within twice that band.
+    def logits_of(p):
+        with torch.no_grad():
+            return torch.cat([p.logits(raw_camera_preprocess(
+                torch.from_numpy(f).to(dev))) for f in frames]).float()
+
+    plain_logits = logits_of(packed.build_packed_infer(
+        model, None, torch.bfloat16, pallas=False, device=dev))
+    plain_lab = plain_logits.argmax(-1).cpu().numpy()
+    plain_err = float((plain_logits - ref_logits).abs().max())
+    agree_plain = float((plain_lab == ref_lab).mean())
+    del plain_logits
+    chain_err = float((logits_of(pi) - ref_logits).abs().max())
+    mism = served != ref_lab
+    agree = 1.0 - float(mism.mean())
+    max_gap = float(gap[mism].max()) if mism.any() else 0.0
+    res.update(bf16_agreement=agree, bf16_plain_graph_agreement=agree_plain,
+               bf16_chains_vs_plain_graph_agreement=float(
+                   (served == plain_lab).mean()),
+               bf16_logit_max_abs_err=chain_err,
+               bf16_plain_graph_logit_max_abs_err=plain_err,
+               bf16_mismatch_max_top2_gap=max_gap)
+    chk.expect(agree >= agree_plain - 1e-3,
+               f"bf16 served label agreement {agree} < plain bf16 graph's "
+               f"{agree_plain} - 0.001")
+    chk.expect(max_gap <= 2 * plain_err,
+               f"bf16 mismatch at a top-2 gap {max_gap} > 2x the plain bf16 "
+               f"graph's logit err {plain_err}")
+
+    # infer_u8_io: the same frames, on-device preprocessing, (N, H, W) out
+    fused_conv_chain.launches = 0
+    served_io = serve(pi, frames, pi.infer_u8_io)
+    res["u8_io_chain_launches"] = fused_conv_chain.launches
+    chk.expect(fused_conv_chain.launches == 2 * N_FRAMES,
+               "infer_u8_io chain launches != 2/frame")
+    chk.expect(bool(np.array_equal(served_io, served)),
+               "infer_u8_io labels differ from infer_u8_packed labels")
+
+    # f32 serve through the same kernels: >= 0.999 against the reference
+    pi32 = packed.build_packed_infer(model, None, torch.float32, pallas=True,
+                                     device=dev)
+    fn32, unpack32 = camera_packed(pi32)
+    fused_conv_chain.launches = 0
+    served32 = serve(pi32, frames, fn32, unpack32)
+    agree32 = float((served32 == ref_lab).mean())
+    gap32 = float(gap[served32 != ref_lab].max()) if agree32 < 1 else 0.0
+    res.update(f32_agreement=agree32, f32_mismatch_max_top2_gap=gap32,
+               f32_chain_launches=fused_conv_chain.launches)
+    chk.expect(agree32 >= 0.999, f"f32 served label agreement {agree32}")
+
+    # scoring: K1 (impl auto) equals the plain einsum count, every field
+    lab_d = torch.from_numpy(served).to(dev)
+    tgt_d = torch.from_numpy(targets[:, 0]).to(dev)
+    a = metrics.to_host(metrics.seg_batch_stats(lab_d, tgt_d, 5, device=dev))
+    e = metrics.to_host(metrics.seg_batch_stats(lab_d, tgt_d, 5, impl="einsum",
+                                                device=dev))
+    same = all(np.array_equal(getattr(a, f), getattr(e, f))
+               for f in ("conf", "iou_sum", "lab_cnts", "correct", "img_cnt"))
+    chk.expect(same, "seg_batch_stats K1 != einsum")
+    fin = metrics.seg_finalize(acc, 1.0 / (VGA[0] * VGA[1]))
+    res.update(scoring_equal_einsum=same, mean_iou=float(fin["mean_iou"]),
+               pixel_acc=float(fin["pixel_acc"]))
+
+    # throughput: the device function alone, and the pipeline with fetches
+    fps = {}
+    for pallas in (True, False):
+        pib = packed.build_packed_infer(model, None, torch.bfloat16,
+                                        pallas=pallas, device=dev)
+        fnb, _ = camera_packed(pib)
+        for b in (1, 8):
+            xb = torch.from_numpy(np.concatenate(frames[:b])).to(dev)
+            ms = cuda_ms(lambda: fnb(xb), 20 if b == 1 else 10)
+            fps[f"{'chains' if pallas else 'plain'}_b{b}"] = b / ms * 1e3
+    res["device_fps_bf16"] = fps
+    t0 = time.perf_counter()
+    serve(pi, frames, device_fn, host_unpack)
+    res["pipeline_fps_b1_bf16"] = N_FRAMES / (time.perf_counter() - t0)
+    emit(res)
+    return res
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from robocupvision_tpu_torch.csrc import build
+    from robocupvision_tpu_torch.models import zoo
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    smi = smi_line()
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    build_s = time.perf_counter() - t0
+    emit({"phase": "card", "nvidia_smi": smi,
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "build_s": build_s,
+          "ptxas": {s: p.with_suffix(".log").read_text().strip().splitlines()
+                    [-4:] for s, p in libs.items()
+                    if p.with_suffix(".log").exists()}})
+
+    chk = Checks()
+    model = zoo.make("robo_unet", no_scale=True, device=dev,
+                     generator=torch.Generator().manual_seed(SEED))
+    k1 = phase_k1(dev, chk)
+    k2 = phase_k2(model, dev, chk)
+    sv = phase_serving(model, dev, chk)
+
+    # the main path's shapes: one (1, 480, 640) map pair scored per frame,
+    # and per frame the bf16 down chain and the up chain with its head
+    k1m = k1[1]
+    main_k2 = [k2["down_b1_bf16"], k2["up_argmax_b1_bf16"]]
+    kernels = [
+        {"name": "confusion_count", "route": "cuda",
+         "source": "robocupvision_tpu_torch/csrc/confusion.cu",
+         "replaces": "robocupvision_tpu/ops/pallas_kernels.py:120",
+         "launches": sv["main_path_launches"]["confusion_count"],
+         "max_abs_err": k1m["max_abs_err"], "ms": k1m["kernel_ms"],
+         "plain_ms": k1m["plain_ms"], "bound_ms": k1m["bound_us"] / 1e3,
+         "bound_by": "bytes", "library_ms": k1m["library_ms"]},
+        {"name": "fused_conv_chain", "route": "cuda",
+         "source": "robocupvision_tpu_torch/csrc/conv_chain.cu",
+         "replaces": "robocupvision_tpu/ops/pallas_packed.py:348",
+         "launches": sv["main_path_launches"]["fused_conv_chain"],
+         "max_abs_err": max(r["max_abs_err"] for r in main_k2),
+         "ms": sum(r["kernel_ms"] for r in main_k2),
+         "plain_ms": sum(r["plain_ms"] for r in main_k2),
+         "bound_ms": sum(r["bound_ms"] for r in main_k2),
+         "bound_by": ("operations" if sum(r["ops_ms"] for r in main_k2)
+                      > sum(r["bytes_ms"] for r in main_k2) else "bytes"),
+         "library_ms": None},
+    ]
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    if chk.failed:
+        print("chip_smoke FAILED:\n  " + "\n  ".join(chk.failed),
+              file=sys.stderr, flush=True)
+        return 1
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,295 @@
+// K2 `fused_conv_chain`: N consecutive conv stages on one lane-packed grid
+// in ONE launch.
+//
+// Replaces the TPU kernel robocupvision_tpu/ops/pallas_packed.py
+// `fused_conv_chain` (body `_chain_kernel`), for its plain stages (3x3/s1/p1
+// or 1x1 conv, bias, folded-BN affine in either order, identity skip) and
+// its fused argmax head. The Python wrapper (ops/cuda_packed.py) rejects the
+// stage features outside this slice.
+//
+// Stage k of a chain: y = conv(in) + b; then rbb ? relu(y)*scale + shift
+// : relu(y*scale + shift) when the stage has an affine; then y += skip;
+// rows outside the image are zero (they are the next stage's padding; the
+// columns are bounds-checked instead); y is rounded to the chain dtype.
+//
+// Bound on the H100: bytes. At the flagship's VGA shapes the packed taps
+// are mostly structural zeros (each original weight lands in one output
+// phase), and the unpacked convolutions' work over the tensor cores' bf16
+// rate takes less time than reading the chain input and skips and writing
+// the emitted maps once over the memory rate (chip_smoke.py's chain_work
+// computes both). This first version issues every packed tap, zeros
+// included, as f32 multiply-adds on the CUDA cores, and recomputes halo
+// rows, so it is far from that bound; tensor cores (wgmma), shared-memory
+// strips and skipping zero taps are later work.
+//
+// Design, following the TPU kernel: grid (H/band, N); block (band, n) owns
+// `band` output rows of image n. Stage k produces a strip of band +
+// 2*depth[k] rows (depth[k] = the halo the later stages' 3x3 taps need),
+// recomputing halo rows instead of exchanging them between blocks -- blocks
+// of a grid cannot wait for each other. Each strip is written to a
+// per-block slice of a device workspace (in place of the TPU kernel's VMEM
+// scratch), and __syncthreads() separates the stages. Only `emit` stages write the (N, H, W, C) outputs. The argmax head
+// writes its rounded logits to the workspace and a last pass picks per
+// group the first maximum (jnp.argmax / torch.argmax tie rule), so labels
+// equal argmax(logits) exactly. A thread computes PIX adjacent pixels x COB
+// adjacent output channels, so each loaded input value feeds COB
+// multiply-adds and each loaded weight PIX.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#define RCV_MAX_STAGES 8
+#define RCV_MAX_SKIPS 4
+
+// Mirrored by ctypes structures in ops/cuda_packed.py: keep the field
+// order and types in step.
+struct RcvStage {
+  const void* w;       // (K, K, cin, cout) chain dtype, 16-byte aligned
+  const float* b;      // (cout,) f32
+  const float* scale;  // (cout,) f32, or null: no affine (the head)
+  const float* shift;  // (cout,) f32
+  void* out;           // emitted (N, H, W, cout) chain dtype, (N, H, W, G)
+                       // int32 for the argmax head, or null
+  long long ws_off;    // element offset of the strip in a block's workspace
+  int k, cin, cout, rbb, skip_idx, argmax_groups, depth, pad_;
+};
+
+struct RcvChain {
+  const void* x;                     // (N, H, W, cin0) chain dtype
+  const void* skips[RCV_MAX_SKIPS];  // (N, H, W, cout of the consumer)
+  void* ws;                          // workspace, ws_per_block per block
+  long long ws_per_block;
+  int n, h, w, band, n_stages, bf16, pad0, pad1;
+  RcvStage st[RCV_MAX_STAGES];
+};
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kPix = 4;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// COB adjacent output channels' weights, widened to f32. With COB % 4 == 0
+// the loads are vectors of 4 (16 bytes in f32, 8 in bf16): aligned because
+// the wrapper passes 16-byte aligned weights and co0 is a multiple of COB.
+template <int COB>
+__device__ __forceinline__ void load_w(const float* __restrict__ p,
+                                       float (&wv)[COB]) {
+  if constexpr (COB % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < COB; q += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + q);
+      wv[q] = v.x; wv[q + 1] = v.y; wv[q + 2] = v.z; wv[q + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < COB; ++q) wv[q] = p[q];
+  }
+}
+template <int COB>
+__device__ __forceinline__ void load_w(const __nv_bfloat16* __restrict__ p,
+                                       float (&wv)[COB]) {
+  if constexpr (COB % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < COB; q += 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p + q);
+      const float2 lo =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+      const float2 hi =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+      wv[q] = lo.x; wv[q + 1] = lo.y; wv[q + 2] = hi.x; wv[q + 3] = hi.y;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < COB; ++q) wv[q] = __bfloat162float(p[q]);
+  }
+}
+
+// One stage over this block's strip. `in` holds rows [in_row0, in_row0 +
+// in_rows) of the stage input (the image itself for stage 0, the previous
+// strip otherwise); rows outside it read as zero.
+template <typename T, int COB>
+__device__ void conv_stage(const RcvChain& c, const RcvStage& st, int img,
+                           int off, const T* __restrict__ in, int in_row0,
+                           int in_rows, T* __restrict__ strip_out) {
+  const int W = c.w, H = c.h, cin = st.cin, cout = st.cout, K = st.k;
+  const int R = K / 2;
+  const int d = st.depth;
+  const int strip = c.band + 2 * d;
+  const int row0 = off - d;
+  const int ncog = cout / COB;
+  const int npg = (W + kPix - 1) / kPix;
+  const int items = strip * npg * ncog;
+  const T* skip = st.skip_idx >= 0
+      ? static_cast<const T*>(c.skips[st.skip_idx]) : nullptr;
+  T* out = (st.out != nullptr && st.argmax_groups == 0)
+      ? static_cast<T*>(st.out) : nullptr;
+
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int cog = it % ncog;
+    const int rest = it / ncog;
+    const int pg = rest % npg;
+    const int r = rest / npg;
+    const int co0 = cog * COB;
+    const int col0 = pg * kPix;
+    const int g = row0 + r;  // image row of this output
+    const bool in_image = g >= 0 && g < H;
+
+    float acc[kPix][COB];
+#pragma unroll
+    for (int p = 0; p < kPix; ++p)
+#pragma unroll
+      for (int q = 0; q < COB; ++q) acc[p][q] = 0.f;
+
+    if (in_image) {  // rows outside the image end as zero: skip their math
+      for (int dy = 0; dy < K; ++dy) {
+        const int lr = g + dy - R - in_row0;
+        if (lr < 0 || lr >= in_rows) continue;
+        const T* in_row = in + (long long)lr * W * cin;
+        for (int dx = 0; dx < K; ++dx) {
+          const T* wt = static_cast<const T*>(st.w) +
+                        (long long)(dy * K + dx) * cin * cout + co0;
+          int col[kPix];
+          bool ok[kPix];
+#pragma unroll
+          for (int p = 0; p < kPix; ++p) {
+            col[p] = col0 + p + dx - R;
+            ok[p] = col0 + p < W && col[p] >= 0 && col[p] < W;
+          }
+          for (int ci = 0; ci < cin; ++ci) {
+            float wv[COB];
+            load_w<COB>(wt + (long long)ci * cout, wv);
+#pragma unroll
+            for (int p = 0; p < kPix; ++p) {
+              const float xv =
+                  ok[p] ? to_f(in_row[(long long)col[p] * cin + ci]) : 0.f;
+#pragma unroll
+              for (int q = 0; q < COB; ++q)
+                acc[p][q] = fmaf(xv, wv[q], acc[p][q]);
+            }
+          }
+        }
+      }
+    }
+
+    const bool emit_row = out != nullptr && r >= d && r < d + c.band;
+#pragma unroll
+    for (int p = 0; p < kPix; ++p) {
+      const int cc = col0 + p;
+      if (cc >= W) continue;
+#pragma unroll
+      for (int q = 0; q < COB; ++q) {
+        const int co = co0 + q;
+        float y = 0.f;
+        if (in_image) {
+          y = acc[p][q] + st.b[co];
+          if (st.scale != nullptr) {
+            const float s = st.scale[co], sh = st.shift[co];
+            y = st.rbb ? fmaxf(y, 0.f) * s + sh : fmaxf(y * s + sh, 0.f);
+          }
+          if (skip != nullptr)
+            y += to_f(skip[(((long long)img * H + g) * W + cc) * cout + co]);
+        }
+        const T yt = from_f<T>(y);
+        if (strip_out != nullptr)
+          strip_out[((long long)r * W + cc) * cout + co] = yt;
+        if (emit_row) out[(((long long)img * H + g) * W + cc) * cout + co] = yt;
+      }
+    }
+  }
+}
+
+// Fused serving head: per output pixel and group, the index of the first
+// maximum over the group's cout/G adjacent (already rounded) logits.
+template <typename T>
+__device__ void argmax_stage(const RcvChain& c, const RcvStage& st, int img,
+                             int off, const T* __restrict__ logits) {
+  const int W = c.w, H = c.h, G = st.argmax_groups, cout = st.cout;
+  const int ncls = cout / G;
+  const int d = st.depth;
+  int* out = static_cast<int*>(st.out);
+  const int items = c.band * W * G;
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int grp = it % G;
+    const int rest = it / G;
+    const int cc = rest % W;
+    const int r = rest / W;
+    const T* v = logits + ((long long)(r + d) * W + cc) * cout + grp * ncls;
+    float best = to_f(v[0]);
+    int idx = 0;
+    for (int k = 1; k < ncls; ++k) {
+      const float val = to_f(v[k]);
+      if (val > best) {
+        best = val;
+        idx = k;
+      }
+    }
+    out[(((long long)img * H + off + r) * W + cc) * G + grp] = idx;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) chain_kernel(const RcvChain c) {
+  const int band_i = blockIdx.x;
+  const int img = blockIdx.y;
+  const int off = band_i * c.band;
+  T* ws = static_cast<T*>(c.ws) +
+          ((long long)img * gridDim.x + band_i) * c.ws_per_block;
+
+  for (int s = 0; s < c.n_stages; ++s) {
+    const RcvStage& st = c.st[s];
+    const T* in;
+    int in_row0, in_rows;
+    if (s == 0) {
+      in = static_cast<const T*>(c.x) + (long long)img * c.h * c.w * st.cin;
+      in_row0 = 0;
+      in_rows = c.h;
+    } else {
+      const RcvStage& prev = c.st[s - 1];
+      in = ws + prev.ws_off;
+      in_row0 = off - prev.depth;
+      in_rows = c.band + 2 * prev.depth;
+    }
+    T* strip_out = st.ws_off >= 0 ? ws + st.ws_off : nullptr;
+    if (st.cout % 16 == 0)
+      conv_stage<T, 16>(c, st, img, off, in, in_row0, in_rows, strip_out);
+    else if (st.cout % 8 == 0)
+      conv_stage<T, 8>(c, st, img, off, in, in_row0, in_rows, strip_out);
+    else if (st.cout % 4 == 0)
+      conv_stage<T, 4>(c, st, img, off, in, in_row0, in_rows, strip_out);
+    else
+      conv_stage<T, 1>(c, st, img, off, in, in_row0, in_rows, strip_out);
+    __syncthreads();
+    if (st.argmax_groups) {
+      argmax_stage<T>(c, st, img, off, strip_out);
+      __syncthreads();
+    }
+  }
+}
+
+}  // namespace
+
+// Launch one chain on `stream`. Returns cudaGetLastError() after the launch.
+extern "C" int rcv_conv_chain(const RcvChain* chain, void* stream) {
+  const RcvChain& c = *chain;
+  if (c.n_stages < 1 || c.n_stages > RCV_MAX_STAGES || c.band < 1 ||
+      c.h % c.band != 0 || c.n < 1 || c.n > 65535 || c.w < 1)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)(c.h / c.band), (unsigned)c.n);
+  if (c.bf16)
+    chain_kernel<__nv_bfloat16><<<grid, kThreads, 0, (cudaStream_t)stream>>>(c);
+  else
+    chain_kernel<float><<<grid, kThreads, 0, (cudaStream_t)stream>>>(c);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,238 @@
+"""Parameter registry, the registry-named ``nn.Module``, and the eval-mode
+block functions of the ROBO-UNet flagship.
+
+``Registry`` is a copy of the JAX package's: it declares parameters in
+PyTorch state_dict order with PyTorch state_dict names (e.g.
+``downPart.Level0.layers.Conv0.conv.weight``) and records each shape in the
+JAX package's layout (HWIO kernels), so the two registries compare equal.
+``ParamSpec.torch_shape`` gives the layout the port stores:
+
+  conv   (kh, kw, in, out) -> (out, in, kh, kw)
+  tconv  (kh, kw, in, out) -> (in, out, kh, kw)   (unflipped, torch's own)
+  linear (in, out)         -> (out, in)
+
+``RegistryModule`` holds those tensors as parameters (BN running stats as
+buffers) under exactly the registry names, so ``state_dict()`` keys and
+order are the registry's (and the reference's torch checkpoints').
+
+Block functions take a flat ``{name: tensor}`` dict and NHWC activations and
+reproduce the reference's op orders (its model.py:105-199):
+  conv_block:  conv -> ReLU -> BN        (BN after ReLU!)
+  up_tconv:    tconv -> BN -> ReLU
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Dict, List, Tuple
+
+import torch
+from torch import nn as tnn
+
+from robocupvision_tpu_torch.ops import init as pinit
+from robocupvision_tpu_torch.ops import nn
+
+Params = Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    name: str
+    shape: Tuple[int, ...]  # JAX-package layout (HWIO kernels)
+    kind: str  # conv_w|conv_b|tconv_w|tconv_b|lin_w|lin_b|bn_w|bn_b|bn_rm|bn_rv
+
+    @property
+    def torch_shape(self) -> Tuple[int, ...]:
+        if self.kind == "conv_w":
+            kh, kw, cin, cout = self.shape
+            return (cout, cin, kh, kw)
+        if self.kind == "tconv_w":
+            kh, kw, cin, cout = self.shape
+            return (cin, cout, kh, kw)
+        if self.kind == "lin_w":
+            cin, cout = self.shape
+            return (cout, cin)
+        return self.shape
+
+
+class Registry:
+    """Ordered parameter declaration mirroring torch module registration."""
+
+    def __init__(self) -> None:
+        self.specs: "OrderedDict[str, ParamSpec]" = OrderedDict()
+
+    def _add(self, name: str, shape: Tuple[int, ...], kind: str) -> None:
+        assert name not in self.specs, f"duplicate param {name}"
+        self.specs[name] = ParamSpec(name, shape, kind)
+
+    def conv(self, name: str, cin: int, cout: int, k, bias: bool = True) -> None:
+        kh, kw = (k, k) if isinstance(k, int) else k
+        self._add(name + ".weight", (kh, kw, cin, cout), "conv_w")
+        if bias:
+            self._add(name + ".bias", (cout,), "conv_b")
+
+    def tconv(self, name: str, cin: int, cout: int, k=3, bias: bool = True) -> None:
+        kh, kw = (k, k) if isinstance(k, int) else k
+        self._add(name + ".weight", (kh, kw, cin, cout), "tconv_w")
+        if bias:
+            self._add(name + ".bias", (cout,), "tconv_b")
+
+    def bn(self, name: str, c: int) -> None:
+        self._add(name + ".weight", (c,), "bn_w")
+        self._add(name + ".bias", (c,), "bn_b")
+        self._add(name + ".running_mean", (c,), "bn_rm")
+        self._add(name + ".running_var", (c,), "bn_rv")
+
+    def linear(self, name: str, cin: int, cout: int, bias: bool = True) -> None:
+        self._add(name + ".weight", (cin, cout), "lin_w")
+        if bias:
+            self._add(name + ".bias", (cout,), "lin_b")
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Torch-layout params with PyTorch layer defaults, drawn in registry
+        order from ``gen`` (on the CPU)."""
+        params: Params = OrderedDict()
+        for name, spec in self.specs.items():
+            k = spec.kind
+            if k in ("conv_w", "tconv_w"):
+                kh, kw, cin, cout = spec.shape
+                fn = pinit.conv_weight if k == "conv_w" else pinit.tconv_weight
+                params[name] = fn(gen, kh, kw, cin, cout)
+            elif k in ("conv_b", "tconv_b"):
+                wspec = self.specs[name[: -len(".bias")] + ".weight"]
+                kh, kw, cin, cout = wspec.shape
+                fn = pinit.conv_bias if k == "conv_b" else pinit.tconv_bias
+                params[name] = fn(gen, kh, kw, cin, cout)
+            elif k == "lin_w":
+                params[name] = pinit.linear_weight(gen, *spec.shape)
+            elif k == "lin_b":
+                wspec = self.specs[name[: -len(".bias")] + ".weight"]
+                params[name] = pinit.linear_bias(gen, *wspec.shape)
+            elif k in ("bn_w", "bn_rv"):
+                params[name] = pinit.bn_weight(spec.shape[0])
+            elif k in ("bn_b", "bn_rm"):
+                params[name] = pinit.bn_bias(spec.shape[0])
+            else:  # pragma: no cover
+                raise ValueError(k)
+        return params
+
+    @property
+    def order(self) -> List[str]:
+        return list(self.specs)
+
+
+def is_weight(name: str) -> bool:
+    """Trainable-vs-state split: BN running stats are state, the rest train."""
+    return not (name.endswith(".running_mean") or name.endswith(".running_var"))
+
+
+class RegistryModule(tnn.Module):
+    """An ``nn.Module`` whose parameters (and BN-statistic buffers) sit at
+    the registry's dotted names, built as nested submodules."""
+
+    def __init__(self, registry: Registry, params: Params) -> None:
+        super().__init__()
+        for name, spec in registry.specs.items():
+            t = params[name]
+            if tuple(t.shape) != spec.torch_shape:
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                                 f"{spec.torch_shape}")
+            *path, leaf = name.split(".")
+            mod: tnn.Module = self
+            for part in path:
+                if not hasattr(mod, part):
+                    mod.add_module(part, tnn.Module())
+                mod = getattr(mod, part)
+            if is_weight(name):
+                mod.register_parameter(leaf, tnn.Parameter(t, requires_grad=False))
+            else:
+                mod.register_buffer(leaf, t)
+
+    def flat(self) -> Params:
+        """{registry name: tensor} view used by the block functions."""
+        return {**dict(self.named_parameters()), **dict(self.named_buffers())}
+
+
+# ---- eval-mode block applications -------------------------------------------
+
+
+def conv(p: Params, name: str, x, stride=1, padding=0, dilation=1):
+    return nn.conv2d(x, p[name + ".weight"], p.get(name + ".bias"),
+                     stride=stride, padding=padding, dilation=dilation)
+
+
+def tconv(p: Params, name: str, x, stride=2, padding=1, output_padding=1):
+    return nn.conv_transpose2d(x, p[name + ".weight"], p.get(name + ".bias"),
+                               stride=stride, padding=padding,
+                               output_padding=output_padding)
+
+
+def bn(p: Params, name: str, x):
+    return nn.batch_norm(x, p[name + ".weight"], p[name + ".bias"],
+                         p[name + ".running_mean"], p[name + ".running_var"])
+
+
+# Reference block: Conv = conv -> ReLU -> BN (model.py:105-116)
+def conv_block_def(r: Registry, name: str, cin: int, cout: int, k: int) -> None:
+    r.conv(name + ".conv", cin, cout, k, bias=True)
+    r.bn(name + ".bn", cout)
+
+
+def conv_block(p, name, x, stride, k):
+    y = conv(p, name + ".conv", x, stride=stride, padding=k // 2)
+    return bn(p, name + ".bn", nn.relu(y))
+
+
+# Reference block: upSampleTransposeConv = tconv -> BN -> ReLU (model.py:178-194)
+def up_tconv_def(r: Registry, name: str, cin: int, cout: int) -> None:
+    r.tconv(name + ".conv", cin, cout, 3, bias=True)
+    r.bn(name + ".bn", cout)
+
+
+def up_tconv(p, name, x):
+    y = tconv(p, name + ".conv", x, stride=2, padding=1, output_padding=1)
+    return nn.relu(bn(p, name + ".bn", y))
+
+
+# Reference block: LevelDown (model.py:379-401)
+def level_down_def(r: Registry, name: str, cin: int, cout: int, levels: int,
+                   do_pool: bool, pool: bool) -> None:
+    if pool:
+        if do_pool:
+            levels -= 1
+        r_levels = max(levels, 1)
+        conv_block_def(r, name + ".layers.Conv0", cin, cout, 3)
+        for i in range(r_levels - 1):
+            conv_block_def(r, f"{name}.layers.Conv{i + 1}", cout, cout, 3)
+    else:
+        conv_block_def(r, name + ".layers.Conv0", cin, cout, 3)
+        for i in range(levels - 1):
+            conv_block_def(r, f"{name}.layers.Conv{i + 1}", cout, cout, 3)
+
+
+def level_down(p, name, x, levels, do_pool, pool):
+    if pool:
+        if do_pool:
+            x = nn.max_pool(x, 2, 2)
+            levels -= 1
+        levels = max(levels, 1)
+        x = conv_block(p, name + ".layers.Conv0", x, 1, 3)
+        for i in range(levels - 1):
+            x = conv_block(p, f"{name}.layers.Conv{i + 1}", x, 1, 3)
+    else:
+        x = conv_block(p, name + ".layers.Conv0", x, 2 if do_pool else 1, 3)
+        for i in range(levels - 1):
+            x = conv_block(p, f"{name}.layers.Conv{i + 1}", x, 1, 3)
+    return x
+
+
+# Reference block: UltClassifier (model.py:403-414) in its segmentation form
+# (ROBO-UNet never takes the pooled classification branch)
+def ult_classifier_def(r: Registry, name: str, cin: int, n_class: int,
+                       size: int = 1) -> None:
+    r.conv(name + ".layers.Class", cin, n_class, size, bias=True)
+
+
+def ult_classifier(p, name, x, size: int):
+    return conv(p, name + ".layers.Class", x, padding=size // 2)

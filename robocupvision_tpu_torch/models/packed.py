@@ -1,0 +1,560 @@
+"""Lane-packed (space-to-depth) ROBO-UNet inference graph, flagship plan.
+
+An exact graph rewrite (the JAX package's models/packed.py): the top of
+the U-Net trades spatial resolution for channels (space-to-depth by 4 at
+full resolution, 2 at half, 1 below), so a VGA graph runs its top levels on
+one 120x160 grid with 32..128 channels. Each original conv becomes a conv
+on the packed grid whose kernel is a scatter of the original weights:
+
+    for output phase (qy, qx) and original tap (dy, dx):
+        r = stride*q + d - k//2          (plain conv; f_in == stride * f_out)
+        r = (q + d - 1) / 2 if even      (k3/s2/p1/op1 tconv, pre-flipped
+                                          kernel; f_out == 2 * f_in)
+        packed tap  DY = r // f_in,  input phase  py = r % f_in
+
+Per-channel vectors (bias, folded BN scale/shift) tile across phases; the
+packed channel order is (py*f + px)*C + c.
+
+``build_packed_infer(..., pallas=True)`` runs the two packed-grid regions
+as fused chains (ops/cuda_packed.fused_conv_chain, kernel K2 on CUDA):
+[L1C0, L1C1, L2C0, L2C1] after the stem, and [Up(D-3)+skip,
+Up(D-2)+skip, head] before the output, the head fusing the serving argmax.
+``pallas=False`` is the plain PyTorch packed graph. The stem stays a plain
+conv with stride (f, 1) over the grouped input view, and the f == 1 levels
+run the zoo's blocks, in both forms.
+
+The packers work on numpy arrays in the JAX package's HWIO layout (their
+arithmetic is layout-bound); ``build_packed_infer`` takes the port's
+state_dict and carries it there with export/torch_io.to_jax_params.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from robocupvision_tpu_torch.device import DeviceLike, resolve_device
+from robocupvision_tpu_torch.export.torch_io import to_jax_params
+from robocupvision_tpu_torch.models import layers as L
+from robocupvision_tpu_torch.models.zoo import Model, RoboUNetCfg
+from robocupvision_tpu_torch.ops import cuda_packed as ckp
+from robocupvision_tpu_torch.ops import nn
+from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+
+Params = Dict[str, torch.Tensor]
+NpParams = Dict[str, np.ndarray]
+
+_BN_EPS = 1e-5
+
+
+def space_to_depth(x: torch.Tensor, f: int) -> torch.Tensor:
+    """(N, H, W, C) -> (N, H/f, W/f, f*f*C), packed channel (py*f+px)*C + c."""
+    if f == 1:
+        return x
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // f, f, w // f, f, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // f, w // f, f * f * c)
+
+
+def depth_to_space(x: torch.Tensor, f: int) -> torch.Tensor:
+    """Inverse of :func:`space_to_depth`."""
+    if f == 1:
+        return x
+    n, hp, wp, cp = x.shape
+    c = cp // (f * f)
+    x = x.reshape(n, hp, wp, f, f, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, hp * f, wp * f, c)
+
+
+def pack_conv_weight(w: np.ndarray, f_in: int, f_out: int, stride: int = 1,
+                     transpose: bool = False, dilation: int = 1) -> np.ndarray:
+    """Scatter an HWIO kernel into its packed-grid equivalent.
+
+    Plain conv: k in {1, 3}, torch padding dilation*(k//2), requires
+    f_in == stride * f_out and dilation <= f_in. Transpose conv: the zoo's
+    only config (k3, s2, p1, op1, pre-flipped HWIO kernel), requires
+    f_out == 2 * f_in. Returns a (K, K, f_in^2*cin, f_out^2*cout) kernel for
+    a packed conv with padding K//2 where K = 3 (K = 1 for 1x1 convs).
+    """
+    kh, kw, cin, cout = w.shape
+    assert kh == kw and kh in (1, 3), w.shape
+    if transpose:
+        assert kh == 3 and f_out == 2 * f_in, (f_in, f_out)
+    else:
+        assert f_in == stride * f_out, (f_in, f_out, stride)
+        assert dilation in (1,) or dilation <= f_in, (dilation, f_in)
+    K = 1 if (kh == 1 and f_in == f_out) else 3
+    wp = np.zeros((K, K, f_in * f_in * cin, f_out * f_out * cout), w.dtype)
+
+    def tap(q, d):
+        """-> (packed tap offset, input phase) or None for a zero tap."""
+        if transpose:
+            num = q + d - 1  # z-index offset; z[2t] = in[t], odd = 0
+            if num % 2:
+                return None
+            r = num // 2
+        else:
+            r = stride * q + dilation * (d - kh // 2)
+        return r // f_in, r % f_in
+
+    for qy in range(f_out):
+        for qx in range(f_out):
+            for dy in range(kh):
+                for dx in range(kw):
+                    ty, tx = tap(qy, dy), tap(qx, dx)
+                    if ty is None or tx is None:
+                        continue
+                    (DY, py), (DX, px) = ty, tx
+                    assert -1 <= DY <= 1 and -1 <= DX <= 1
+                    ci0 = (py * f_in + px) * cin
+                    co0 = (qy * f_out + qx) * cout
+                    wp[DY + K // 2, DX + K // 2,
+                       ci0:ci0 + cin, co0:co0 + cout] = w[dy, dx]
+    return wp
+
+
+def pack_stem_weight_grouped(w: np.ndarray, f: int = 4,
+                             group: Optional[int] = None) -> np.ndarray:
+    """Fold space-to-depth(f) into the stem conv, grouped-input form.
+
+    The raw (N, H, W, cin) image is viewed as (N, H, W/group, group*cin), a
+    free reshape. Returns a (f+2, 3, group*cin, (group/f)*f^2*cout) HWIO
+    kernel such that ``conv2d(x.reshape(N, H, W//group, group*cin), W',
+    stride=(f, 1), padding=1).reshape(N, H/f, W/f, f*f*cout)`` equals the
+    packed Level0 output. Column tap g covers the previous / own / next
+    pixel group; unused positions hold zeros.
+    """
+    kh, kw, cin, cout = w.shape
+    assert kh == kw == 3, w.shape
+    group = f if group is None else group
+    assert group % f == 0, (group, f)
+    cells = group // f
+    wp = np.zeros((f + 2, 3, group * cin, cells * f * f * cout), w.dtype)
+    for cell in range(cells):
+        for qy in range(f):
+            for qx in range(f):
+                for dy in range(3):
+                    for dx in range(3):
+                        e = cell * f + qx + dx - 1  # pixel within group
+                        g = 1 + (e // group)        # group tap: prev/own/next
+                        p = e % group
+                        co0 = (cell * f * f + qy * f + qx) * cout
+                        wp[qy + dy, g, p * cin:(p + 1) * cin,
+                           co0:co0 + cout] = w[dy, dx]
+    return wp
+
+
+def _f_at(res_level: int) -> int:
+    """Packing factor at a resolution level (0 = full input resolution)."""
+    return {0: 4, 1: 2}.get(res_level, 1)
+
+
+def _fold_bn(np_params: NpParams, name: str):
+    """Inference BN as a single affine: scale = g/sqrt(rv+eps),
+    shift = b - rm*scale."""
+    g = np.asarray(np_params[name + ".weight"], np.float32)
+    b = np.asarray(np_params[name + ".bias"], np.float32)
+    rm = np.asarray(np_params[name + ".running_mean"], np.float32)
+    rv = np.asarray(np_params[name + ".running_var"], np.float32)
+    scale = g / np.sqrt(rv + _BN_EPS)
+    return scale, b - rm * scale
+
+
+@dataclasses.dataclass(frozen=True)
+class _Blk:
+    """One block of a packed inference plan.
+
+    kind: "stem"   first conv, space-to-depth folded into an (f+2, 3) kernel
+                   over the free (N, H, W/f, f*cin) reshape;
+          "pconv"  conv(+BN affine) on the packed grid (the plain
+                   conv_block when f_in == f_out == 1);
+          "ptconv" k3/s2/p1/op1 transpose conv (the plain up_tconv at
+                   f_out 1);
+          "head"   bias-only classifier conv.
+    rbb: conv -> ReLU -> BN (conv_block) vs conv -> BN -> ReLU (up_tconv).
+    """
+
+    kind: str
+    name: str = ""
+    f_in: int = 1
+    f_out: int = 1
+    stride: int = 1
+    rbb: bool = True
+    k: int = 3
+
+    @property
+    def w_prefix(self) -> str:
+        return self.name if self.kind == "head" else self.name + ".conv"
+
+    @property
+    def bn_prefix(self) -> str:
+        return self.name + ".bn"
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    downs: tuple     # per resolution level: tuple of _Blk
+    ups: tuple       # one _Blk per up stage (additive skips)
+    head: _Blk
+    belly: bool      # PB.PB_1 / PB.PB_2 bottleneck between down and up
+
+
+def _robo_unet_plan(cfg: RoboUNetCfg) -> _Plan:
+    """Packed plan for the flagship ROBO-UNet (strided convs, additive
+    skips) -- reference model.py:461-536."""
+    D = cfg.eff_depth
+    n0 = max(cfg.levels - 1, 1)   # conv blocks in Level0
+    nI = cfg.levels               # per Level i >= 1
+    f0 = _f_at(0)
+    blks = [_Blk("stem", "downPart.Level0.layers.Conv0", f0, f0)]
+    for i in range(1, n0):
+        blks.append(_Blk("pconv", f"downPart.Level0.layers.Conv{i}", f0, f0))
+    downs = [tuple(blks)]
+    for lvl in range(1, D):
+        f_in, f = _f_at(lvl - 1), _f_at(lvl)
+        name = f"downPart.Level{lvl}"
+        blks = [_Blk("pconv", f"{name}.layers.Conv0", f_in, f, stride=2)]
+        for i in range(1, nI):
+            blks.append(_Blk("pconv", f"{name}.layers.Conv{i}", f, f))
+        downs.append(tuple(blks))
+    ups = tuple(_Blk("ptconv", f"upPart.Up{j}", _f_at(D - 1 - j),
+                     _f_at(D - 2 - j), rbb=False) for j in range(D - 1))
+    head = _Blk("head", "segmenter.layers.Class", 4, 4, k=cfg.class_size)
+    return _Plan(tuple(downs), ups, head, cfg.belly_size > 0)
+
+
+class _PackedBase:
+    """Shared interpreter for packed inference graphs."""
+
+    # -- public api ---------------------------------------------------------
+
+    def _input(self, x) -> torch.Tensor:
+        return torch.as_tensor(x, device=self.device)
+
+    def logits(self, x) -> torch.Tensor:
+        """(N, H, W, Cin) input -> (N, H, W, num_classes) logits; an exact
+        (up to float reassociation) match of the zoo forward."""
+        return depth_to_space(self._logits_packed(self._input(x)), 4)
+
+    def _labels_packed(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, H/4, W/4, 16) int32 per-phase labels. Chain graphs fuse this
+        argmax into the head stage's kernel; the plain packed graph argmaxes
+        the packed logits (first max wins, as in the kernel)."""
+        if self.chains is not None:
+            return self._logits_packed(x, argmax=True)
+        lp = self._logits_packed(x)
+        n, hp, wp, _ = lp.shape
+        return torch.argmax(lp.reshape(n, hp, wp, 16, self.cfg.num_classes),
+                            dim=-1).to(torch.int32)
+
+    def infer(self, x) -> torch.Tensor:
+        """(N, H, W, Cin) input -> (N, H, W) int32 label map (argmax in the
+        packed domain, per phase over num_classes)."""
+        lab = self._labels_packed(self._input(x))
+        return depth_to_space(lab, 4)[..., 0]  # 16 phases == f^2 * (C=1)
+
+    def infer_u8(self, x) -> torch.Tensor:
+        """Like :meth:`infer` but uint8 labels (num_classes < 256)."""
+        return self.infer(x).to(torch.uint8)
+
+    def infer_u8_io(self, x_u8) -> torch.Tensor:
+        """Raw camera bytes in, label bytes out: (N, H, W, 3) uint8 RGB ->
+        (N, H, W) uint8 labels, the /255, ToYUV, Normalize preprocessing
+        folded into one on-device affine (ops/color.raw_camera_preprocess)."""
+        return self.infer_u8(raw_camera_preprocess(self._input(x_u8)))
+
+    def infer_u8_packed(self) -> Tuple:
+        """Serving pair (device_fn, host_unpack): the device returns the
+        (N, H/4, W/4, 16) packed uint8 labels (no depth-to-space on the
+        device) and ``host_unpack`` (numpy) rearranges the fetched labels
+        into the (N, H, W) map."""
+        def device_fn(x):
+            return self._labels_packed(self._input(x)).to(torch.uint8)
+
+        def host_unpack(packed_labels):
+            a = _host(packed_labels)
+            n, hp, wp, _ = a.shape
+            a = a.reshape(n, hp, wp, 4, 4)
+            return np.ascontiguousarray(
+                a.transpose(0, 1, 3, 2, 4)).reshape(n, hp * 4, wp * 4)
+
+        return device_fn, host_unpack
+
+    def infer_u4_packed(self) -> Tuple:
+        """Half-wire serving pair (device_fn, host_unpack): like
+        :meth:`infer_u8_packed` but two 4-bit labels per byte (any
+        num_classes <= 16)."""
+        if self.cfg.num_classes > 16:
+            raise ValueError("4-bit labels need num_classes <= 16")
+
+        def device_fn(x):
+            lab = self._labels_packed(self._input(x))  # (N, H/4, W/4, 16)
+            return (lab[..., 0::2] | (lab[..., 1::2] << 4)).to(torch.uint8)
+
+        def host_unpack(nibbles):
+            a = _host(nibbles)
+            n, hp, wp, _ = a.shape
+            out = np.empty((n, hp, wp, 16), np.uint8)
+            out[..., 0::2] = a & 0xF
+            out[..., 1::2] = a >> 4
+            out = out.reshape(n, hp, wp, 4, 4)
+            return np.ascontiguousarray(
+                out.transpose(0, 1, 3, 2, 4)).reshape(n, hp * 4, wp * 4)
+
+        return device_fn, host_unpack
+
+    def _chain(self, x, stages, skips=()):
+        """One fused-region call: K2 on CUDA tensors, the plain mirror on
+        CPU tensors (ops/cuda_packed.fused_conv_chain selects by device)."""
+        return ckp.fused_conv_chain(x.contiguous(), stages,
+                                    skips=[s.contiguous() for s in skips])
+
+    # -- block interpreter --------------------------------------------------
+
+    def _affine(self, key: str, y: torch.Tensor, rbb: bool) -> torch.Tensor:
+        scale, shift = self.packed[key + ".scale"], self.packed[key + ".shift"]
+        if rbb:  # conv_block: conv -> ReLU -> BN (model.py:116)
+            return nn.relu(y) * scale + shift
+        return nn.relu(y * scale + shift)  # up_tconv order
+
+    def _conv_packed(self, key: str, x) -> torch.Tensor:
+        w = self.packed[key + ".w"]
+        return nn.conv2d(x, w, self.packed[key + ".b"],
+                         padding=int(w.shape[2]) // 2)
+
+    def _blk(self, blk: _Blk, x) -> torch.Tensor:
+        p = self.plain
+        if blk.kind == "stem":
+            # s2d(f) folded into an (f+2, 3)/stride-(f, 1) conv on the
+            # grouped input view (N, H, W/f, f*cin), a free reshape
+            f = blk.f_out
+            n, H, W, c = x.shape
+            xg = x.reshape(n, H, W // f, f * c)
+            y = nn.conv2d(xg, self.packed[blk.w_prefix + ".w"],
+                          self.packed[blk.w_prefix + ".b"], stride=(f, 1),
+                          padding=1)
+            return self._affine(blk.w_prefix, y, blk.rbb)
+        if blk.kind == "head":
+            return self._conv_packed(blk.name, x)
+        if blk.kind == "ptconv":
+            if blk.f_out == 1:
+                return L.up_tconv(p, blk.name, x)
+            y = self._conv_packed(blk.w_prefix, x)
+            return self._affine(blk.w_prefix, y, False)
+        assert blk.kind == "pconv", blk.kind
+        if blk.f_in == 1 and blk.f_out == 1:
+            return L.conv_block(p, blk.name, x, blk.stride, blk.k)
+        y = self._conv_packed(blk.w_prefix, x)
+        return self._affine(blk.w_prefix, y, blk.rbb)
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+@dataclasses.dataclass
+class PackedInfer(_PackedBase):
+    """Compiled-for-inference ROBO-UNet. Call .infer(x) / .logits(x)."""
+
+    cfg: RoboUNetCfg
+    plan: _Plan
+    packed: Params       # packed/tiled tensors for the top of the net (OIHW)
+    plain: Params        # the state_dict (mid/low levels), in ``dtype``
+    dtype: torch.dtype
+    device: torch.device
+    # fused-region mode (build_packed_infer(pallas=True)): the top region's
+    # conv chains run as two K2 launches instead of separate convs
+    chains: Optional[dict] = None
+
+    def _belly(self, h: torch.Tensor) -> torch.Tensor:
+        p, cfg = self.plain, self.cfg
+        h = L.level_down(p, "PB.PB_1", h, cfg.belly_size - 1, False, False)
+        return L.level_down(p, "PB.PB_2", h, 1, False, False)
+
+    def _logits_packed(self, x: torch.Tensor, argmax: bool = False
+                       ) -> torch.Tensor:
+        if self.chains is not None:
+            return self._logits_packed_chains(x, argmax)
+        assert not argmax  # the fused argmax is a chain-head epilogue
+        plan = self.plan
+        h = x.to(self.dtype)
+        feats = {}
+        for lvl, blks in enumerate(plan.downs):
+            for blk in blks:
+                h = self._blk(blk, h)
+            feats[lvl] = h
+        if plan.belly:
+            h = self._belly(h)
+        D = len(plan.downs)
+        up = h
+        for j, blk in enumerate(plan.ups):
+            up = self._blk(blk, up) + feats[D - 2 - j]
+        return self._blk(plan.head, up)
+
+    def _logits_packed_chains(self, x: torch.Tensor,
+                              argmax: bool = False) -> torch.Tensor:
+        """Flagship plan with the two packed-grid conv regions fused:
+        [L1C0, L1C1, L2C0, L2C1] after the stem and [Up(D-3)+skip,
+        Up(D-2)+skip, head] before the output. ``argmax``: the head stage
+        emits fused per-phase int32 labels (serving form)."""
+        plan, ch = self.plan, self.chains
+        h = x.to(self.dtype)
+        feats = {}
+        for blk in plan.downs[0]:
+            h = self._blk(blk, h)     # stem (plain conv)
+        feats[0] = h
+        feats[1], feats[2] = self._chain(h, ch["down"])
+        h = feats[2]
+        D = len(plan.downs)
+        for lvl in range(3, D):
+            for blk in plan.downs[lvl]:
+                h = self._blk(blk, h)
+            feats[lvl] = h
+        if plan.belly:
+            h = self._belly(h)
+        up = h
+        for j in range(D - 3):             # f == 1 ups stay on the plain path
+            up = self._blk(plan.ups[j], up) + feats[D - 2 - j]
+        up_ch = ckp.with_argmax_head(ch["up"], 16) if argmax else ch["up"]
+        return self._chain(up, up_ch, skips=[feats[1], feats[0]])[-1]
+
+
+def _pack_blocks(np_params: NpParams, blks, dtype, device) -> Params:
+    """Pack + BN-fold the weights of every packed block of a plan. Kernels
+    are stored in torch's OIHW layout for the plain packed convs; every
+    tensor is in ``dtype`` (as the JAX package stores them)."""
+    packed: Params = {}
+
+    def put(key, arr):
+        packed[key] = torch.as_tensor(np.ascontiguousarray(arr)).to(
+            device=device, dtype=dtype)
+
+    def put_w(key, w_hwio):
+        put(key + ".w", np.transpose(w_hwio, (3, 2, 0, 1)))
+
+    def put_vectors(blk, t):
+        bias = np_params.get(blk.w_prefix + ".bias")
+        if bias is None:  # bias=False conv (BN shift absorbs it)
+            bias = np.zeros(np_params[blk.w_prefix + ".weight"].shape[-1],
+                            np.float32)
+        put(blk.w_prefix + ".b", np.tile(bias, t))
+        if blk.kind != "head":
+            scale, shift = _fold_bn(np_params, blk.bn_prefix)
+            put(blk.w_prefix + ".scale", np.tile(scale, t))
+            put(blk.w_prefix + ".shift", np.tile(shift, t))
+
+    for blk in blks:
+        if blk.f_in == 1 and blk.f_out == 1 and blk.kind != "head":
+            continue  # plain conv_block / up_tconv path
+        w = np_params[blk.w_prefix + ".weight"]
+        if blk.kind == "stem":
+            put_w(blk.w_prefix, pack_stem_weight_grouped(w, blk.f_out))
+        elif blk.kind == "ptconv":
+            put_w(blk.w_prefix, pack_conv_weight(w, blk.f_in, blk.f_out,
+                                                 transpose=True))
+        else:
+            put_w(blk.w_prefix, pack_conv_weight(w, blk.f_in, blk.f_out,
+                                                 blk.stride))
+        put_vectors(blk, blk.f_out * blk.f_out)
+    return packed
+
+
+def _packed_stage(packed: Params, prefix: str, **kw) -> ckp.ChainStage:
+    """ChainStage from a packed block: its kernel back in (K, K, Cin, Cout)
+    at ``dtype``, and its vectors as f32 copies of the ``dtype`` values."""
+    scale = packed.get(prefix + ".scale")
+    return ckp.ChainStage(
+        w=packed[prefix + ".w"].permute(2, 3, 1, 0).contiguous(),
+        b=packed[prefix + ".b"].float(),
+        scale=None if scale is None else scale.float(),
+        shift=None if scale is None else packed[prefix + ".shift"].float(),
+        **kw)
+
+
+def _plain_stage(np_params: NpParams, name: str, dtype, device, rbb: bool,
+                 **kw) -> ckp.ChainStage:
+    """ChainStage for a plain (f == 1) conv(+BN) block: the kernel in
+    ``dtype``, bias and folded BN in f32 (as the JAX package builds it)."""
+    w = torch.as_tensor(np_params[name + ".conv.weight"]).to(
+        device=device, dtype=dtype).contiguous()
+    b = np_params.get(name + ".conv.bias")
+    if b is None:
+        b = np.zeros(w.shape[-1], np.float32)
+    scale, shift = _fold_bn(np_params, name + ".bn")
+
+    def f32(a):
+        return torch.as_tensor(a).to(device=device, dtype=torch.float32)
+
+    return ckp.ChainStage(w=w, b=f32(b), scale=f32(scale),
+                          shift=f32(shift), rbb=rbb, **kw)
+
+
+def _build_flagship_chains(cfg: RoboUNetCfg, packed: Params,
+                           np_params: NpParams, dtype, device) -> dict:
+    """ChainStage lists for the flagship plan's two fused regions (the
+    non-v2 plan with levels in (1, 2))."""
+    D = cfg.eff_depth
+    nI = cfg.levels  # convs per down level (Conv0 strided + nI-1 preserving)
+    down = [_packed_stage(packed, f"downPart.Level1.layers.Conv{i}.conv",
+                          rbb=True) for i in range(nI)]
+    down[-1] = dataclasses.replace(down[-1], emit=True)   # feats[1]
+    down.append(_packed_stage(packed, "downPart.Level2.layers.Conv0.conv",
+                              rbb=True))
+    for i in range(1, nI):  # Level2 grid-preserving convs: plain (f == 1)
+        down.append(_plain_stage(np_params, f"downPart.Level2.layers.Conv{i}",
+                                 dtype, device, rbb=True))
+    down[-1] = dataclasses.replace(down[-1], emit=True)   # feats[2]
+    up = [
+        _packed_stage(packed, f"upPart.Up{D - 3}.conv", rbb=False, skip_idx=0),
+        _packed_stage(packed, f"upPart.Up{D - 2}.conv", rbb=False, skip_idx=1),
+        _packed_stage(packed, "segmenter.layers.Class", rbb=False),
+    ]
+    return {"down": down, "up": up}
+
+
+def build_packed_infer(model: Model, params: Optional[Params] = None,
+                       dtype: torch.dtype = torch.bfloat16,
+                       pallas: bool = False, pallas_fold_stem: bool = False,
+                       pallas_deep: bool = False,
+                       device: DeviceLike = None) -> PackedInfer:
+    """Compile a flagship ROBO-UNet for inference (exact rewrite).
+
+    ``params``: the port's state_dict (``model.state_dict()`` when None).
+    ``pallas=True``: the two packed-grid regions run as fused chains (K2 on
+    CUDA; the flag keeps the JAX package's name). Runs on ``device``
+    (``cuda`` unless the caller passes another). The folded stem and the
+    deep chain are not ported yet."""
+    dev = resolve_device(device)
+    if pallas_fold_stem or pallas_deep:
+        raise NotImplementedError(
+            "pallas_fold_stem / pallas_deep need K2's stem_f and dil stage "
+            "slices, which are not ported yet")
+    cfg = model.cfg
+    if not isinstance(cfg, RoboUNetCfg) or cfg.v2 or cfg.pool:
+        raise NotImplementedError("only the flagship ROBO-UNet plan is ported")
+    if cfg.eff_depth < 4:
+        raise ValueError("the packed plan needs eff_depth >= 4")
+    plan = _robo_unet_plan(cfg)
+    state = model.state_dict() if params is None else params
+    np_params = to_jax_params(model.registry, state)
+    all_blks = [b for lvl in plan.downs for b in lvl] + list(plan.ups) \
+        + [plan.head]
+    packed = _pack_blocks(np_params, all_blks, dtype, dev)
+    plain = {k: v.detach().to(device=dev, dtype=dtype) for k, v in state.items()}
+    chains = None
+    if pallas:
+        if cfg.class_size != 1 or cfg.levels not in (1, 2):
+            raise NotImplementedError(
+                "the ported chains cover the 1x1-head flagship with levels "
+                "in (1, 2)")
+        chains = _build_flagship_chains(cfg, packed, np_params, dtype, dev)
+    return PackedInfer(cfg, plan, packed, plain, dtype, dev, chains)
+
+
+def quantize_int8(*args, **kwargs):
+    """int8 serving (the JAX package's ``quantize_int8``) needs K2's int8
+    stage slice, which is not ported yet."""
+    raise NotImplementedError("int8 serving is not ported yet (ROADMAP.md)")

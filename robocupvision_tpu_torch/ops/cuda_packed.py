@@ -1,0 +1,321 @@
+"""K2 `fused_conv_chain`: N consecutive conv stages on one lane-packed grid
+as ONE CUDA kernel (``csrc/conv_chain.cu``), the replacement of the JAX
+package's Pallas kernel ``fused_conv_chain``
+(robocupvision_tpu/ops/pallas_packed.py), with its plain PyTorch version
+:func:`chain_reference`.
+
+A stage is a 3x3/s1/p1 or 1x1 conv, then bias, then the folded-BN affine
+(``rbb``: conv -> ReLU -> affine; else conv -> affine -> ReLU), then an
+identity skip add; rows and columns outside the image are zero (they are
+the next stage's padding) and every inter-stage value is rounded to the
+chain dtype. Only ``emit`` stages (and always the last) are returned. The
+last stage may carry the fused serving argmax (``argmax_groups``): per-phase
+int32 labels instead of logits, first max winning ties.
+
+``fused_conv_chain`` launches the kernel for CUDA tensors and runs
+:func:`chain_reference` for CPU tensors; nothing else selects between them.
+``fused_conv_chain.launches`` counts kernel launches.
+
+Stage features of the JAX kernel outside this slice of the port (the
+folded ``stem_f`` stem, ``dil``, ``relu_only``, ``skip_w``, ``pool`` and
+int8 ``x_scale``/``w_scale``) keep their ChainStage fields but raise
+``NotImplementedError`` in both paths.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Any, List, Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainStage:
+    """One conv(+epilogue) stage of a fused region (fields as in the JAX
+    package's ChainStage).
+
+    w: (K, K, Cin, Cout) kernel (K in {1, 3}), already packed/BN-folded.
+    b: (Cout,) bias. scale/shift: (Cout,) folded-BN affine (None for the
+    bias-only head). rbb: affine order (see module docstring). skip_idx:
+    index into the chain's ``skips`` added after the epilogue, -1 for none.
+    emit: return this stage's (N, H, W, Cout) output. argmax_groups: last
+    stage only, emit (N, H, W, groups) int32 labels, argmax over each group
+    of Cout/groups adjacent channels.
+    """
+
+    w: Any
+    b: Any
+    scale: Any = None
+    shift: Any = None
+    rbb: bool = True
+    skip_idx: int = -1
+    emit: bool = False
+    stem_f: int = 0
+    relu_only: bool = False
+    skip_w: Any = None
+    dil: int = 1
+    argmax_groups: int = 0
+    pool: bool = False
+    x_scale: float = 0.0
+    w_scale: Any = None
+
+    @property
+    def k(self) -> int:
+        return int(self.w.shape[0])
+
+    @property
+    def reach(self) -> int:
+        """Rows/cols of input context beyond the center this stage reads."""
+        return self.dil * (self.k // 2)
+
+
+def _halo_depths(stages: Sequence[ChainStage]) -> List[int]:
+    """d[k]: extra rows stage k must produce so later 3x3 stages see halos."""
+    d = [0] * len(stages)
+    for k in range(len(stages) - 2, -1, -1):
+        d[k] = d[k + 1] + stages[k + 1].reach
+    return d
+
+
+def with_argmax_head(stages: Sequence[ChainStage],
+                     groups: int) -> List[ChainStage]:
+    """The chain's serving form: the final (classifier) stage emits fused
+    per-phase int32 labels instead of logits."""
+    stages = list(stages)
+    stages[-1] = dataclasses.replace(stages[-1], argmax_groups=groups,
+                                     emit=True)
+    return stages
+
+
+def _prepare(stages: Sequence[ChainStage]) -> List[ChainStage]:
+    """Validate a chain for this port and mark its last stage emitted."""
+    stages = list(stages)
+    if not stages:
+        raise ValueError("a chain needs at least one stage")
+    if not stages[-1].emit:
+        stages[-1] = dataclasses.replace(stages[-1], emit=True)
+    for i, st in enumerate(stages):
+        unported = [name for name, on in (
+            ("stem_f", st.stem_f), ("relu_only", st.relu_only),
+            ("skip_w", st.skip_w is not None), ("dil", st.dil != 1),
+            ("pool", st.pool), ("x_scale", st.x_scale),
+            ("w_scale", st.w_scale is not None)) if on]
+        if unported:
+            raise NotImplementedError(
+                f"stage {i}: {', '.join(unported)} not ported yet (plain "
+                "conv stages and the argmax head only)")
+        if st.k not in (1, 3) or st.w.dim() != 4 or st.w.shape[0] != st.w.shape[1]:
+            raise ValueError(f"stage {i}: kernel must be (K, K, Cin, Cout) "
+                             f"with K in (1, 3), got {tuple(st.w.shape)}")
+        if st.argmax_groups and i != len(stages) - 1:
+            raise ValueError("argmax_groups is a final-stage (serving head) "
+                             "epilogue")
+    last = stages[-1]
+    if last.argmax_groups:
+        if last.scale is not None:
+            raise ValueError("the argmax head is the bias-only classifier")
+        if int(last.w.shape[3]) % last.argmax_groups:
+            raise ValueError("Cout must split into argmax_groups groups")
+    return stages
+
+
+def chain_reference(x: torch.Tensor, stages: Sequence[ChainStage],
+                    skips: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
+    """Plain-PyTorch mirror of :func:`fused_conv_chain` at the same rounding
+    points: f32 convs of the chain-dtype activations and kernels, f32
+    epilogue, and rounding to the chain dtype between stages and at every
+    emitted output. The test oracle for the kernel, and its CPU path."""
+    stages = _prepare(stages)
+    chain_dtype = x.dtype
+    h = x
+    outs = []
+    for k, st in enumerate(stages):
+        cout = int(st.w.shape[3])
+        # (K, K, in, out) -> OIHW, at the chain dtype as the kernel reads it
+        w = st.w.to(chain_dtype).float().permute(3, 2, 0, 1)
+        y = F.conv2d(h.float().permute(0, 3, 1, 2), w,
+                     padding=st.reach).permute(0, 2, 3, 1)
+        y = y + st.b.float()
+        if st.scale is not None:
+            s, sh = st.scale.float(), st.shift.float()
+            y = torch.clamp_min(y, 0.) * s + sh if st.rbb \
+                else torch.clamp_min(y * s + sh, 0.)
+        if st.skip_idx >= 0:
+            y = y + skips[st.skip_idx].float()
+        if st.argmax_groups:
+            yr = y.to(chain_dtype).float()
+            n, H, W, _ = yr.shape
+            lab = torch.argmax(yr.reshape(n, H, W, st.argmax_groups,
+                                          cout // st.argmax_groups), dim=-1)
+            outs.append(lab.to(torch.int32))
+            break
+        if st.emit:
+            outs.append(y.to(chain_dtype))
+        h = y.to(chain_dtype)
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# the CUDA path
+# ---------------------------------------------------------------------------
+
+_MAX_STAGES = 8   # csrc/conv_chain.cu RCV_MAX_STAGES
+_MAX_SKIPS = 4    # csrc/conv_chain.cu RCV_MAX_SKIPS
+
+
+class _Stage(ctypes.Structure):
+    _fields_ = [("w", ctypes.c_void_p), ("b", ctypes.c_void_p),
+                ("scale", ctypes.c_void_p), ("shift", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("ws_off", ctypes.c_longlong),
+                ("k", ctypes.c_int), ("cin", ctypes.c_int),
+                ("cout", ctypes.c_int), ("rbb", ctypes.c_int),
+                ("skip_idx", ctypes.c_int), ("argmax_groups", ctypes.c_int),
+                ("depth", ctypes.c_int), ("pad_", ctypes.c_int)]
+
+
+class _Chain(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("skips", ctypes.c_void_p * _MAX_SKIPS),
+                ("ws", ctypes.c_void_p), ("ws_per_block", ctypes.c_longlong),
+                ("n", ctypes.c_int), ("h", ctypes.c_int), ("w", ctypes.c_int),
+                ("band", ctypes.c_int), ("n_stages", ctypes.c_int),
+                ("bf16", ctypes.c_int), ("pad0", ctypes.c_int),
+                ("pad1", ctypes.c_int),
+                ("st", _Stage * _MAX_STAGES)]
+
+
+def _lib():
+    from robocupvision_tpu_torch.csrc import build
+
+    lib = build.load("conv_chain.cu")
+    fn = lib.rcv_conv_chain
+    fn.argtypes = [ctypes.POINTER(_Chain), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def choose_band(n: int, h: int, device: torch.device) -> int:
+    """Rows per block: the largest divisor of ``h`` that still gives at
+    least one block per SM of this card; ``1`` when even that is too few.
+    The band changes only how halo rows are recomputed, never a result."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for band in range(h, 0, -1):
+        if h % band == 0 and n * (h // band) >= sms:
+            return band
+    return 1
+
+
+def bf16_tolerance(ref: torch.Tensor) -> torch.Tensor:
+    """Per-element tolerance of a bf16 chain output against its plain
+    version: two bf16 ulps of ``|ref|`` plus ``2**-8 * max|ref|``. Both
+    sides round every stage to bf16, so a sum that lands on the other side
+    of a rounding boundary moves by an ulp, which the later stages carry;
+    the absolute term covers outputs near zero."""
+    r = ref.float().abs()
+    _, e = torch.frexp(r)
+    ulp = torch.where(r > 0, torch.ldexp(torch.ones_like(r), e - 8),
+                      torch.zeros_like(r))
+    return 2 * ulp + r.max() * 2.0 ** -8
+
+
+def _param(t, device, dtype) -> torch.Tensor:
+    """``t`` as a contiguous ``dtype`` tensor on ``device`` whose data is
+    16-byte aligned (the kernel loads weights in vectors of 4)."""
+    t = torch.as_tensor(t).to(device=device, dtype=dtype).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
+                     skips: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
+    """Run a fused chain of conv3x3(s1,p1)/conv1x1 (+epilogue, +skip) stages.
+
+    x: (N, H, W, C0) in f32 or bf16. Kernels are read at x's dtype (as the
+    JAX kernel reads them); bias and affine in f32. Returns the emitted
+    outputs in stage order (the last stage always). CUDA tensors launch the
+    kernel (one launch per call); CPU tensors run :func:`chain_reference`."""
+    stages = _prepare(stages)
+    if x.device.type == "cpu":
+        return chain_reference(x, stages, skips)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv_chain runs on cuda or cpu, not {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"chain dtype must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous (N, H, W, C) tensor")
+    if len(stages) > _MAX_STAGES or len(skips) > _MAX_SKIPS:
+        raise ValueError(f"at most {_MAX_STAGES} stages and {_MAX_SKIPS} skips")
+    n, H, W, c0 = x.shape
+    for s in skips:
+        if (s.device != x.device or s.dtype != x.dtype or s.dim() != 4
+                or tuple(s.shape[:3]) != (n, H, W) or not s.is_contiguous()):
+            raise ValueError("skips must be contiguous (N, H, W, C) tensors "
+                             "on x's device, in x's dtype")
+    band = choose_band(n, H, x.device)
+    if band < 1 or H % band:
+        raise ValueError(f"band={band} must divide H={H}")
+    depths = _halo_depths(stages)
+
+    dev = x.device
+    keep = []  # parameter copies that must outlive the launch call
+    outs = []
+    desc = _Chain()
+    desc.x = x.data_ptr()
+    for i, s in enumerate(skips):
+        desc.skips[i] = s.data_ptr()
+    ws_elems = 0
+    cin = c0
+    for i, st in enumerate(stages):
+        K, _, wcin, cout = (int(v) for v in st.w.shape)
+        if wcin != cin:
+            raise ValueError(f"stage {i}: Cin {wcin} != incoming channels {cin}")
+        if st.skip_idx >= 0 and (st.skip_idx >= len(skips)
+                                 or skips[st.skip_idx].shape[3] != cout):
+            raise ValueError(f"stage {i}: skip {st.skip_idx} missing or not "
+                             f"{cout} channels wide")
+        d = desc.st[i]
+        w, b = _param(st.w, dev, x.dtype), _param(st.b, dev, torch.float32)
+        keep += [w, b]
+        d.w, d.b = w.data_ptr(), b.data_ptr()
+        if st.scale is not None:
+            sc = _param(st.scale, dev, torch.float32)
+            sh = _param(st.shift, dev, torch.float32)
+            keep += [sc, sh]
+            d.scale, d.shift = sc.data_ptr(), sh.data_ptr()
+        if st.argmax_groups:
+            out = torch.empty((n, H, W, st.argmax_groups), dtype=torch.int32,
+                              device=dev)
+        elif st.emit:
+            out = torch.empty((n, H, W, cout), dtype=x.dtype, device=dev)
+        else:
+            out = None
+        if out is not None:
+            outs.append(out)
+            d.out = out.data_ptr()
+        # a strip of (band + 2*depth) rows lives in the block's workspace for
+        # every stage the next stage reads, and for the argmax head's logits
+        if i + 1 < len(stages) or st.argmax_groups:
+            d.ws_off = ws_elems
+            ws_elems += (band + 2 * depths[i]) * W * cout
+        else:
+            d.ws_off = -1
+        d.k, d.cin, d.cout, d.rbb = K, wcin, cout, int(st.rbb)
+        d.skip_idx, d.argmax_groups, d.depth = st.skip_idx, st.argmax_groups, depths[i]
+        cin = cout
+    ws = torch.empty((max(n * (H // band) * ws_elems, 1),), dtype=x.dtype,
+                     device=dev)
+    desc.ws, desc.ws_per_block = ws.data_ptr(), ws_elems
+    desc.n, desc.h, desc.w, desc.band = n, H, W, band
+    desc.n_stages, desc.bf16 = len(stages), int(x.dtype == torch.bfloat16)
+
+    fn = _lib()
+    with torch.cuda.device(dev):
+        err = fn(ctypes.byref(desc), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_conv_chain launch failed: CUDA error {err}")
+    fused_conv_chain.launches += 1
+    return outs
+
+
+fused_conv_chain.launches = 0

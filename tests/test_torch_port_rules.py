@@ -1,0 +1,60 @@
+"""Rules of the PyTorch port: it imports neither JAX nor the JAX package,
+and its entry points never fall back to the CPU on their own."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "robocupvision_tpu_torch").rglob("*.py")) \
+    + [REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "robocupvision_tpu")
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax(path):
+    assert path.exists(), path
+    for name in _imported_roots(path):
+        root = name.split(".")[0]
+        assert root not in FORBIDDEN, f"{path.name} imports {name}"
+
+
+def _entry_points():
+    from robocupvision_tpu_torch.models import packed, zoo
+    from robocupvision_tpu_torch.ops import metrics
+    from robocupvision_tpu_torch.utils.serving import ServingPipeline
+
+    cpu_model = zoo.make("robo_unet", device="cpu")
+    maps = np.zeros((1, 4, 4), np.int32)
+    return {
+        "zoo.make": lambda: zoo.make("robo_unet"),
+        "build_packed_infer": lambda: packed.build_packed_infer(cpu_model),
+        "seg_batch_stats": lambda: metrics.seg_batch_stats(maps, maps, 5),
+        "ServingPipeline": lambda: ServingPipeline(lambda x: x),
+    }
+
+
+@pytest.mark.parametrize("name", ["zoo.make", "build_packed_infer",
+                                  "seg_batch_stats", "ServingPipeline"])
+def test_entry_points_raise_without_cuda(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the entry point runs there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points()[name]()
