@@ -1,23 +1,32 @@
-"""Drive the PyTorch port's flagship serving path once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in robocupvision_tpu_torch/csrc,
 holds each kernel against its plain PyTorch version at the shapes the
-serving path gives it, serves full-width VGA frames through the packed
-ROBO-UNet (``build_packed_infer(..., torch.bfloat16, pallas=True)``) and
-scores them with the confusion-count kernel, and checks the launch
-counters. Every phase prints one JSON line; the line before the last is the
-card's name and power limit as nvidia-smi reports them, and the last line
-is ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if
+serving paths give it, and drives three main paths at full width, each with
+the launch counters set to 0 just before it and read just after:
+  - the flagship ROBO-UNet's two-chain packed graph
+    (``build_packed_infer(..., torch.bfloat16, pallas=True)``), VGA frames
+    through ``ServingPipeline``, scored by the confusion-count kernel;
+  - the same with the full chain graph (``pallas_fold_stem=True,
+    pallas_deep=True``: three chains a frame);
+  - the PB_FCN deployment net through the tester's serve-and-score loop
+    (``cli/tester.py``, ``--noScale --packed --pallas``, f32), from a
+    checkpoint the port wrote and read back.
+Every phase prints one JSON line; the line before the last is the card's
+name and power limit as nvidia-smi reports them, and the last line is
+``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if
 any phase fails, and at once when no CUDA device is present.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -146,23 +155,46 @@ def record_chain_calls(pi, fn, x):
     return calls
 
 
+def chain_grid(x, stages):
+    """(N, H, W) of the chain's grid: the raw image / f for a stem chain."""
+    n, h, w, _ = x.shape
+    f = stages[0].stem_f or 1
+    return n, h // f, w // f
+
+
 def chain_work(x, stages, skips, outs):
     """Bytes the chain must move (inputs once, outputs once, kernels at the
-    chain dtype, bias and affine in f32) and its operations (2 per multiply-add): ``dense`` is what the kernel
-    issues over every packed tap, ``needed`` counts only the taps whose
-    packed weight is non-zero -- the packing scatters each original weight
-    into one phase, so most packed taps are structural zeros, and
-    ``needed`` equals the unpacked convolutions' own work."""
+    chain dtype, bias and affine in f32) and its operations (2 per
+    multiply-add): ``dense`` is what the kernel issues over every packed
+    tap, ``needed`` counts only the taps whose packed weight is non-zero --
+    the packing scatters each original weight into one phase, so most
+    packed taps are structural zeros, and ``needed`` equals the unpacked
+    convolutions' own work."""
     moved = nbytes(x) + sum(nbytes(s) for s in skips) \
         + sum(nbytes(o) for o in outs)
     dense = needed = 0
-    n, h, w, _ = x.shape
+    n, h, w = chain_grid(x, stages)
     for st in stages:
         moved += x.element_size() * st.w.numel() + 4 * (
             st.b.numel() + (0 if st.scale is None else 2 * st.scale.numel()))
         dense += 2 * n * h * w * st.w.numel()
         needed += 2 * n * h * w * int(torch.count_nonzero(st.w))
     return moved, dense, needed
+
+
+def chain_features(stages):
+    """The K2 stage features a chain launches."""
+    feats = {"plain"}
+    for st in stages:
+        if st.stem_f:
+            feats.add("stem_f")
+        if st.dil != 1:
+            feats.add("dil")
+        if st.relu_only:
+            feats.add("relu_only")
+        if st.argmax_groups:
+            feats.add("argmax_head")
+    return sorted(feats)
 
 
 def check_chain(tag, call, chk: Checks, iters: int) -> dict:
@@ -173,9 +205,11 @@ def check_chain(tag, call, chk: Checks, iters: int) -> dict:
     got = ckp.fused_conv_chain(x, stages, skips)
     ref = ckp.chain_reference(x, stages, skips)
     torch.cuda.synchronize()
+    n, h, _ = chain_grid(x, stages)
     res = {"phase": "k2_fused_conv_chain", "case": tag, "dtype": str(dt),
            "input": list(x.shape), "stages": len(stages),
-           "band": ckp.choose_band(x.shape[0], x.shape[1], x.device)}
+           "features": chain_features(stages),
+           "band": ckp.choose_band(n, h, x.device)}
     err = 0.0
     for i, (g, r) in enumerate(zip(got, ref)):
         if g.dtype == torch.int32:
@@ -184,20 +218,23 @@ def check_chain(tag, call, chk: Checks, iters: int) -> dict:
             chk.expect(agree >= (0.999 if dt == torch.bfloat16 else 0.9999),
                        f"K2 {tag}: label agreement {agree}")
             continue
-        # f32: rtol = atol = 2e-4; bf16: two ulps of |ref| + 2^-8 max|ref|
-        # per element, never more than 0.05, and a relative L2 error under
-        # 1e-2
+        # f32: rtol = atol = 2e-4 and a relative L2 error under 1e-4 (which
+        # still holds outputs that are small beside atol, as PB_FCN's deep
+        # chain gives under the default init); bf16: two ulps of |ref| +
+        # 2^-8 max|ref| per element, never more than 0.05, and a relative
+        # L2 error under 1e-2
         g, r = g.float(), r.float()
         d = (g - r).abs()
         e = float(d.max())
         err = max(err, e)
         rel_l2 = float(torch.linalg.vector_norm(g - r)
-                       / torch.linalg.vector_norm(r))
+                       / torch.linalg.vector_norm(r).clamp_min(1e-30))
         if dt == torch.bfloat16:
             ok = bool((d <= ckp.bf16_tolerance(r)).all()) and e <= 0.05 \
                 and rel_l2 < 1e-2
         else:
-            ok = bool(torch.allclose(g, r, rtol=2e-4, atol=2e-4))
+            ok = bool(torch.allclose(g, r, rtol=2e-4, atol=2e-4)) \
+                and rel_l2 < 1e-4
         res.setdefault("outputs", []).append(
             {"max_abs_err": e, "ref_mean_abs": float(r.abs().mean()),
              "ref_max_abs": float(r.abs().max()), "rel_l2": rel_l2})
@@ -233,15 +270,54 @@ def phase_k2(model, dev, chk: Checks) -> dict:
             x = raw_camera_preprocess(frames)
             down, up = record_chain_calls(pi, pi.logits, x)
             _, up_head = record_chain_calls(pi, fn, x)
-            iters = 20 if b == 1 else 5
+            iters = 10 if b == 1 else 3
             for tag, call in (("down", down), ("up", up), ("up_argmax", up_head)):
                 key = f"{tag}_b{b}_{'bf16' if dt == torch.bfloat16 else 'f32'}"
                 results[key] = check_chain(key, call, chk, iters)
     return results
 
 
+def phase_k2_features(flagship, pb_fcn, dev, chk: Checks) -> dict:
+    """K2's stem_f, dil and relu_only stages, on the chains and inputs the
+    full-width graphs give them: the flagship's folded-stem down chain and
+    deep chain, and PB_FCN's down chain with and without its dilated stage,
+    its deep chain and its up chain with the head; VGA, b1 and b8, bf16 and
+    f32."""
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+
+    results = {}
+    g = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        fl = packed.build_packed_infer(flagship, None, dt, pallas=True,
+                                       pallas_fold_stem=True, pallas_deep=True,
+                                       device=dev)
+        pb = {deep: packed.build_packed_pb_fcn(pb_fcn, None, dt, pallas=True,
+                                               pallas_deep=deep, device=dev)
+              for deep in (False, True)}
+        for b in (1, 8):
+            frames = torch.randint(0, 256, (b, *VGA, 3), generator=g,
+                                   dtype=torch.uint8).to(dev)
+            x = raw_camera_preprocess(frames)
+            stem_down, deep, _ = record_chain_calls(fl, fl.logits, x)
+            pb_down_dil, pb_deep, _ = record_chain_calls(pb[True],
+                                                         pb[True].logits, x)
+            fn, _ = pb[False].infer_u8_packed()
+            pb_down, pb_up_head = record_chain_calls(pb[False], fn, x)
+            iters = 10 if b == 1 else 3
+            for tag, call in (("stem_down", stem_down), ("deep", deep),
+                              ("pb_fcn_down", pb_down),
+                              ("pb_fcn_down_dil", pb_down_dil),
+                              ("pb_fcn_deep", pb_deep),
+                              ("pb_fcn_up_argmax", pb_up_head)):
+                key = f"{tag}_b{b}_{name}"
+                results[key] = check_chain(key, call, chk, iters)
+    return results
+
+
 # ---------------------------------------------------------------------------
-# serving: the main path
+# serving: the main paths
 # ---------------------------------------------------------------------------
 
 
@@ -263,29 +339,55 @@ def camera_packed(pi):
     return (lambda x_u8: device_fn(raw_camera_preprocess(x_u8))), host_unpack
 
 
-def phase_serving(model, dev, chk: Checks) -> dict:
+def top2_gap(logits):
+    """Per-pixel gap between the two largest logits (host numpy)."""
+    top2 = logits.topk(2, dim=-1).values
+    return (top2[..., 0] - top2[..., 1]).cpu().numpy()
+
+
+def flagship_reference(model, dev, frames) -> dict:
+    """What the flagship serving paths are held against: the plain zoo
+    forward in f32 (TF32 off), and the plain packed bf16 graph
+    (``pallas=False``, no K2), whose logit error against the f32 forward is
+    the bf16 tie band."""
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+
+    def logits_of(fn):
+        with torch.no_grad():
+            return torch.cat([fn(raw_camera_preprocess(
+                torch.from_numpy(f).to(dev))) for f in frames]).float()
+
+    ref_logits = logits_of(model)
+    plain = packed.build_packed_infer(model, None, torch.bfloat16,
+                                      pallas=False, device=dev)
+    plain_logits = logits_of(plain.logits)
+    ref = {"labels": ref_logits.argmax(-1).cpu().numpy(),
+           "gap": top2_gap(ref_logits),
+           "plain_bf16_labels": plain_logits.argmax(-1).cpu().numpy(),
+           "plain_bf16_err": float((plain_logits - ref_logits).abs().max()),
+           "logits_of": logits_of, "ref_logits": ref_logits}
+    ref["plain_bf16_agreement"] = float(
+        (ref["plain_bf16_labels"] == ref["labels"]).mean())
+    return ref
+
+
+def phase_serving(model, dev, chk: Checks, frames, targets, ref, tag: str,
+                  graph: dict, chains_per_frame: int) -> dict:
+    """One flagship main path: ``frames`` through ``ServingPipeline`` (depth
+    2) with ``infer_u8_packed`` on the bf16 chain graph built with
+    ``graph``, each served map scored by ``seg_batch_stats`` (K1), with the
+    launch counters set to 0 just before and read just after; then the
+    same graph's other serving forms and its f32 build."""
     from robocupvision_tpu_torch.models import packed
     from robocupvision_tpu_torch.ops import metrics
-    from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
     from robocupvision_tpu_torch.ops.cuda_kernels import confusion_count
     from robocupvision_tpu_torch.ops.cuda_packed import fused_conv_chain
 
-    rng = np.random.default_rng(SEED + 3)
-    frames = [rng.integers(0, 256, (1, *VGA, 3), dtype=np.uint8)
-              for _ in range(N_FRAMES)]
-    targets = rng.integers(0, 5, (N_FRAMES, 1, *VGA)).astype(np.int32)
-    res = {"phase": "serving", "frames": N_FRAMES, "shape": [1, *VGA, 3]}
-
-    # the plain zoo forward in f32 (TF32 off) is the reference
-    with torch.no_grad():
-        ref_logits = torch.cat([model(raw_camera_preprocess(
-            torch.from_numpy(f).to(dev))) for f in frames]).float()
-    ref_lab = ref_logits.argmax(-1).cpu().numpy()
-    top2 = ref_logits.topk(2, dim=-1).values
-    gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
-
+    res = {"phase": "serving", "graph": tag, "frames": len(frames),
+           "shape": [1, *VGA, 3], "pallas": graph}
     pi = packed.build_packed_infer(model, None, torch.bfloat16, pallas=True,
-                                   device=dev)
+                                   device=dev, **graph)
     device_fn, host_unpack = camera_packed(pi)
 
     # --- the main path: serve through the pipeline, score every frame ----
@@ -303,65 +405,58 @@ def phase_serving(model, dev, chk: Checks) -> dict:
                 "confusion_count": confusion_count.launches}
     res["main_path_launches"] = launches
     res["main_path_s"] = wall
-    chk.expect(launches["fused_conv_chain"] == 2 * N_FRAMES,
-               f"chain launches {launches['fused_conv_chain']} != 2/frame")
-    chk.expect(launches["confusion_count"] == N_FRAMES,
-               f"K1 launches {launches['confusion_count']} != 1/scored batch")
+    chk.expect(launches["fused_conv_chain"] == chains_per_frame * len(frames),
+               f"{tag}: chain launches {launches['fused_conv_chain']} != "
+               f"{chains_per_frame}/frame")
+    chk.expect(launches["confusion_count"] == len(frames),
+               f"{tag}: K1 launches {launches['confusion_count']} != 1/scored "
+               "batch")
 
-    # served bf16 labels against the f32 reference, beside a witness that
-    # runs no K2: the plain packed bf16 graph (pallas=False) on the same
-    # frames. Its logit error against the reference is the bf16 tie band.
-    # The chain graph may disagree with the reference at most 0.1% of
-    # pixels more often than the plain bf16 graph does, and only where the
-    # reference's top-2 logits lie within twice that band.
-    def logits_of(p):
-        with torch.no_grad():
-            return torch.cat([p.logits(raw_camera_preprocess(
-                torch.from_numpy(f).to(dev))) for f in frames]).float()
-
-    plain_logits = logits_of(packed.build_packed_infer(
-        model, None, torch.bfloat16, pallas=False, device=dev))
-    plain_lab = plain_logits.argmax(-1).cpu().numpy()
-    plain_err = float((plain_logits - ref_logits).abs().max())
-    agree_plain = float((plain_lab == ref_lab).mean())
-    del plain_logits
-    chain_err = float((logits_of(pi) - ref_logits).abs().max())
-    mism = served != ref_lab
+    # served bf16 labels against the f32 reference, beside the witness that
+    # runs no K2 (the plain packed bf16 graph): the chain graph may disagree
+    # with the reference at most 0.1% of pixels more often than the witness
+    # does, and only where the reference's top-2 logits lie within twice
+    # the witness's logit error
+    chain_err = float((ref["logits_of"](pi.logits) - ref["ref_logits"])
+                      .abs().max())
+    mism = served != ref["labels"]
     agree = 1.0 - float(mism.mean())
-    max_gap = float(gap[mism].max()) if mism.any() else 0.0
-    res.update(bf16_agreement=agree, bf16_plain_graph_agreement=agree_plain,
+    max_gap = float(ref["gap"][mism].max()) if mism.any() else 0.0
+    res.update(bf16_agreement=agree,
+               bf16_plain_graph_agreement=ref["plain_bf16_agreement"],
                bf16_chains_vs_plain_graph_agreement=float(
-                   (served == plain_lab).mean()),
+                   (served == ref["plain_bf16_labels"]).mean()),
                bf16_logit_max_abs_err=chain_err,
-               bf16_plain_graph_logit_max_abs_err=plain_err,
+               bf16_plain_graph_logit_max_abs_err=ref["plain_bf16_err"],
                bf16_mismatch_max_top2_gap=max_gap)
-    chk.expect(agree >= agree_plain - 1e-3,
-               f"bf16 served label agreement {agree} < plain bf16 graph's "
-               f"{agree_plain} - 0.001")
-    chk.expect(max_gap <= 2 * plain_err,
-               f"bf16 mismatch at a top-2 gap {max_gap} > 2x the plain bf16 "
-               f"graph's logit err {plain_err}")
+    chk.expect(agree >= ref["plain_bf16_agreement"] - 1e-3,
+               f"{tag}: bf16 served label agreement {agree} < plain bf16 "
+               f"graph's {ref['plain_bf16_agreement']} - 0.001")
+    chk.expect(max_gap <= 2 * ref["plain_bf16_err"],
+               f"{tag}: bf16 mismatch at a top-2 gap {max_gap} > 2x the plain "
+               f"bf16 graph's logit err {ref['plain_bf16_err']}")
 
     # infer_u8_io: the same frames, on-device preprocessing, (N, H, W) out
     fused_conv_chain.launches = 0
     served_io = serve(pi, frames, pi.infer_u8_io)
     res["u8_io_chain_launches"] = fused_conv_chain.launches
-    chk.expect(fused_conv_chain.launches == 2 * N_FRAMES,
-               "infer_u8_io chain launches != 2/frame")
+    chk.expect(fused_conv_chain.launches == chains_per_frame * len(frames),
+               f"{tag}: infer_u8_io chain launches != {chains_per_frame}/frame")
     chk.expect(bool(np.array_equal(served_io, served)),
-               "infer_u8_io labels differ from infer_u8_packed labels")
+               f"{tag}: infer_u8_io labels differ from infer_u8_packed labels")
 
     # f32 serve through the same kernels: >= 0.999 against the reference
     pi32 = packed.build_packed_infer(model, None, torch.float32, pallas=True,
-                                     device=dev)
+                                     device=dev, **graph)
     fn32, unpack32 = camera_packed(pi32)
     fused_conv_chain.launches = 0
     served32 = serve(pi32, frames, fn32, unpack32)
-    agree32 = float((served32 == ref_lab).mean())
-    gap32 = float(gap[served32 != ref_lab].max()) if agree32 < 1 else 0.0
+    agree32 = float((served32 == ref["labels"]).mean())
+    gap32 = float(ref["gap"][served32 != ref["labels"]].max()) \
+        if agree32 < 1 else 0.0
     res.update(f32_agreement=agree32, f32_mismatch_max_top2_gap=gap32,
                f32_chain_launches=fused_conv_chain.launches)
-    chk.expect(agree32 >= 0.999, f"f32 served label agreement {agree32}")
+    chk.expect(agree32 >= 0.999, f"{tag}: f32 served label agreement {agree32}")
 
     # scoring: K1 (impl auto) equals the plain einsum count, every field
     lab_d = torch.from_numpy(served).to(dev)
@@ -371,27 +466,165 @@ def phase_serving(model, dev, chk: Checks) -> dict:
                                                 device=dev))
     same = all(np.array_equal(getattr(a, f), getattr(e, f))
                for f in ("conf", "iou_sum", "lab_cnts", "correct", "img_cnt"))
-    chk.expect(same, "seg_batch_stats K1 != einsum")
+    chk.expect(same, f"{tag}: seg_batch_stats K1 != einsum")
     fin = metrics.seg_finalize(acc, 1.0 / (VGA[0] * VGA[1]))
     res.update(scoring_equal_einsum=same, mean_iou=float(fin["mean_iou"]),
                pixel_acc=float(fin["pixel_acc"]))
 
-    # throughput: the device function alone, and the pipeline with fetches
+    t0 = time.perf_counter()
+    serve(pi, frames, device_fn, host_unpack)
+    res["pipeline_fps_b1_bf16"] = len(frames) / (time.perf_counter() - t0)
+    emit(res)
+    return res
+
+
+def phase_device_fps(model, dev, frames) -> dict:
+    """Device frames/s of the bf16 serving function (CUDA events) at b1 and
+    b8: the plain packed graph, PR 1's two-chain graph, and the full chain
+    graph (folded stem + deep chain)."""
+    from robocupvision_tpu_torch.models import packed
+
     fps = {}
-    for pallas in (True, False):
+    for tag, kw in (("plain", dict(pallas=False)),
+                    ("chains2", dict(pallas=True)),
+                    ("chains3", dict(pallas=True, pallas_fold_stem=True,
+                                     pallas_deep=True))):
         pib = packed.build_packed_infer(model, None, torch.bfloat16,
-                                        pallas=pallas, device=dev)
+                                        device=dev, **kw)
         fnb, _ = camera_packed(pib)
         for b in (1, 8):
             xb = torch.from_numpy(np.concatenate(frames[:b])).to(dev)
-            ms = cuda_ms(lambda: fnb(xb), 20 if b == 1 else 10)
-            fps[f"{'chains' if pallas else 'plain'}_b{b}"] = b / ms * 1e3
-    res["device_fps_bf16"] = fps
-    t0 = time.perf_counter()
-    serve(pi, frames, device_fn, host_unpack)
-    res["pipeline_fps_b1_bf16"] = N_FRAMES / (time.perf_counter() - t0)
+            ms = cuda_ms(lambda: fnb(xb), 10 if b == 1 else 5)
+            fps[f"{tag}_b{b}"] = b / ms * 1e3
+    res = {"phase": "device_fps_bf16", "fps": fps}
     emit(res)
     return res
+
+
+# ---------------------------------------------------------------------------
+# PB_FCN through the tester's serve-and-score loop
+# ---------------------------------------------------------------------------
+
+
+def phase_tester(pb_model, dev, chk: Checks) -> dict:
+    """The PB_FCN deployment net (planes 32, no_scale, VGA) the way
+    ``tester.py --noScale --packed --pallas`` serves it: saved with the
+    port's ``checkpoint.save``, read back with ``load_any``, then f32
+    frames through ``serve_and_score`` at pipeline 1 and 2, with and
+    without ``pallas_deep``. Labels are held to the plain zoo forward in f32
+    (>= 0.999, mismatches only at ties), K1's confusion to the einsum, and
+    the launch counters to 2 (3 with the deep chain) K2 launches and 1 K1
+    launch a frame."""
+    from robocupvision_tpu_torch.cli import tester
+    from robocupvision_tpu_torch.data.datasets import legacy_normalize
+    from robocupvision_tpu_torch.models import packed, zoo
+    from robocupvision_tpu_torch.ops import metrics
+    from robocupvision_tpu_torch.ops.cuda_kernels import confusion_count
+    from robocupvision_tpu_torch.ops.cuda_packed import fused_conv_chain
+    from robocupvision_tpu_torch.train import checkpoint
+
+    res = {"phase": "tester_pb_fcn", "frames": N_FRAMES, "shape": [1, *VGA, 3],
+           "dtype": "float32"}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here, prefix=".chip_smoke_") as tmp:
+        path = os.path.join(tmp, "pth", "bestModelSegVGA.pth")
+        checkpoint.save(path, pb_model.registry, pb_model.state_dict())
+        loaded = checkpoint.load_any(path, pb_model.registry)
+    state = pb_model.state_dict()
+    same = list(loaded) == list(state) and all(
+        torch.equal(loaded[k], state[k].cpu()) for k in state)
+    chk.expect(same, "PB_FCN checkpoint did not read back exactly")
+    model = zoo.make("pb_fcn", planes=32, num_classes=5, kernel_size=1,
+                     no_scale=True, device=dev,
+                     generator=torch.Generator().manual_seed(SEED + 99))
+    model.load_state_dict(loaded)
+    res["checkpoint_roundtrip_exact"] = same
+
+    rng = np.random.default_rng(SEED + 6)
+    frames = [legacy_normalize(rng.integers(0, 256, (*VGA, 3)).astype(
+        np.float32) / 255.0) for _ in range(N_FRAMES)]
+    targets = rng.integers(0, 5, (N_FRAMES, *VGA)).astype(np.int32)
+    with torch.no_grad():
+        ref_logits = [model(torch.from_numpy(f[None]).to(dev)) for f in frames]
+    ref_labels = np.stack([r.argmax(-1).cpu().numpy()[0] for r in ref_logits])
+    gap = np.stack([top2_gap(r)[0] for r in ref_logits])
+
+    runs = {}
+    for deep in (False, True):
+        pi = packed.build_packed_pb_fcn(model, None, torch.float32, pallas=True,
+                                        pallas_deep=deep, device=dev)
+        with torch.no_grad():
+            err = max(float((pi.logits(torch.from_numpy(f[None]).to(dev))
+                             - r).abs().max())
+                      for f, r in zip(frames[:4], ref_logits[:4]))
+        per_frame = 3 if deep else 2
+        for depth in (1, 2):
+            served = np.zeros((N_FRAMES, *VGA), np.int64)
+
+            def keep(i, labels):
+                served[i] = labels
+
+            # --- a main path: the tester's loop, counters around it -------
+            fused_conv_chain.launches = 0
+            confusion_count.launches = 0
+            with torch.no_grad():
+                acc, t_total, n = tester.serve_and_score(
+                    pi.infer, zip(frames, targets), 5, pipeline=depth,
+                    on_mask=keep, device=dev)
+            k2, k1 = fused_conv_chain.launches, confusion_count.launches
+            key = f"{'deep' if deep else 'two_chain'}_pipeline{depth}"
+            mism = served != ref_labels
+            agree = 1.0 - float(mism.mean())
+            max_gap = float(gap[mism].max()) if mism.any() else 0.0
+            fin = metrics.seg_finalize(acc, 1.0 / (VGA[0] * VGA[1]))
+            runs[key] = {"frames": n, "ms_per_frame": t_total / n * 1000,
+                         "launches": {"fused_conv_chain": k2,
+                                      "confusion_count": k1},
+                         "f32_agreement": agree,
+                         "mismatch_max_top2_gap": max_gap,
+                         "logit_max_abs_err_4_frames": err,
+                         "pixel_acc": float(fin["pixel_acc"]),
+                         "mean_iou": float(fin["mean_iou"])}
+            chk.expect(n == N_FRAMES, f"tester {key}: served {n} frames")
+            chk.expect(k2 == per_frame * N_FRAMES,
+                       f"tester {key}: K2 launches {k2} != {per_frame}/frame")
+            chk.expect(k1 == N_FRAMES,
+                       f"tester {key}: K1 launches {k1} != 1/frame")
+            chk.expect(agree >= 0.999, f"tester {key}: f32 agreement {agree}")
+            chk.expect(max_gap <= max(1e-4, 2 * err),
+                       f"tester {key}: mismatch at a top-2 gap {max_gap} > "
+                       f"the tie band {max(1e-4, 2 * err)}")
+            if depth == 1:
+                lab_d = torch.from_numpy(served).to(dev)
+                tgt_d = torch.from_numpy(targets).to(dev)
+                a = metrics.to_host(metrics.seg_batch_stats(lab_d, tgt_d, 5,
+                                                            device=dev))
+                e = metrics.to_host(metrics.seg_batch_stats(
+                    lab_d, tgt_d, 5, impl="einsum", device=dev))
+                eq = all(np.array_equal(getattr(a, f), getattr(e, f))
+                         for f in ("conf", "iou_sum", "lab_cnts", "correct",
+                                   "img_cnt"))
+                runs[key]["scoring_equal_einsum"] = eq
+                chk.expect(eq, f"tester {key}: seg_batch_stats K1 != einsum")
+    res["runs"] = runs
+    emit(res)
+    return res
+
+
+def k2_entry(cases, launches, features) -> dict:
+    """The ``kernels`` line's K2 object: times, bound and error summed (err:
+    max) over the chains of one served frame."""
+    return {"name": "fused_conv_chain", "route": "cuda",
+            "source": "robocupvision_tpu_torch/csrc/conv_chain.cu",
+            "replaces": "robocupvision_tpu/ops/pallas_packed.py:348",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in cases),
+            "ms": sum(r["kernel_ms"] for r in cases),
+            "plain_ms": sum(r["plain_ms"] for r in cases),
+            "bound_ms": sum(r["bound_ms"] for r in cases),
+            "bound_by": ("operations" if sum(r["ops_ms"] for r in cases)
+                         > sum(r["bytes_ms"] for r in cases) else "bytes"),
+            "library_ms": None, "features": features}
 
 
 def main() -> int:
@@ -420,33 +653,45 @@ def main() -> int:
     chk = Checks()
     model = zoo.make("robo_unet", no_scale=True, device=dev,
                      generator=torch.Generator().manual_seed(SEED))
+    pb_model = zoo.make("pb_fcn", planes=32, num_classes=5, kernel_size=1,
+                        no_scale=True, device=dev,
+                        generator=torch.Generator().manual_seed(SEED + 4))
     k1 = phase_k1(dev, chk)
     k2 = phase_k2(model, dev, chk)
-    sv = phase_serving(model, dev, chk)
+    k2f = phase_k2_features(model, pb_model, dev, chk)
 
-    # the main path's shapes: one (1, 480, 640) map pair scored per frame,
-    # and per frame the bf16 down chain and the up chain with its head
+    rng = np.random.default_rng(SEED + 3)
+    frames = [rng.integers(0, 256, (1, *VGA, 3), dtype=np.uint8)
+              for _ in range(N_FRAMES)]
+    targets = rng.integers(0, 5, (N_FRAMES, 1, *VGA)).astype(np.int32)
+    ref = flagship_reference(model, dev, frames)
+    sv2 = phase_serving(model, dev, chk, frames, targets, ref, "chains2",
+                        dict(), 2)
+    sv3 = phase_serving(model, dev, chk, frames, targets, ref, "chains3",
+                        dict(pallas_fold_stem=True, pallas_deep=True), 3)
+    del ref
+    phase_device_fps(model, dev, frames)
+    ts = phase_tester(pb_model, dev, chk)
+
+    # the main paths' launches; K1's shapes: one (1, 480, 640) map pair
+    # scored per frame; K2's: the bf16 VGA b1 chains of one frame of the
+    # full chain graph (folded-stem down, deep, up with its head)
+    main_runs = [sv2["main_path_launches"], sv3["main_path_launches"]] + [
+        r["launches"] for r in ts["runs"].values()]
     k1m = k1[1]
-    main_k2 = [k2["down_b1_bf16"], k2["up_argmax_b1_bf16"]]
+    features = sorted({f for r in list(k2.values()) + list(k2f.values())
+                       for f in r["features"]})
     kernels = [
         {"name": "confusion_count", "route": "cuda",
          "source": "robocupvision_tpu_torch/csrc/confusion.cu",
          "replaces": "robocupvision_tpu/ops/pallas_kernels.py:120",
-         "launches": sv["main_path_launches"]["confusion_count"],
+         "launches": sum(r["confusion_count"] for r in main_runs),
          "max_abs_err": k1m["max_abs_err"], "ms": k1m["kernel_ms"],
          "plain_ms": k1m["plain_ms"], "bound_ms": k1m["bound_us"] / 1e3,
          "bound_by": "bytes", "library_ms": k1m["library_ms"]},
-        {"name": "fused_conv_chain", "route": "cuda",
-         "source": "robocupvision_tpu_torch/csrc/conv_chain.cu",
-         "replaces": "robocupvision_tpu/ops/pallas_packed.py:348",
-         "launches": sv["main_path_launches"]["fused_conv_chain"],
-         "max_abs_err": max(r["max_abs_err"] for r in main_k2),
-         "ms": sum(r["kernel_ms"] for r in main_k2),
-         "plain_ms": sum(r["plain_ms"] for r in main_k2),
-         "bound_ms": sum(r["bound_ms"] for r in main_k2),
-         "bound_by": ("operations" if sum(r["ops_ms"] for r in main_k2)
-                      > sum(r["bytes_ms"] for r in main_k2) else "bytes"),
-         "library_ms": None},
+        k2_entry([k2f["stem_down_b1_bf16"], k2f["deep_b1_bf16"],
+                  k2["up_argmax_b1_bf16"]],
+                 sum(r["fused_conv_chain"] for r in main_runs), features),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,0 +1,226 @@
+"""Per-image inference CLI, the reference's ``python tester.py`` (the JAX
+package's cli/tester.py).
+
+Loads the legacy-pipeline checkpoint (pth/bestModelSeg...), serves the
+SSDataSet val split one frame at a time, writes colourized PNG masks to
+output/, and prints pixel accuracy, mean class accuracy, mean IoU, the
+normalized confusion matrix and the mean per-frame latency in ms.
+``--packed`` serves the lane-packed graph in f32 (``--pallas``: its fused
+chains, kernel K2 on CUDA); scores go through ``seg_batch_stats`` (kernel
+K1 on CUDA).
+
+    python -m robocupvision_tpu_torch.cli.tester --noScale --packed --pallas
+
+runs on the CUDA card; ``main(argv, device="cpu")`` runs the plain PyTorch
+path on the CPU. ``--dump``, ``--aot`` and ``--int8`` need the export and
+int8 slices of the port and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from typing import Callable, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from robocupvision_tpu_torch.device import DeviceLike, resolve_device
+from robocupvision_tpu_torch.ops.metrics import SegAccum, seg_batch_stats_host
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Per-image inference + export")
+    for flag, h in [("--finetuned", "Use finetuned net and dataset"),
+                    ("--pruned", "Use pruned net"), ("--pruned2", "Use pruned2 net"),
+                    ("--noScale", "Use VGA resolution"), ("--v2", "Use PB-FCNv2"),
+                    ("--noBall", "Treat Ball as Background"),
+                    ("--noGoal", "Treat Goal as Background"),
+                    ("--noRobot", "Treat Robot as Background"),
+                    ("--noLine", "Treat Lines as Background"),
+                    ("--topCam", "Use Top Camera images only"),
+                    ("--bottomCam", "Use Bottom Camera images only"),
+                    ("--dump", "Dump model parameters (not ported yet)"),
+                    ("--aot", "with --dump: also write the compiled serving "
+                     "graph (not ported yet)"),
+                    ("--useCuda", "(accepted for compatibility; the CUDA "
+                     "card is used)"),
+                    ("--packed", "lane-packed inference graph "
+                     "(exact rewrite; framework extension)"),
+                    ("--pallas", "with --packed: run the packed conv regions "
+                     "as fused chain kernels (exact rewrite; framework "
+                     "extension, ops/cuda_packed.py)"),
+                    ("--int8", "with --packed --pallas: static int8 serving "
+                     "(not ported yet)")]:
+        p.add_argument(flag, help=h, action="store_true", default=False)
+    p.add_argument("--root", type=str, default=os.environ.get("ROBOCUP_DATA", "./data"))
+    p.add_argument("--pipeline", type=int, default=1, metavar="DEPTH",
+                   help="keep DEPTH frames in flight (software-pipelined "
+                   "serving; overlaps dispatch/compute/readback -- framework "
+                   "extension, utils/serving.py). 1 = the reference's serial "
+                   "per-frame timing (tester.py:142-144)")
+    return p
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_and_score(infer: Callable, frames: Iterable[Tuple[np.ndarray, np.ndarray]],
+                    num_classes: int, pipeline: int = 1,
+                    on_mask: Optional[Callable[[int, np.ndarray], None]] = None,
+                    device: DeviceLike = None) -> Tuple[SegAccum, float, int]:
+    """Serve ``frames``, (img (H, W, 3) float32, lab (H, W) int) pairs with
+    the labels already remapped, one at a time through ``infer`` ((1, H, W,
+    3) tensor on ``device`` -> (1, H, W) int labels), and score each served
+    map against its label with ``seg_batch_stats``. ``on_mask(i, labels)``
+    sees every served (H, W) map in frame order.
+
+    ``pipeline == 1`` times each call alone (input already on the device,
+    then the call to its synchronise), as the reference does; ``pipeline >
+    1`` keeps that many frames in flight (utils/serving.ServingPipeline) and
+    times the whole loop, end to end. Returns (host accumulator, seconds,
+    frames served)."""
+    from robocupvision_tpu_torch.utils.serving import ServingPipeline
+
+    dev = resolve_device(device)
+    acc = SegAccum.zero(num_classes)
+
+    def consume(i, pred, lab):
+        if on_mask is not None:
+            on_mask(i, pred.numpy()[0])
+        return seg_batch_stats_host(pred, lab[None], num_classes, device=dev)
+
+    n = 0
+    if pipeline > 1:
+        pipe = ServingPipeline(infer, depth=pipeline, device=dev)
+        labs = []
+        t0 = time.perf_counter()
+        for img, lab in frames:
+            labs.append(lab)
+            got = pipe.submit(img[None])
+            if got is not None:
+                acc = acc + consume(n, got, labs[n])
+                n += 1
+        for got in pipe.flush():
+            acc = acc + consume(n, got, labs[n])
+            n += 1
+        return acc, time.perf_counter() - t0, n
+    t_total = 0.0
+    for img, lab in frames:
+        x = torch.from_numpy(np.ascontiguousarray(img[None])).to(dev)
+        _sync(dev)
+        beg = time.perf_counter()
+        pred = infer(x)
+        _sync(dev)
+        t_total += time.perf_counter() - beg
+        acc = acc + consume(n, pred.cpu(), lab)
+        n += 1
+    return acc, t_total, n
+
+
+def main(argv=None, device: DeviceLike = None) -> int:
+    opt = build_parser().parse_args(argv)
+    dev = resolve_device(device)
+
+    from robocupvision_tpu_torch.data.datasets import SSDataSet
+    from robocupvision_tpu_torch.models import packed as packed_mod
+    from robocupvision_tpu_torch.models import zoo
+    from robocupvision_tpu_torch.ops.labels import colorize, mask_label_table
+    from robocupvision_tpu_torch.ops.metrics import seg_finalize
+    from robocupvision_tpu_torch.train import checkpoint, naming
+
+    flags = naming.Flags(v2=opt.v2, no_scale=opt.noScale, no_ball=opt.noBall,
+                         no_goal=opt.noGoal, no_robot=opt.noRobot,
+                         no_line=opt.noLine, top_cam=opt.topCam,
+                         bottom_cam=opt.bottomCam)
+    if flags.num_classes <= 1:
+        print("You need to have at least one non-background class!")
+        return -1
+    if opt.int8 and not (opt.packed and opt.pallas):
+        print("--int8 requires --packed --pallas")
+        return -1
+
+    prune_str = "Pruned" if opt.pruned else ("Pruned2" if opt.pruned2 else "")
+    camera = flags.camera
+    cam_load = camera if opt.finetuned else ""
+    scale = 1 if opt.noScale else 4
+    lab_size = (480 // scale, 640 // scale)
+    out_size = 1.0 / (lab_size[0] * lab_size[1])
+    num_classes = flags.num_classes
+
+    root = os.path.join(opt.root, "FinetuneHorizon") if opt.finetuned else opt.root
+    out_dir = "./output/FinetuneHorizon/" if opt.finetuned else "./output/"
+    os.makedirs(out_dir, exist_ok=True)
+
+    ds = SSDataSet(root, split="val", camera=camera, scale=scale)
+    if len(ds) == 0:
+        print(f"No data found under {root}")
+        return -1
+
+    if opt.v2:
+        model = zoo.make("pb_fcn_2", classify=False, num_classes=num_classes,
+                         device=dev)
+    else:
+        model = zoo.make("pb_fcn", planes=32, num_classes=num_classes,
+                         kernel_size=1, no_scale=opt.noScale, classify=False,
+                         device=dev)
+
+    path = naming.legacy_model_name(flags, seg=True, finetuned=opt.finetuned,
+                                    pruned=prune_str, camera=cam_load)
+    print(f"Loading {path}")
+    model.load_state_dict(checkpoint.load_any(path, model.registry))
+
+    if opt.dump:
+        raise NotImplementedError(
+            "--dump (and --aot with it) needs the port's export/deploy and "
+            "export/aot (ROADMAP.md A.10, export and deploy), which are not "
+            "ported yet")
+
+    table = mask_label_table(opt.noBall, opt.noRobot, opt.noGoal, opt.noLine)
+
+    if opt.packed:
+        # f32: the packed graph's labels stay those of the plain graph but
+        # for argmax ties; --pallas runs the fused chains (K2 on CUDA)
+        pk = dict(pallas=True) if opt.pallas else {}
+        build = packed_mod.build_packed_infer if opt.v2 \
+            else packed_mod.build_packed_pb_fcn
+        pi = build(model, None, torch.float32, device=dev, **pk)
+        if opt.int8:
+            raise NotImplementedError(
+                "--int8 needs quantize_int8 and K2's int8 stages (ROADMAP.md "
+                "A.9 and B.2f), which are not ported yet")
+        infer = pi.infer
+    else:
+        def infer(x):
+            return torch.argmax(model(x), dim=-1)
+
+    def write_mask(i, labels):
+        from PIL import Image
+
+        Image.fromarray(colorize(labels, 5)).save(
+            os.path.join(out_dir, "%d.png" % i))
+
+    frames = ((img, table[lab]) for img, lab in (ds[i] for i in range(len(ds))))
+    with torch.no_grad():
+        acc, t_total, n = serve_and_score(infer, frames, num_classes,
+                                          pipeline=opt.pipeline,
+                                          on_mask=write_mask, device=dev)
+    if opt.pipeline > 1:
+        print(f"Pipelined serving (depth {opt.pipeline}): end-to-end wall "
+              f"per frame below")
+
+    fin = seg_finalize(acc, out_size)
+    print("Validation Pixel Acc: %.2f Mean Class Acc: %.2f Mean IoU: %.2f"
+          % (float(fin["pixel_acc"]), float(fin["mean_class_acc"]),
+             float(fin["mean_iou"])))
+    print(np.array_str(np.asarray(fin["conf"]), precision=2, suppress_small=True))
+    print(t_total / max(n, 1) * 1000)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

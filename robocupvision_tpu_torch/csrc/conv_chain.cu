@@ -2,15 +2,24 @@
 // in ONE launch.
 //
 // Replaces the TPU kernel robocupvision_tpu/ops/pallas_packed.py
-// `fused_conv_chain` (body `_chain_kernel`), for its plain stages (3x3/s1/p1
-// or 1x1 conv, bias, folded-BN affine in either order, identity skip) and
-// its fused argmax head. The Python wrapper (ops/cuda_packed.py) rejects the
-// stage features outside this slice.
+// `fused_conv_chain` (body `_chain_kernel`), for its plain stages (KxK/s1
+// conv, optionally dilated, bias, folded-BN affine in either order or a bare
+// ReLU, identity skip), its folded space-to-depth stem (`stem_f`) and its
+// fused argmax head. The Python wrapper (ops/cuda_packed.py) rejects the
+// stage features outside these (`skip_w`, `pool`, int8).
 //
 // Stage k of a chain: y = conv(in) + b; then rbb ? relu(y)*scale + shift
-// : relu(y*scale + shift) when the stage has an affine; then y += skip;
-// rows outside the image are zero (they are the next stage's padding; the
-// columns are bounds-checked instead); y is rounded to the chain dtype.
+// : relu(y*scale + shift) when the stage has an affine, else relu(y) for a
+// `relu_only` stage; then y += skip; rows outside the image are zero (they
+// are the next stage's padding; the columns are bounds-checked instead); y
+// is rounded to the chain dtype. A conv tap (dy, dx) of a `dil`-dilated
+// stage reads input row g + dil*(dy - KH/2) and column c + dil*(dx - KW/2).
+// A `stem_f` stage (stage 0 only) reads the raw (N, f*H, f*W, cin) image as
+// its free grouped view (N, f*H, W, f*cin): output row g, tap dy in
+// [0, f+2) reads raw row f*g + dy - 1 and tap dx in [0, 3) reads group
+// c + dx - 1, i.e. the (f, 1)-strided, padding-1 conv of the JAX package's
+// chain_reference (the TPU kernel's f row-phase buffers exist only for
+// Mosaic's static strided reads and are not needed here).
 //
 // Bound on the H100: bytes. At the flagship's VGA shapes the packed taps
 // are mostly structural zeros (each original weight lands in one output
@@ -24,11 +33,12 @@
 //
 // Design, following the TPU kernel: grid (H/band, N); block (band, n) owns
 // `band` output rows of image n. Stage k produces a strip of band +
-// 2*depth[k] rows (depth[k] = the halo the later stages' 3x3 taps need),
-// recomputing halo rows instead of exchanging them between blocks -- blocks
-// of a grid cannot wait for each other. Each strip is written to a
-// per-block slice of a device workspace (in place of the TPU kernel's VMEM
-// scratch), and __syncthreads() separates the stages. Only `emit` stages write the (N, H, W, C) outputs. The argmax head
+// 2*depth[k] rows (depth[k] = the halo the later stages' taps need, reach
+// dil*(K/2) each), recomputing halo rows instead of exchanging them between
+// blocks -- blocks of a grid cannot wait for each other. Each strip is
+// written to a per-block slice of a device workspace (in place of the TPU
+// kernel's VMEM scratch), and __syncthreads() separates the stages. Only
+// `emit` stages write the (N, H, W, C) outputs. The argmax head
 // writes its rounded logits to the workspace and a last pass picks per
 // group the first maximum (jnp.argmax / torch.argmax tie rule), so labels
 // equal argmax(logits) exactly. A thread computes PIX adjacent pixels x COB
@@ -43,14 +53,18 @@
 // Mirrored by ctypes structures in ops/cuda_packed.py: keep the field
 // order and types in step.
 struct RcvStage {
-  const void* w;       // (K, K, cin, cout) chain dtype, 16-byte aligned
+  const void* w;       // (kh, kw, cin, cout) chain dtype, 16-byte aligned
   const float* b;      // (cout,) f32
   const float* scale;  // (cout,) f32, or null: no affine (the head)
   const float* shift;  // (cout,) f32
   void* out;           // emitted (N, H, W, cout) chain dtype, (N, H, W, G)
                        // int32 for the argmax head, or null
   long long ws_off;    // element offset of the strip in a block's workspace
-  int k, cin, cout, rbb, skip_idx, argmax_groups, depth, pad_;
+  int kh, kw, cin, cout, rbb, skip_idx, argmax_groups, depth;
+  int dil;             // tap spacing (1: a plain conv)
+  int stem_f;          // stage 0 only: the folded stem's factor f, else 0
+  int relu_only;       // no affine: y = relu(conv + b)
+  int pad_;
 };
 
 struct RcvChain {
@@ -118,13 +132,17 @@ __device__ __forceinline__ void load_w(const __nv_bfloat16* __restrict__ p,
 
 // One stage over this block's strip. `in` holds rows [in_row0, in_row0 +
 // in_rows) of the stage input (the image itself for stage 0, the previous
-// strip otherwise); rows outside it read as zero.
+// strip otherwise), each W * cin wide; rows outside it read as zero.
 template <typename T, int COB>
 __device__ void conv_stage(const RcvChain& c, const RcvStage& st, int img,
                            int off, const T* __restrict__ in, int in_row0,
                            int in_rows, T* __restrict__ strip_out) {
-  const int W = c.w, H = c.h, cin = st.cin, cout = st.cout, K = st.k;
-  const int R = K / 2;
+  const int W = c.w, H = c.h, cin = st.cin, cout = st.cout;
+  const int KH = st.kh, KW = st.kw, dil = st.dil;
+  // input row of tap dy for output row g: sy*g + dil*dy - py
+  const int sy = st.stem_f ? st.stem_f : 1;
+  const int py = st.stem_f ? 1 : dil * (KH / 2);
+  const int px = dil * (KW / 2);
   const int d = st.depth;
   const int strip = c.band + 2 * d;
   const int row0 = off - d;
@@ -153,18 +171,18 @@ __device__ void conv_stage(const RcvChain& c, const RcvStage& st, int img,
       for (int q = 0; q < COB; ++q) acc[p][q] = 0.f;
 
     if (in_image) {  // rows outside the image end as zero: skip their math
-      for (int dy = 0; dy < K; ++dy) {
-        const int lr = g + dy - R - in_row0;
+      for (int dy = 0; dy < KH; ++dy) {
+        const int lr = sy * g + dil * dy - py - in_row0;
         if (lr < 0 || lr >= in_rows) continue;
         const T* in_row = in + (long long)lr * W * cin;
-        for (int dx = 0; dx < K; ++dx) {
+        for (int dx = 0; dx < KW; ++dx) {
           const T* wt = static_cast<const T*>(st.w) +
-                        (long long)(dy * K + dx) * cin * cout + co0;
+                        (long long)(dy * KW + dx) * cin * cout + co0;
           int col[kPix];
           bool ok[kPix];
 #pragma unroll
           for (int p = 0; p < kPix; ++p) {
-            col[p] = col0 + p + dx - R;
+            col[p] = col0 + p + dil * dx - px;
             ok[p] = col0 + p < W && col[p] >= 0 && col[p] < W;
           }
           for (int ci = 0; ci < cin; ++ci) {
@@ -197,6 +215,8 @@ __device__ void conv_stage(const RcvChain& c, const RcvStage& st, int img,
           if (st.scale != nullptr) {
             const float s = st.scale[co], sh = st.shift[co];
             y = st.rbb ? fmaxf(y, 0.f) * s + sh : fmaxf(y * s + sh, 0.f);
+          } else if (st.relu_only) {
+            y = fmaxf(y, 0.f);
           }
           if (skip != nullptr)
             y += to_f(skip[(((long long)img * H + g) * W + cc) * cout + co]);
@@ -252,9 +272,10 @@ __global__ void __launch_bounds__(kThreads) chain_kernel(const RcvChain c) {
     const T* in;
     int in_row0, in_rows;
     if (s == 0) {
-      in = static_cast<const T*>(c.x) + (long long)img * c.h * c.w * st.cin;
+      // a stem reads the raw image: f*H rows of W groups of f*cin values
+      in_rows = st.stem_f ? st.stem_f * c.h : c.h;
+      in = static_cast<const T*>(c.x) + (long long)img * in_rows * c.w * st.cin;
       in_row0 = 0;
-      in_rows = c.h;
     } else {
       const RcvStage& prev = c.st[s - 1];
       in = ws + prev.ws_off;

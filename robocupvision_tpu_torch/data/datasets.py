@@ -1,0 +1,124 @@
+"""The legacy segmentation dataset reader (the JAX package's
+data/datasets.py ``SSDataSet`` and its helpers).
+
+Layout (reference dataset.py:135-189, trainer.py:75-104):
+root/{split}/{images,labels}/*.png, sorted by the reference's alphanumeric
+key, with optional per-image camera sidecars ``*.txt`` holding 'u' (top) or
+'b' (bottom). Images pass the Scale -> ToYUV -> Normalize([.5, 0, 0],
+[.5, .5, .5]) stack and come back as (H, W, 3) float32 numpy arrays, labels
+as (H, W) int32.
+
+Pillow is imported inside the functions that read files, so that importing
+this module needs no Pillow.
+"""
+
+from __future__ import annotations
+
+import os
+import os.path as osp
+import re
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+
+# BT.601 matrix (skimage.color.yuv_from_rgb) for the legacy ToYUV stack
+_YUV_FROM_RGB = np.array([[0.299, 0.587, 0.114],
+                          [-0.14714119, -0.28886916, 0.43601035],
+                          [0.61497538, -0.51496512, -0.10001026]])
+
+
+def alphanum_key(s: str):
+    return [int(c) if c.isdigit() else c for c in re.split(r"([0-9]+)", s)]
+
+
+def _list_files(d: str, ext: str) -> List[str]:
+    if not osp.isdir(d):
+        return []
+    return sorted([f for f in os.listdir(d) if f.endswith(ext)],
+                  key=alphanum_key)
+
+
+def _list_pngs(d: str) -> List[str]:
+    return _list_files(d, ".png")
+
+
+def _camera_filter(img_dir: str, imgs: Sequence[str], labs: Sequence[str],
+                   camera: str) -> Tuple[List[str], List[str]]:
+    """Keep the frames of ``camera`` ("top", "bottom" or "both"); without
+    one sidecar per image every frame is kept."""
+    txts = _list_files(img_dir, ".txt")
+    if len(txts) != len(imgs):
+        return list(imgs), list(labs)
+    keep_i, keep_l = [], []
+    for img, lab, txt in zip(imgs, labs, txts):
+        with open(osp.join(img_dir, txt)) as f:
+            char = f.read()
+        if (camera == "both" or (camera == "top" and char == "u")
+                or (camera == "bottom" and char == "b")):
+            keep_i.append(img)
+            keep_l.append(lab)
+    return keep_i, keep_l
+
+
+def load_image_rgb(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """PNG -> (H, W, 3) float32 in [0, 1]; PIL bilinear resize to (h, w)."""
+    from PIL import Image
+
+    img = Image.open(path).convert("RGB")
+    if size is not None and (img.size[1], img.size[0]) != tuple(size):
+        img = img.resize((size[1], size[0]), Image.BILINEAR)
+    return np.asarray(img, dtype=np.float32) / 255.0
+
+
+def load_label(path: str, size: Optional[Tuple[int, int]] = None) -> np.ndarray:
+    """PNG -> (H, W) int32; PIL nearest resize."""
+    from PIL import Image
+
+    lab = Image.open(path).convert("I")
+    if size is not None and (lab.size[1], lab.size[0]) != tuple(size):
+        lab = lab.resize((size[1], size[0]), Image.NEAREST)
+    return np.asarray(lab, dtype=np.int32)
+
+
+def to_yuv_legacy(img01: np.ndarray) -> np.ndarray:
+    """The legacy transform stack's colour conversion (transform.py:21-24)."""
+    return (img01 @ _YUV_FROM_RGB.T).astype(np.float32)
+
+
+def legacy_normalize(img01: np.ndarray) -> np.ndarray:
+    """ToYUV, then Normalize([.5, 0, 0], [.5, .5, .5]), as float32."""
+    img = to_yuv_legacy(img01)
+    img = (img - np.array([0.5, 0.0, 0.0], np.float32)) / np.float32(0.5)
+    return img.astype(np.float32)
+
+
+class SSDataSet:
+    """Legacy segmentation dataset with the Scale/ToYUV/Normalize stack
+    (reference dataset.py:135-189 + trainer.py:75-104)."""
+
+    def __init__(self, root: str, split: str = "train", camera: str = "both",
+                 scale: int = 4):
+        self.scale = scale
+        data_dir = osp.join(root, split)
+        self.img_dir = osp.join(data_dir, "images")
+        self.lab_dir = osp.join(data_dir, "labels")
+        imgs = _list_pngs(self.img_dir)
+        labs = _list_pngs(self.lab_dir)
+        self.images, self.labels = _camera_filter(self.img_dir, imgs, labs,
+                                                  camera)
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        path = osp.join(self.img_dir, self.images[i])
+        size = None
+        if self.scale != 1:
+            from PIL import Image
+
+            with Image.open(path) as im:
+                w, h = im.size
+            size = (int(h / self.scale), int(w / self.scale))
+        img = legacy_normalize(load_image_rgb(path, size))
+        lab = load_label(osp.join(self.lab_dir, self.labels[i]), size)
+        return img, lab

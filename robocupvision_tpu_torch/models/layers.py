@@ -1,5 +1,5 @@
 """Parameter registry, the registry-named ``nn.Module``, and the eval-mode
-block functions of the ROBO-UNet flagship.
+block functions of the ROBO-UNet, PB_FCN and PB_FCN_2 families.
 
 ``Registry`` is a copy of the JAX package's: it declares parameters in
 PyTorch state_dict order with PyTorch state_dict names (e.g.
@@ -16,9 +16,12 @@ buffers) under exactly the registry names, so ``state_dict()`` keys and
 order are the registry's (and the reference's torch checkpoints').
 
 Block functions take a flat ``{name: tensor}`` dict and NHWC activations and
-reproduce the reference's op orders (its model.py:105-199):
-  conv_block:  conv -> ReLU -> BN        (BN after ReLU!)
-  up_tconv:    tconv -> BN -> ReLU
+reproduce the reference's op orders (its model.py:105-199, 256-267):
+  conv_block:        conv -> ReLU -> BN        (BN after ReLU!)
+  conv_pool_simple:  conv -> BN -> ReLU
+  conv_pool:         dilated conv1 -> ReLU -> stride-2 pool conv -> BN -> ReLU
+  up_tconv:          tconv -> BN -> ReLU
+  classifier:        optional max pool -> conv
 """
 
 from __future__ import annotations
@@ -184,6 +187,32 @@ def conv_block(p, name, x, stride, k):
     return bn(p, name + ".bn", nn.relu(y))
 
 
+# Reference block: ConvPoolSimple = conv -> BN -> ReLU (model.py:166-176)
+def conv_pool_simple_def(r: Registry, name: str, cin: int, cout: int, k: int,
+                         bias: bool) -> None:
+    r.conv(name + ".conv", cin, cout, k, bias=bias)
+    r.bn(name + ".bn", cout)
+
+
+def conv_pool_simple(p, name, x, stride, padding, dilation):
+    y = conv(p, name + ".conv", x, stride=stride, padding=padding,
+             dilation=dilation)
+    return nn.relu(bn(p, name + ".bn", y))
+
+
+# Reference block: ConvPool (model.py:126-142)
+def conv_pool_def(r: Registry, name: str, cin: int, cout: int) -> None:
+    r.conv(name + ".conv1", cin, cout, 3, bias=False)
+    r.conv(name + ".pool", cout, cout, 3, bias=False)
+    r.bn(name + ".bn", cout)
+
+
+def conv_pool(p, name, x):
+    y = nn.relu(conv(p, name + ".conv1", x, padding=2, dilation=2))
+    y = conv(p, name + ".pool", y, stride=2, padding=1)
+    return nn.relu(bn(p, name + ".bn", y))
+
+
 # Reference block: upSampleTransposeConv = tconv -> BN -> ReLU (model.py:178-194)
 def up_tconv_def(r: Registry, name: str, cin: int, cout: int) -> None:
     r.tconv(name + ".conv", cin, cout, 3, bias=True)
@@ -227,12 +256,33 @@ def level_down(p, name, x, levels, do_pool, pool):
     return x
 
 
-# Reference block: UltClassifier (model.py:403-414) in its segmentation form
-# (ROBO-UNet never takes the pooled classification branch)
+# Reference block: UltClassifier (model.py:403-414)
 def ult_classifier_def(r: Registry, name: str, cin: int, n_class: int,
                        size: int = 1) -> None:
     r.conv(name + ".layers.Class", cin, n_class, size, bias=True)
 
 
-def ult_classifier(p, name, x, size: int):
+def ult_classifier(p, name, x, size: int, pool: bool = False):
+    """``pool``: the classification form, a global mean over H, W first
+    (AdaptiveAvgPool2d(1); its dropout is a training-time op)."""
+    if pool:
+        x = torch.mean(x, dim=(1, 2), keepdim=True)
     return conv(p, name + ".layers.Class", x, padding=size // 2)
+
+
+def join(name: str, child: str) -> str:
+    """Module-path join tolerating an empty prefix (standalone heads keep the
+    reference's bare torch names, e.g. 'classifier.weight')."""
+    return child if not name else name + "." + child
+
+
+# Reference block: Classifier (model.py:256-267)
+def classifier_def(r: Registry, name: str, cin: int, n_class: int,
+                   kernel: int = 1) -> None:
+    r.conv(join(name, "classifier"), cin, n_class, kernel, bias=True)
+
+
+def classifier(p, name, x, pool_size: int, kernel: int):
+    if pool_size > 1:
+        x = nn.max_pool(x, pool_size, pool_size)
+    return conv(p, join(name, "classifier"), x, padding=kernel // 2)

@@ -1,4 +1,5 @@
-"""Lane-packed (space-to-depth) ROBO-UNet inference graph, flagship plan.
+"""Lane-packed (space-to-depth) inference graphs: the flagship ROBO-UNet
+plan (PB_FCN_2 rides it) and PB_FCN.
 
 An exact graph rewrite (the JAX package's models/packed.py): the top of
 the U-Net trades spatial resolution for channels (space-to-depth by 4 at
@@ -19,9 +20,17 @@ packed channel order is (py*f + px)*C + c.
 as fused chains (ops/cuda_packed.fused_conv_chain, kernel K2 on CUDA):
 [L1C0, L1C1, L2C0, L2C1] after the stem, and [Up(D-3)+skip,
 Up(D-2)+skip, head] before the output, the head fusing the serving argmax.
-``pallas=False`` is the plain PyTorch packed graph. The stem stays a plain
-conv with stride (f, 1) over the grouped input view, and the f == 1 levels
-run the zoo's blocks, in both forms.
+``pallas_fold_stem`` moves the stem into the down chain (its stage 0 reads
+the raw image), and ``pallas_deep`` runs Level(D-1).Conv1 and the PB belly
+as a third chain on the deepest grid. Otherwise the stem is a plain conv
+with stride (f, 1) over the grouped input view, and the f == 1 levels run
+the zoo's blocks. ``pallas=False`` is the plain PyTorch packed graph.
+
+``build_packed_pb_fcn`` does the same for PB_FCN: its down chain [conv0,
+conv1, conv2.conv1 (ReLU only), conv2.pool] on the 1/4-resolution grid,
+its up chain [up(n-1)+skip, up(n)+skip, head], and with ``pallas_deep``
+the dilated conv1 of the next ConvPool in the down chain and the five
+dilated deep convs as a third chain.
 
 The packers work on numpy arrays in the JAX package's HWIO layout (their
 arithmetic is layout-bound); ``build_packed_infer`` takes the port's
@@ -39,7 +48,8 @@ import torch
 from robocupvision_tpu_torch.device import DeviceLike, resolve_device
 from robocupvision_tpu_torch.export.torch_io import to_jax_params
 from robocupvision_tpu_torch.models import layers as L
-from robocupvision_tpu_torch.models.zoo import Model, RoboUNetCfg
+from robocupvision_tpu_torch.models.zoo import (Model, PBFCN2Cfg, PBFCNCfg,
+                                                RoboUNetCfg)
 from robocupvision_tpu_torch.ops import cuda_packed as ckp
 from robocupvision_tpu_torch.ops import nn
 from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
@@ -167,14 +177,19 @@ def _fold_bn(np_params: NpParams, name: str):
 class _Blk:
     """One block of a packed inference plan.
 
-    kind: "stem"   first conv, space-to-depth folded into an (f+2, 3) kernel
-                   over the free (N, H, W/f, f*cin) reshape;
-          "pconv"  conv(+BN affine) on the packed grid (the plain
-                   conv_block when f_in == f_out == 1);
-          "ptconv" k3/s2/p1/op1 transpose conv (the plain up_tconv at
-                   f_out 1);
-          "head"   bias-only classifier conv.
-    rbb: conv -> ReLU -> BN (conv_block) vs conv -> BN -> ReLU (up_tconv).
+    kind: "stem"     first conv, space-to-depth folded into an (f+2, 3)
+                     kernel over the free (N, H, W/f, f*cin) reshape;
+          "pconv"    conv(+BN affine) on the packed grid (the plain
+                     conv_block / conv_pool_simple when f_in == f_out == 1);
+          "pconv_nr" conv + ReLU, no BN (ConvPool.conv1);
+          "ptconv"   k3/s2/p1/op1 transpose conv (the plain up_tconv at
+                     f_out 1);
+          "head"     bias-only classifier conv.
+    rbb: conv -> ReLU -> BN (conv_block) vs conv -> BN -> ReLU
+    (conv_pool_simple, up_tconv). pad/dil: the f == 1 plain block's (the
+    packed taps encode them). wkey/bnkey: param prefixes of blocks whose
+    keys do not follow name + ".conv" / name + ".bn" (ConvPool's
+    conv1/pool/bn).
     """
 
     kind: str
@@ -184,14 +199,20 @@ class _Blk:
     stride: int = 1
     rbb: bool = True
     k: int = 3
+    pad: int = 1
+    dil: int = 1
+    wkey: str = ""
+    bnkey: str = ""
 
     @property
     def w_prefix(self) -> str:
+        if self.wkey:
+            return self.wkey
         return self.name if self.kind == "head" else self.name + ".conv"
 
     @property
     def bn_prefix(self) -> str:
-        return self.name + ".bn"
+        return self.bnkey or self.name + ".bn"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,9 +262,10 @@ class _PackedBase:
 
     def _labels_packed(self, x: torch.Tensor) -> torch.Tensor:
         """(N, H/4, W/4, 16) int32 per-phase labels. Chain graphs fuse this
-        argmax into the head stage's kernel; the plain packed graph argmaxes
-        the packed logits (first max wins, as in the kernel)."""
-        if self.chains is not None:
+        argmax into the head stage's kernel (unless built with
+        ``pallas_argmax_head=False``); otherwise the packed logits are
+        argmaxed (first max wins, as in the kernel)."""
+        if self.chains is not None and self.chains["argmax_head"]:
             return self._logits_packed(x, argmax=True)
         lp = self._logits_packed(x)
         n, hp, wp, _ = lp.shape
@@ -344,9 +366,14 @@ class _PackedBase:
                 return L.up_tconv(p, blk.name, x)
             y = self._conv_packed(blk.w_prefix, x)
             return self._affine(blk.w_prefix, y, False)
+        if blk.kind == "pconv_nr":  # conv + ReLU, no BN (ConvPool.conv1)
+            return nn.relu(self._conv_packed(blk.w_prefix, x))
         assert blk.kind == "pconv", blk.kind
         if blk.f_in == 1 and blk.f_out == 1:
-            return L.conv_block(p, blk.name, x, blk.stride, blk.k)
+            if blk.rbb:
+                return L.conv_block(p, blk.name, x, blk.stride, blk.k)
+            return L.conv_pool_simple(p, blk.name, x, blk.stride, blk.pad,
+                                      blk.dil)
         y = self._conv_packed(blk.w_prefix, x)
         return self._affine(blk.w_prefix, y, blk.rbb)
 
@@ -365,8 +392,8 @@ class PackedInfer(_PackedBase):
     plain: Params        # the state_dict (mid/low levels), in ``dtype``
     dtype: torch.dtype
     device: torch.device
-    # fused-region mode (build_packed_infer(pallas=True)): the top region's
-    # conv chains run as two K2 launches instead of separate convs
+    # fused-region mode (build_packed_infer(pallas=True)): the packed-grid
+    # conv chains run as K2 launches instead of separate convs
     chains: Optional[dict] = None
 
     def _belly(self, h: torch.Tensor) -> torch.Tensor:
@@ -396,24 +423,37 @@ class PackedInfer(_PackedBase):
 
     def _logits_packed_chains(self, x: torch.Tensor,
                               argmax: bool = False) -> torch.Tensor:
-        """Flagship plan with the two packed-grid conv regions fused:
-        [L1C0, L1C1, L2C0, L2C1] after the stem and [Up(D-3)+skip,
-        Up(D-2)+skip, head] before the output. ``argmax``: the head stage
-        emits fused per-phase int32 labels (serving form)."""
+        """Flagship plan with the packed-grid conv regions fused:
+        [L1C0, L1C1, L2C0, L2C1] after the stem (the stem too with
+        ``fold_stem``), [Up(D-3)+skip, Up(D-2)+skip, head] before the
+        output, and with ``deep`` [Level(D-1).Conv1.., PB_1.*, PB_2.Conv0]
+        on the deepest grid. ``argmax``: the head stage emits fused
+        per-phase int32 labels (serving form)."""
         plan, ch = self.plan, self.chains
         h = x.to(self.dtype)
         feats = {}
-        for blk in plan.downs[0]:
-            h = self._blk(blk, h)     # stem (plain conv)
-        feats[0] = h
-        feats[1], feats[2] = self._chain(h, ch["down"])
+        if ch["fold_stem"]:
+            # stage 0 reads the raw image and emits feats0 itself
+            feats[0], feats[1], feats[2] = self._chain(h, ch["down"])
+        else:
+            for blk in plan.downs[0]:
+                h = self._blk(blk, h)     # stem (plain conv)
+            feats[0] = h
+            feats[1], feats[2] = self._chain(h, ch["down"])
         h = feats[2]
         D = len(plan.downs)
+        deep = ch.get("deep")
         for lvl in range(3, D):
-            for blk in plan.downs[lvl]:
+            blks = plan.downs[lvl]
+            if deep is not None and lvl == D - 1:
+                # the strided Level(D-1).Conv0 stays plain; the rest of the
+                # level and the belly are one chain on the deepest grid
+                h = self._chain(self._blk(blks[0], h), deep)[-1]
+                break
+            for blk in blks:
                 h = self._blk(blk, h)
             feats[lvl] = h
-        if plan.belly:
+        if plan.belly and deep is None:
             h = self._belly(h)
         up = h
         for j in range(D - 3):             # f == 1 ups stay on the plain path
@@ -425,7 +465,8 @@ class PackedInfer(_PackedBase):
 def _pack_blocks(np_params: NpParams, blks, dtype, device) -> Params:
     """Pack + BN-fold the weights of every packed block of a plan. Kernels
     are stored in torch's OIHW layout for the plain packed convs; every
-    tensor is in ``dtype`` (as the JAX package stores them)."""
+    tensor is in ``dtype`` (as the JAX package stores them). ``pconv_nr``
+    blocks get no affine."""
     packed: Params = {}
 
     def put(key, arr):
@@ -441,7 +482,7 @@ def _pack_blocks(np_params: NpParams, blks, dtype, device) -> Params:
             bias = np.zeros(np_params[blk.w_prefix + ".weight"].shape[-1],
                             np.float32)
         put(blk.w_prefix + ".b", np.tile(bias, t))
-        if blk.kind != "head":
+        if blk.kind not in ("head", "pconv_nr"):
             scale, shift = _fold_bn(np_params, blk.bn_prefix)
             put(blk.w_prefix + ".scale", np.tile(scale, t))
             put(blk.w_prefix + ".shift", np.tile(shift, t))
@@ -457,14 +498,17 @@ def _pack_blocks(np_params: NpParams, blks, dtype, device) -> Params:
                                                  transpose=True))
         else:
             put_w(blk.w_prefix, pack_conv_weight(w, blk.f_in, blk.f_out,
-                                                 blk.stride))
+                                                 blk.stride,
+                                                 dilation=blk.dil))
         put_vectors(blk, blk.f_out * blk.f_out)
     return packed
 
 
 def _packed_stage(packed: Params, prefix: str, **kw) -> ckp.ChainStage:
-    """ChainStage from a packed block: its kernel back in (K, K, Cin, Cout)
-    at ``dtype``, and its vectors as f32 copies of the ``dtype`` values."""
+    """ChainStage from a packed block: its kernel back from OIHW to
+    (KH, KW, Cin, Cout) at ``dtype`` (the stem's is (f+2, 3, f*cin, Cout)),
+    its vectors as f32 copies of the ``dtype`` values, no affine for the
+    head and ``pconv_nr`` blocks."""
     scale = packed.get(prefix + ".scale")
     return ckp.ChainStage(
         w=packed[prefix + ".w"].permute(2, 3, 1, 0).contiguous(),
@@ -493,9 +537,13 @@ def _plain_stage(np_params: NpParams, name: str, dtype, device, rbb: bool,
 
 
 def _build_flagship_chains(cfg: RoboUNetCfg, packed: Params,
-                           np_params: NpParams, dtype, device) -> dict:
-    """ChainStage lists for the flagship plan's two fused regions (the
-    non-v2 plan with levels in (1, 2))."""
+                           np_params: NpParams, dtype, device,
+                           fold_stem: bool, deep: bool) -> dict:
+    """ChainStage lists for the flagship plan's fused regions (the non-v2
+    plan with levels in (1, 2)). ``fold_stem``: the down chain starts at
+    the raw image with the grouped space-to-depth stem as stage 0 and emits
+    feats0. ``deep``: Level(D-1).Conv1.. plus the PB belly, all stride-1
+    conv_blocks on the deepest grid, as a third chain."""
     D = cfg.eff_depth
     nI = cfg.levels  # convs per down level (Conv0 strided + nI-1 preserving)
     down = [_packed_stage(packed, f"downPart.Level1.layers.Conv{i}.conv",
@@ -507,34 +555,59 @@ def _build_flagship_chains(cfg: RoboUNetCfg, packed: Params,
         down.append(_plain_stage(np_params, f"downPart.Level2.layers.Conv{i}",
                                  dtype, device, rbb=True))
     down[-1] = dataclasses.replace(down[-1], emit=True)   # feats[2]
+    if fold_stem:
+        down.insert(0, _packed_stage(packed, "downPart.Level0.layers.Conv0.conv",
+                                     rbb=True, emit=True, stem_f=4))
     up = [
         _packed_stage(packed, f"upPart.Up{D - 3}.conv", rbb=False, skip_idx=0),
         _packed_stage(packed, f"upPart.Up{D - 2}.conv", rbb=False, skip_idx=1),
         _packed_stage(packed, "segmenter.layers.Class", rbb=False),
     ]
-    return {"down": down, "up": up}
+    chains = {"down": down, "up": up, "fold_stem": fold_stem}
+    if deep:
+        names = [f"downPart.Level{D - 1}.layers.Conv{i}" for i in range(1, nI)] \
+            + [f"PB.PB_1.layers.Conv{i}"
+               for i in range(max(cfg.belly_size - 1, 1))] \
+            + ["PB.PB_2.layers.Conv0"]
+        chains["deep"] = [_plain_stage(np_params, n, dtype, device, rbb=True)
+                          for n in names]
+    return chains
 
 
 def build_packed_infer(model: Model, params: Optional[Params] = None,
                        dtype: torch.dtype = torch.bfloat16,
                        pallas: bool = False, pallas_fold_stem: bool = False,
                        pallas_deep: bool = False,
+                       pallas_argmax_head: bool = True,
                        device: DeviceLike = None) -> PackedInfer:
-    """Compile a flagship ROBO-UNet for inference (exact rewrite).
+    """Compile a flagship ROBO-UNet, or PB_FCN_2's segmentation net, for
+    inference (exact rewrite).
 
     ``params``: the port's state_dict (``model.state_dict()`` when None).
-    ``pallas=True``: the two packed-grid regions run as fused chains (K2 on
-    CUDA; the flag keeps the JAX package's name). Runs on ``device``
-    (``cuda`` unless the caller passes another). The folded stem and the
-    deep chain are not ported yet."""
+    ``pallas=True``: the packed-grid regions run as fused chains (K2 on
+    CUDA; the flags keep the JAX package's names), the stem folded into the
+    down chain with ``pallas_fold_stem`` and the deepest grid's convs as a
+    third chain with ``pallas_deep``. ``pallas_argmax_head=False`` keeps the
+    logits head and argmaxes outside the kernel. Runs on ``device``
+    (``cuda`` unless the caller passes another)."""
     dev = resolve_device(device)
-    if pallas_fold_stem or pallas_deep:
-        raise NotImplementedError(
-            "pallas_fold_stem / pallas_deep need K2's stem_f and dil stage "
-            "slices, which are not ported yet")
     cfg = model.cfg
-    if not isinstance(cfg, RoboUNetCfg) or cfg.v2 or cfg.pool:
-        raise NotImplementedError("only the flagship ROBO-UNet plan is ported")
+    if isinstance(cfg, PBFCN2Cfg):
+        # PB_FCN_2's segmentation graph is the flagship plan under the same
+        # block names; only its unused classification head differs
+        if cfg.classify or cfg.levels != 2:
+            raise ValueError("the packed PB_FCN_2 graph is its segmentation "
+                             "net with levels == 2")
+        cfg = RoboUNetCfg(planes=cfg.planes, num_classes=cfg.num_classes,
+                          depth=cfg.depth, levels=cfg.levels,
+                          belly_size=cfg.belly_size,
+                          belly_planes=cfg.belly_planes)
+    if not isinstance(cfg, RoboUNetCfg):
+        raise ValueError("build_packed_infer takes ROBO-UNet and PB_FCN_2; "
+                         "use build_packed_pb_fcn for PB_FCN")
+    if cfg.v2 or cfg.pool:
+        raise NotImplementedError("the --v2 and --UNet plans are not ported "
+                                  "yet")
     if cfg.eff_depth < 4:
         raise ValueError("the packed plan needs eff_depth >= 4")
     plan = _robo_unet_plan(cfg)
@@ -550,8 +623,167 @@ def build_packed_infer(model: Model, params: Optional[Params] = None,
             raise NotImplementedError(
                 "the ported chains cover the 1x1-head flagship with levels "
                 "in (1, 2)")
-        chains = _build_flagship_chains(cfg, packed, np_params, dtype, dev)
+        if pallas_deep and cfg.belly_size == 0:
+            raise ValueError("the deep chain covers strided plans with a PB "
+                             "belly")
+        chains = _build_flagship_chains(cfg, packed, np_params, dtype, dev,
+                                        pallas_fold_stem, pallas_deep)
+        chains["argmax_head"] = pallas_argmax_head
     return PackedInfer(cfg, plan, packed, plain, dtype, dev, chains)
+
+
+# ---------------------------------------------------------------------------
+# PB_FCN
+# ---------------------------------------------------------------------------
+
+
+def _pb_fcn_blks(cfg: PBFCNCfg):
+    """Packed blocks of the PB_FCN top (reference model.py:201-232,
+    269-309). FCN.conv0 is a dilated (d=2) ConvPoolSimple, packed by the
+    dilation-aware pack_conv_weight (taps r = q + dil*(d-1), valid for
+    dil <= f); the f == 1 levels stay plain."""
+    ups = []
+    n_up = 4 if cfg.no_scale else 3
+    for j in range(n_up):
+        r = n_up - 1 - j  # output resolution level
+        ups.append(_Blk("ptconv", f"up{j + 1}", _f_at(r + 1), _f_at(r),
+                        rbb=False))
+    return [
+        _Blk("pconv", "FCN.conv0", 4, 4, rbb=False, dil=2, pad=2),
+        _Blk("pconv", "FCN.conv1", 4, 2, stride=2, rbb=False),
+        _Blk("pconv_nr", "FCN.conv2", 2, 2, dil=2, wkey="FCN.conv2.conv1"),
+        _Blk("pconv", "FCN.conv2", 2, 1, stride=2, rbb=False,
+             wkey="FCN.conv2.pool", bnkey="FCN.conv2.bn"),
+    ] + ups + [
+        _Blk("head", "segmenter.classifier", 4, 4, k=cfg.kernel_size,
+             pad=cfg.kernel_size // 2),
+    ]
+
+
+@dataclasses.dataclass
+class PackedPBFCNInfer(_PackedBase):
+    """Compiled-for-inference PB_FCN segmentation net (reference
+    model.py:269-309 over the DownSampler encoder model.py:201-232), the net
+    tester.py serves and the C++ engine deploys. Exact rewrite of
+    zoo.pb_fcn_apply (segment mode)."""
+
+    cfg: PBFCNCfg
+    packed: Params
+    plain: Params
+    dtype: torch.dtype
+    device: torch.device
+    chains: Optional[dict] = None   # fused regions (pallas=True)
+
+    def _logits_packed(self, x: torch.Tensor, argmax: bool = False
+                       ) -> torch.Tensor:
+        cfg, p, ch = self.cfg, self.plain, self.chains
+        assert not argmax or ch is not None  # the fused argmax is a chain head
+        dc = ch.get("deep") if ch is not None else None
+        blks = {b.kind + ":" + b.name: b for b in _pb_fcn_blks(cfg)}
+        h = space_to_depth(x.to(self.dtype), 4)
+
+        def cps(name, x):
+            return L.conv_pool_simple(p, name, x, 1, 2, 2)
+
+        def pool_tail(name, y):
+            # the stride-2 pool conv + BN tail of a ConvPool whose dilated
+            # conv1 ran as the down chain's last stage
+            y = L.conv(p, name + ".pool", y, stride=2, padding=1)
+            return nn.relu(L.bn(p, name + ".bn", y))
+
+        if ch is not None:
+            outs = self._chain(h, ch["down"])
+            x0, x1, x2 = outs[:3]
+        else:
+            x0 = self._blk(blks["pconv:FCN.conv0"], h)
+            x1 = self._blk(blks["pconv:FCN.conv1"], x0)
+            hh = self._blk(blks["pconv_nr:FCN.conv2"], x1)
+            x2 = self._blk(blks["pconv:FCN.conv2"], hh)
+
+        def deep(h):
+            h = L.conv_pool(p, "FCN.conv3", h)
+            for i in range(4, 9):
+                h = cps(f"FCN.conv{i}", h)
+            return h
+
+        if dc is not None:
+            # outs[3] is the dilated relu-only conv1 of the ConvPool that
+            # follows x2 (conv_ext when no_scale, conv3 otherwise)
+            if cfg.no_scale:
+                x3 = pool_tail("FCN.conv_ext", outs[3])
+                y = L.conv_pool(p, "FCN.conv3", x3)
+            else:
+                y = pool_tail("FCN.conv3", outs[3])
+            y = self._chain(y, dc)[-1]
+            feats = [x0, x1, x2, x3, y] if cfg.no_scale else [x0, x1, x2, y]
+        elif cfg.no_scale:
+            x3 = L.conv_pool(p, "FCN.conv_ext", x2)
+            feats = [x0, x1, x2, x3, deep(x3)]
+        else:
+            feats = [x0, x1, x2, deep(x2)]
+
+        up = feats[-1]
+        n_up = len(feats) - 1
+        if ch is not None:
+            for j in range(n_up - 2):  # f == 1 ups stay on the plain path
+                up = self._blk(blks[f"ptconv:up{j + 1}"], up) \
+                    + feats[n_up - 1 - j]
+            up_ch = ckp.with_argmax_head(ch["up"], 16) if argmax else ch["up"]
+            return self._chain(up, up_ch, skips=[x1, x0])[-1]
+        for j in range(n_up):
+            up = self._blk(blks[f"ptconv:up{j + 1}"], up) + feats[n_up - 1 - j]
+        return self._blk(blks["head:segmenter.classifier"], up)
+
+
+def build_packed_pb_fcn(model: Model, params: Optional[Params] = None,
+                        dtype: torch.dtype = torch.bfloat16,
+                        pallas: bool = False, pallas_deep: bool = False,
+                        pallas_argmax_head: bool = True,
+                        device: DeviceLike = None) -> PackedPBFCNInfer:
+    """Compile a PB_FCN (segment mode) for inference, the net the
+    reference's tester.py serves (tester.py:142-144).
+
+    ``pallas=True``: the down and up regions run as fused chains (K2 on
+    CUDA); ``pallas_deep`` also moves the dilated conv1 of the ConvPool
+    after x2 into the down chain and runs the five dilated deep convs as a
+    third chain. Runs on ``device`` (``cuda`` unless the caller passes
+    another)."""
+    dev = resolve_device(device)
+    cfg = model.cfg
+    if not isinstance(cfg, PBFCNCfg) or cfg.classify:
+        raise ValueError("the packed PB_FCN graph is the segmentation PB_FCN")
+    state = model.state_dict() if params is None else params
+    np_params = to_jax_params(model.registry, state)
+    packed = _pack_blocks(np_params, _pb_fcn_blks(cfg), dtype, dev)
+    plain = {k: v.detach().to(device=dev, dtype=dtype) for k, v in state.items()}
+    chains = None
+    if pallas:
+        def pk(prefix, **kw):
+            return _packed_stage(packed, prefix, **kw)
+
+        # no folded stem: FCN.conv0 is dilated, which the grouped stem
+        # kernel does not encode, so the chain starts at the packed input
+        down = [pk("FCN.conv0.conv", rbb=False, emit=True),      # x0
+                pk("FCN.conv1.conv", rbb=False, emit=True),      # x1
+                pk("FCN.conv2.conv1", relu_only=True),           # pconv_nr
+                pk("FCN.conv2.pool", rbb=False)]                 # x2
+        n_up = 4 if cfg.no_scale else 3
+        up = [pk(f"up{n_up - 1}.conv", rbb=False, skip_idx=0),
+              pk(f"up{n_up}.conv", rbb=False, skip_idx=1),
+              pk("segmenter.classifier")]
+        chains = {"down": down, "up": up, "argmax_head": pallas_argmax_head}
+        if pallas_deep:
+            nxt = "FCN.conv_ext" if cfg.no_scale else "FCN.conv3"
+            w = torch.as_tensor(np_params[nxt + ".conv1.weight"]).to(
+                device=dev, dtype=dtype)
+            down[-1] = dataclasses.replace(down[-1], emit=True)  # x2
+            down.append(ckp.ChainStage(
+                w=w, b=torch.zeros(w.shape[-1], device=dev), relu_only=True,
+                dil=2))
+            chains["deep"] = [
+                _plain_stage(np_params, f"FCN.conv{i}", dtype, dev, rbb=False,
+                             dil=2) for i in range(4, 9)]
+    return PackedPBFCNInfer(cfg, packed, plain, dtype, dev, chains)
 
 
 def quantize_int8(*args, **kwargs):

@@ -1,11 +1,13 @@
-"""Model zoo: the flagship ROBO-UNet family (reference model.py:461-536),
-eval-mode, in its additive-skip form at QVGA and at VGA (``no_scale``).
+"""Model zoo, eval-mode: the flagship ROBO-UNet (reference model.py:461-536)
+in its additive-skip form at QVGA and at VGA (``no_scale``), PB_FCN over
+its DownSampler encoder (model.py:201-232, 269-309) and PB_FCN_2
+(model.py:416-459), each in its segmentation and classification modes.
 
-``make("robo_unet", ...)`` returns a :class:`Model`, an ``nn.Module`` whose
+``make(family, ...)`` returns a :class:`Model`, an ``nn.Module`` whose
 ``state_dict`` carries the registry names; its ``forward`` takes NHWC input
 and returns NHWC logits, like the JAX package's ``Model.apply``. The
-``--v2`` (concat skips) and ``--UNet`` (max-pool downs) variants belong to a
-later slice of the port and raise ``NotImplementedError``.
+ROBO-UNet ``--v2`` (concat skips) and ``--UNet`` (max-pool downs) variants
+belong to a later slice of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +21,113 @@ from robocupvision_tpu_torch.device import DeviceLike, resolve_device
 from robocupvision_tpu_torch.models import layers as L
 
 Params = L.Params
+
+
+# =============================================================================
+# DownSampler (PB-FCN encoder) -- reference model.py:201-232
+# =============================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class DownSamplerCfg:
+    planes: int = 32
+    no_scale: bool = False
+
+
+def downsampler_registry(cfg: DownSamplerCfg, r: L.Registry,
+                         prefix: str = "") -> None:
+    p = cfg.planes
+    L.conv_pool_simple_def(r, prefix + "conv0", 3, p // 4, 3, bias=False)
+    L.conv_pool_simple_def(r, prefix + "conv1", p // 4, p // 2, 3, bias=False)
+    L.conv_pool_def(r, prefix + "conv2", p // 2, p)
+    if cfg.no_scale:
+        L.conv_pool_def(r, prefix + "conv_ext", p, p)
+    L.conv_pool_def(r, prefix + "conv3", p, p * 2)
+    L.conv_pool_simple_def(r, prefix + "conv4", p * 2, p * 4, 3, bias=False)
+    for i in (5, 6, 7):
+        L.conv_pool_simple_def(r, prefix + f"conv{i}", p * 4, p * 4, 3,
+                               bias=False)
+    L.conv_pool_simple_def(r, prefix + "conv8", p * 4, p * 2, 3, bias=False)
+
+
+def downsampler_apply(cfg: DownSamplerCfg, p: Params, x, prefix: str = ""):
+    """Returns (f4, f3, f2, f1, f0); f4 is None unless no_scale."""
+    def cps(name, x, stride, padding, dilation):
+        return L.conv_pool_simple(p, prefix + name, x, stride, padding,
+                                  dilation)
+
+    x0 = cps("conv0", x, 1, 2, 2)
+    x1 = cps("conv1", x0, 2, 1, 1)
+    x2 = L.conv_pool(p, prefix + "conv2", x1)
+
+    def deep(h):
+        h = L.conv_pool(p, prefix + "conv3", h)
+        for i in range(4, 9):
+            h = cps(f"conv{i}", h, 1, 2, 2)
+        return h
+
+    if cfg.no_scale:
+        x3 = L.conv_pool(p, prefix + "conv_ext", x2)
+        return deep(x3), x3, x2, x1, x0
+    return None, deep(x2), x2, x1, x0
+
+
+# =============================================================================
+# PB_FCN -- reference model.py:269-309
+# =============================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class PBFCNCfg:
+    planes: int = 32
+    num_classes: int = 5
+    kernel_size: int = 1
+    no_scale: bool = False
+    classify: bool = False
+
+    @property
+    def img_shape(self) -> Tuple[int, int]:
+        return (240, 320) if self.no_scale else (120, 160)
+
+
+def pb_fcn_registry(cfg: PBFCNCfg) -> L.Registry:
+    r = L.Registry()
+    pl = cfg.planes
+    mult = 2 if cfg.no_scale else 1
+    out = pl // 4
+    downsampler_registry(DownSamplerCfg(pl, cfg.no_scale), r, "FCN.")
+    L.up_tconv_def(r, "up1", pl * 2, pl)
+    L.up_tconv_def(r, "up2", pl, pl // 2 * mult)
+    L.up_tconv_def(r, "up3", pl // 2 * mult, out * mult)
+    if cfg.no_scale:
+        L.up_tconv_def(r, "up4", pl // 2, out)
+    L.classifier_def(r, "classifier", pl * 2, cfg.num_classes, cfg.kernel_size)
+    L.classifier_def(r, "segmenter", out, cfg.num_classes, cfg.kernel_size)
+    return r
+
+
+def pb_fcn_apply(cfg: PBFCNCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    ds = DownSamplerCfg(cfg.planes, cfg.no_scale)
+    f4, f3, f2, f1, f0 = downsampler_apply(ds, p, x, "FCN.")
+    if cfg.classify:
+        feat = f4 if cfg.no_scale else f3
+        return L.classifier(p, "classifier", feat, 2 if cfg.no_scale else 4,
+                            cfg.kernel_size)
+    if cfg.no_scale:
+        h = L.up_tconv(p, "up1", f4) + f3
+        h = L.up_tconv(p, "up2", h) + f2
+        h = L.up_tconv(p, "up3", h) + f1
+        h = L.up_tconv(p, "up4", h) + f0
+    else:
+        h = L.up_tconv(p, "up1", f3) + f2
+        h = L.up_tconv(p, "up2", h) + f1
+        h = L.up_tconv(p, "up3", h) + f0
+    return L.classifier(p, "segmenter", h, 0, cfg.kernel_size)
+
+
+# =============================================================================
+# ROBO_UNet -- reference model.py:461-536
+# =============================================================================
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,8 +198,70 @@ def robo_unet_apply(cfg: RoboUNetCfg, p: Params, x: torch.Tensor) -> torch.Tenso
     return L.ult_classifier(p, "segmenter", up, cfg.class_size)
 
 
+# =============================================================================
+# PB_FCN_2 -- reference model.py:416-459
+# =============================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class PBFCN2Cfg:
+    classify: bool = False
+    num_classes: int = 5
+    planes: int = 8
+    depth: int = 4
+    levels: int = 2
+    belly_size: int = 5
+    belly_planes: int = 128
+
+    @property
+    def img_shape(self) -> Tuple[int, int]:
+        return (120, 160)
+
+
+def pb_fcn_2_registry(cfg: PBFCN2Cfg) -> L.Registry:
+    r = L.Registry()
+    pl = cfg.planes
+    max_depth = pl * 2 ** (cfg.depth - 1)
+    L.level_down_def(r, "downPart.Level0", 3, pl, 1, False, False)
+    for i in range(cfg.depth - 1):
+        n_ch = pl * 2 ** i
+        L.level_down_def(r, f"downPart.Level{i + 1}", n_ch, n_ch * 2,
+                         cfg.levels, True, False)
+    L.level_down_def(r, "PB.PB_1", max_depth, cfg.belly_planes,
+                     cfg.belly_size - 1, False, False)
+    L.level_down_def(r, "PB.PB_2", cfg.belly_planes, max_depth, 1, False, False)
+    for i in range(cfg.depth - 1):
+        n_ch = pl * 2 ** (cfg.depth - 1 - i)
+        L.up_tconv_def(r, f"upPart.Up{i}", n_ch, n_ch // 2)
+    L.ult_classifier_def(r, "classifier", max_depth, cfg.num_classes, 1)
+    L.ult_classifier_def(r, "segmenter", pl, cfg.num_classes, 1)
+    return r
+
+
+def pb_fcn_2_apply(cfg: PBFCN2Cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    downs = [x]
+    downs.append(L.level_down(p, "downPart.Level0", x, 1, False, False))
+    for i in range(cfg.depth - 1):
+        downs.append(L.level_down(p, f"downPart.Level{i + 1}", downs[-1],
+                                  cfg.levels, True, False))
+    h = L.level_down(p, "PB.PB_1", downs[-1], cfg.belly_size - 1, False, False)
+    downs[-1] = L.level_down(p, "PB.PB_2", h, 1, False, False)
+    if cfg.classify:
+        return L.ult_classifier(p, "classifier", downs[-1], 1, pool=True)
+    up = downs[-1]
+    for i in range(cfg.depth - 1):
+        up = L.up_tconv(p, f"upPart.Up{i}", up) + downs[-(i + 2)]
+    return L.ult_classifier(p, "segmenter", up, 1)
+
+
+# =============================================================================
+# Generic model handle
+# =============================================================================
+
 _FAMILIES = {
     "robo_unet": (RoboUNetCfg, robo_unet_registry, robo_unet_apply),
+    "pb_fcn": (PBFCNCfg, pb_fcn_registry, pb_fcn_apply),
+    "pb_fcn_2": (PBFCN2Cfg, pb_fcn_2_registry, pb_fcn_2_apply),
 }
 
 
@@ -126,7 +297,7 @@ def make(family: str, *, device: DeviceLike = None,
     caller passes another)."""
     dev = resolve_device(device)
     cfg = _FAMILIES[family][0](**kwargs)
-    if cfg.v2 or cfg.pool:
+    if getattr(cfg, "v2", False) or getattr(cfg, "pool", False):
         raise NotImplementedError(
             "the --v2 and --UNet ROBO-UNet variants are not ported yet")
     gen = generator if generator is not None else torch.Generator().manual_seed(0)

@@ -4,11 +4,16 @@ package's Pallas kernel ``fused_conv_chain``
 (robocupvision_tpu/ops/pallas_packed.py), with its plain PyTorch version
 :func:`chain_reference`.
 
-A stage is a 3x3/s1/p1 or 1x1 conv, then bias, then the folded-BN affine
-(``rbb``: conv -> ReLU -> affine; else conv -> affine -> ReLU), then an
-identity skip add; rows and columns outside the image are zero (they are
-the next stage's padding) and every inter-stage value is rounded to the
-chain dtype. Only ``emit`` stages (and always the last) are returned. The
+A stage is a 3x3/s1 or 1x1 conv, ``dil``-dilated with padding
+``dil * (K // 2)``, then bias, then the folded-BN affine (``rbb``: conv ->
+ReLU -> affine; else conv -> affine -> ReLU) or, for a ``relu_only`` stage,
+a bare ReLU, then an identity skip add; rows and columns outside the image
+are zero (they are the next stage's padding) and every inter-stage value is
+rounded to the chain dtype. Stage 0 may be the folded space-to-depth stem
+(``stem_f = f``): the chain then takes the raw (N, f*H, f*W, cin) image and
+the stem's (f+2, 3, f*cin, Cout) kernel runs as the (f, 1)-strided,
+padding-1 conv over its free grouped view (N, f*H, W, f*cin), so the chain
+grid is (H, W). Only ``emit`` stages (and always the last) are returned. The
 last stage may carry the fused serving argmax (``argmax_groups``): per-phase
 int32 labels instead of logits, first max winning ties.
 
@@ -16,10 +21,9 @@ int32 labels instead of logits, first max winning ties.
 :func:`chain_reference` for CPU tensors; nothing else selects between them.
 ``fused_conv_chain.launches`` counts kernel launches.
 
-Stage features of the JAX kernel outside this slice of the port (the
-folded ``stem_f`` stem, ``dil``, ``relu_only``, ``skip_w``, ``pool`` and
-int8 ``x_scale``/``w_scale``) keep their ChainStage fields but raise
-``NotImplementedError`` in both paths.
+Stage features of the JAX kernel outside these slices of the port
+(``skip_w``, ``pool`` and int8 ``x_scale``/``w_scale``) keep their
+ChainStage fields but raise ``NotImplementedError`` in both paths.
 """
 
 from __future__ import annotations
@@ -37,13 +41,16 @@ class ChainStage:
     """One conv(+epilogue) stage of a fused region (fields as in the JAX
     package's ChainStage).
 
-    w: (K, K, Cin, Cout) kernel (K in {1, 3}), already packed/BN-folded.
-    b: (Cout,) bias. scale/shift: (Cout,) folded-BN affine (None for the
-    bias-only head). rbb: affine order (see module docstring). skip_idx:
-    index into the chain's ``skips`` added after the epilogue, -1 for none.
-    emit: return this stage's (N, H, W, Cout) output. argmax_groups: last
-    stage only, emit (N, H, W, groups) int32 labels, argmax over each group
-    of Cout/groups adjacent channels.
+    w: (K, K, Cin, Cout) kernel (K in {1, 3}), already packed/BN-folded;
+    (f+2, 3, f*cin, Cout) for a ``stem_f = f`` stage. b: (Cout,) bias.
+    scale/shift: (Cout,) folded-BN affine (None for the bias-only head and
+    for ``relu_only`` stages). rbb: affine order (see module docstring).
+    skip_idx: index into the chain's ``skips`` added after the epilogue, -1
+    for none. emit: return this stage's (N, H, W, Cout) output. stem_f:
+    stage 0 only, the folded stem's factor. relu_only: ReLU instead of an
+    affine. dil: tap spacing. argmax_groups: last stage only, emit (N, H,
+    W, groups) int32 labels, argmax over each group of Cout/groups adjacent
+    channels.
     """
 
     w: Any
@@ -99,23 +106,35 @@ def _prepare(stages: Sequence[ChainStage]) -> List[ChainStage]:
         stages[-1] = dataclasses.replace(stages[-1], emit=True)
     for i, st in enumerate(stages):
         unported = [name for name, on in (
-            ("stem_f", st.stem_f), ("relu_only", st.relu_only),
-            ("skip_w", st.skip_w is not None), ("dil", st.dil != 1),
-            ("pool", st.pool), ("x_scale", st.x_scale),
-            ("w_scale", st.w_scale is not None)) if on]
+            ("skip_w", st.skip_w is not None), ("pool", st.pool),
+            ("x_scale", st.x_scale), ("w_scale", st.w_scale is not None))
+            if on]
         if unported:
             raise NotImplementedError(
-                f"stage {i}: {', '.join(unported)} not ported yet (plain "
-                "conv stages and the argmax head only)")
-        if st.k not in (1, 3) or st.w.dim() != 4 or st.w.shape[0] != st.w.shape[1]:
+                f"stage {i}: {', '.join(unported)} not ported yet (plain, "
+                "dilated, relu-only and folded-stem stages and the argmax "
+                "head only)")
+        if st.w.dim() != 4:
+            raise ValueError(f"stage {i}: kernel must be 4-D, got "
+                             f"{tuple(st.w.shape)}")
+        if st.stem_f:
+            f = st.stem_f
+            if i != 0 or st.dil != 1 or tuple(st.w.shape[:2]) != (f + 2, 3):
+                raise ValueError(
+                    f"stage {i}: a stem_f={f} stage is stage 0, undilated, "
+                    f"with an ({f + 2}, 3, {f}*cin, Cout) kernel, got "
+                    f"{tuple(st.w.shape)}")
+        elif st.k not in (1, 3) or st.w.shape[0] != st.w.shape[1]:
             raise ValueError(f"stage {i}: kernel must be (K, K, Cin, Cout) "
                              f"with K in (1, 3), got {tuple(st.w.shape)}")
+        if st.dil < 1:
+            raise ValueError(f"stage {i}: dil must be >= 1, got {st.dil}")
         if st.argmax_groups and i != len(stages) - 1:
             raise ValueError("argmax_groups is a final-stage (serving head) "
                              "epilogue")
     last = stages[-1]
     if last.argmax_groups:
-        if last.scale is not None:
+        if last.scale is not None or last.relu_only:
             raise ValueError("the argmax head is the bias-only classifier")
         if int(last.w.shape[3]) % last.argmax_groups:
             raise ValueError("Cout must split into argmax_groups groups")
@@ -134,15 +153,23 @@ def chain_reference(x: torch.Tensor, stages: Sequence[ChainStage],
     outs = []
     for k, st in enumerate(stages):
         cout = int(st.w.shape[3])
-        # (K, K, in, out) -> OIHW, at the chain dtype as the kernel reads it
+        # (KH, KW, in, out) -> OIHW, at the chain dtype as the kernel reads it
         w = st.w.to(chain_dtype).float().permute(3, 2, 0, 1)
-        y = F.conv2d(h.float().permute(0, 3, 1, 2), w,
-                     padding=st.reach).permute(0, 2, 3, 1)
-        y = y + st.b.float()
+        if st.stem_f:
+            f = st.stem_f
+            n, hf, wf, cin = h.shape
+            xg = h.float().reshape(n, hf, wf // f, f * cin)
+            y = F.conv2d(xg.permute(0, 3, 1, 2), w, stride=(f, 1), padding=1)
+        else:
+            y = F.conv2d(h.float().permute(0, 3, 1, 2), w, padding=st.reach,
+                         dilation=st.dil)
+        y = y.permute(0, 2, 3, 1) + st.b.float()
         if st.scale is not None:
             s, sh = st.scale.float(), st.shift.float()
             y = torch.clamp_min(y, 0.) * s + sh if st.rbb \
                 else torch.clamp_min(y * s + sh, 0.)
+        elif st.relu_only:
+            y = torch.clamp_min(y, 0.)
         if st.skip_idx >= 0:
             y = y + skips[st.skip_idx].float()
         if st.argmax_groups:
@@ -170,10 +197,12 @@ class _Stage(ctypes.Structure):
     _fields_ = [("w", ctypes.c_void_p), ("b", ctypes.c_void_p),
                 ("scale", ctypes.c_void_p), ("shift", ctypes.c_void_p),
                 ("out", ctypes.c_void_p), ("ws_off", ctypes.c_longlong),
-                ("k", ctypes.c_int), ("cin", ctypes.c_int),
-                ("cout", ctypes.c_int), ("rbb", ctypes.c_int),
-                ("skip_idx", ctypes.c_int), ("argmax_groups", ctypes.c_int),
-                ("depth", ctypes.c_int), ("pad_", ctypes.c_int)]
+                ("kh", ctypes.c_int), ("kw", ctypes.c_int),
+                ("cin", ctypes.c_int), ("cout", ctypes.c_int),
+                ("rbb", ctypes.c_int), ("skip_idx", ctypes.c_int),
+                ("argmax_groups", ctypes.c_int), ("depth", ctypes.c_int),
+                ("dil", ctypes.c_int), ("stem_f", ctypes.c_int),
+                ("relu_only", ctypes.c_int), ("pad_", ctypes.c_int)]
 
 
 class _Chain(ctypes.Structure):
@@ -229,9 +258,10 @@ def _param(t, device, dtype) -> torch.Tensor:
 
 def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
                      skips: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
-    """Run a fused chain of conv3x3(s1,p1)/conv1x1 (+epilogue, +skip) stages.
+    """Run a fused chain of conv3x3(s1)/conv1x1 (+epilogue, +skip) stages.
 
-    x: (N, H, W, C0) in f32 or bf16. Kernels are read at x's dtype (as the
+    x: (N, H, W, C0) in f32 or bf16, or the raw (N, f*H, f*W, cin) image
+    when stage 0 is a ``stem_f = f`` stem. Kernels are read at x's dtype (as the
     JAX kernel reads them); bias and affine in f32. Returns the emitted
     outputs in stage order (the last stage always). CUDA tensors launch the
     kernel (one launch per call); CPU tensors run :func:`chain_reference`."""
@@ -247,6 +277,12 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
     if len(stages) > _MAX_STAGES or len(skips) > _MAX_SKIPS:
         raise ValueError(f"at most {_MAX_STAGES} stages and {_MAX_SKIPS} skips")
     n, H, W, c0 = x.shape
+    f = stages[0].stem_f
+    if f:
+        if H % f or W % f:
+            raise ValueError(f"a stem_f={f} chain needs an image whose height "
+                             f"and width divide by {f}, got {H}x{W}")
+        H, W, c0 = H // f, W // f, f * c0
     for s in skips:
         if (s.device != x.device or s.dtype != x.dtype or s.dim() != 4
                 or tuple(s.shape[:3]) != (n, H, W) or not s.is_contiguous()):
@@ -267,7 +303,7 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
     ws_elems = 0
     cin = c0
     for i, st in enumerate(stages):
-        K, _, wcin, cout = (int(v) for v in st.w.shape)
+        kh, kw, wcin, cout = (int(v) for v in st.w.shape)
         if wcin != cin:
             raise ValueError(f"stage {i}: Cin {wcin} != incoming channels {cin}")
         if st.skip_idx >= 0 and (st.skip_idx >= len(skips)
@@ -300,8 +336,9 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
             ws_elems += (band + 2 * depths[i]) * W * cout
         else:
             d.ws_off = -1
-        d.k, d.cin, d.cout, d.rbb = K, wcin, cout, int(st.rbb)
+        d.kh, d.kw, d.cin, d.cout, d.rbb = kh, kw, wcin, cout, int(st.rbb)
         d.skip_idx, d.argmax_groups, d.depth = st.skip_idx, st.argmax_groups, depths[i]
+        d.dil, d.stem_f, d.relu_only = st.dil, st.stem_f, int(st.relu_only)
         cin = cout
     ws = torch.empty((max(n * (H // band) * ws_elems, 1),), dtype=x.dtype,
                      device=dev)

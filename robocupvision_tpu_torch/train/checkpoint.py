@@ -1,0 +1,79 @@
+"""Checkpoint I/O, in the JAX package's format so that either package
+loads the other's files.
+
+``save`` writes a compressed ``.npz`` of the parameters in the JAX layout
+(HWIO kernels, carried by export/torch_io.to_jax_params) under the
+registry names, marked with ``MAGIC_KEY``. ``load_any`` reads such a file,
+or a torch pickle of a state_dict (the reference's own ``.pth``, already in
+the port's layout), and returns the port's state_dict, checked against the
+registry's names and shapes.
+"""
+
+from __future__ import annotations
+
+import os
+from collections import OrderedDict
+from typing import Dict
+
+import numpy as np
+import torch
+
+from robocupvision_tpu_torch.export.torch_io import (from_jax_params,
+                                                     to_jax_params)
+from robocupvision_tpu_torch.models.layers import Registry
+
+MAGIC_KEY = "__robocupvision_tpu__"
+SLIM_KEY = "__slim__"  # structurally-pruned dict: per-layer widths differ
+
+State = Dict[str, torch.Tensor]
+
+
+def save(path: str, reg: Registry, state: State) -> None:
+    """Write ``state`` (the port's state_dict) to ``path`` as the JAX
+    package's ``.npz`` checkpoint."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays = dict(to_jax_params(reg, state))
+    arrays[MAGIC_KEY] = np.array(1)
+    with open(path, "wb") as f:
+        np.savez_compressed(f, **arrays)
+
+
+def _load_npz(path: str, reg: Registry) -> "OrderedDict[str, torch.Tensor]":
+    with np.load(path, allow_pickle=False) as z:
+        if SLIM_KEY in z:
+            raise NotImplementedError(
+                f"{path}: structurally-pruned checkpoints are not ported yet")
+        missing = [name for name in reg.specs if name not in z]
+        if missing:
+            raise KeyError(f"{path}: missing {missing[0]}")
+        return from_jax_params(reg, {name: z[name] for name in reg.specs})
+
+
+def _check_state(path: str, reg: Registry, state) -> "OrderedDict[str, torch.Tensor]":
+    out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    for name, spec in reg.specs.items():
+        if name not in state:
+            raise KeyError(f"{path}: missing parameter {name}")
+        t = torch.as_tensor(state[name]).detach().to("cpu", torch.float32)
+        if tuple(t.shape) != spec.torch_shape:
+            raise ValueError(f"{path}: {name} shape {tuple(t.shape)} != "
+                             f"{spec.torch_shape}")
+        out[name] = t.contiguous()
+    return out
+
+
+def load_any(path: str, reg: Registry) -> "OrderedDict[str, torch.Tensor]":
+    """Load a checkpoint as the port's state_dict (CPU f32): the ``.npz``
+    format of either package, or a torch pickle of a state_dict."""
+    with open(path, "rb") as f:
+        head = f.read(2)
+    if head == b"PK":  # zip: an npz, or a torch >= 1.6 zipfile pickle
+        try:
+            with np.load(path, allow_pickle=False) as z:
+                names = set(z.files)
+        except Exception:
+            names = set()
+        if MAGIC_KEY in names or all(n in names for n in reg.specs):
+            return _load_npz(path, reg)
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return _check_state(path, reg, state)

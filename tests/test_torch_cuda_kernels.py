@@ -11,7 +11,7 @@ reassociation, TF32 off), in bf16 per element at two bf16 ulps of the
 reference plus 2**-8 of its largest magnitude (``bf16_tolerance``: a
 rounding flip carried through the later stages), labels >= 0.9999 (f32) /
 0.999 (bf16) agreement. The band splits only the halo recompute, so every
-band gives bit-identical results.
+band gives bit-identical results, for dilated and folded-stem chains too.
 """
 
 import numpy as np
@@ -98,6 +98,87 @@ def test_chain_kernel_matches_reference(cuda_device, monkeypatch, dt, which,
         else:
             err = (g.float() - r.float()).abs()
             assert bool((err <= ckp.bf16_tolerance(r)).all()), err.max()
+
+
+def _feature_chain(case, dt, dev):
+    """(x, stages, skips) of a chain that exercises a K2 stage feature, from
+    the port's own builders at small sizes: the flagship's folded-stem down
+    chain (stem_f) and deep chain at QVGA, PB_FCN's down chain (relu_only,
+    and dil on its appended stage), deep chain (dil) and up chain with its
+    head at a 128x128 input (packed grid 32x32, deep grid 8x8)."""
+    tdtype = _DT[dt]
+    if case.startswith("flagship"):
+        model = zoo.make("robo_unet", device=dev,
+                         generator=torch.Generator().manual_seed(6))
+        ch = packed.build_packed_infer(model, None, tdtype, pallas=True,
+                                       pallas_fold_stem=True, pallas_deep=True,
+                                       device=dev).chains
+        if case == "flagship_stem":
+            return _randn(20, (2, 120, 160, 3), tdtype, dev), ch["down"], []
+        return _randn(21, (2, 8, 10, 64), tdtype, dev), ch["deep"], []
+    model = zoo.make("pb_fcn", no_scale=True, device=dev,
+                     generator=torch.Generator().manual_seed(7))
+    ch = packed.build_packed_pb_fcn(model, None, tdtype, pallas=True,
+                                    pallas_deep=True, device=dev).chains
+    if case == "pb_fcn_down_dil":
+        return _randn(22, (2, 32, 32, 48), tdtype, dev), ch["down"], []
+    if case == "pb_fcn_down":
+        return _randn(22, (2, 32, 32, 48), tdtype, dev), ch["down"][:4], []
+    if case == "pb_fcn_deep":
+        return _randn(23, (2, 8, 8, 64), tdtype, dev), ch["deep"], []
+    skips = [_randn(25 + i, (2, 32, 32, c), tdtype, dev)
+             for i, c in enumerate((64, 128))]
+    return (_randn(24, (2, 32, 32, 32), tdtype, dev),
+            ckp.with_argmax_head(ch["up"], 16), skips)
+
+
+def _assert_chain_close(got, ref, dt):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        if g.dtype == torch.int32:
+            agree = (g == r).float().mean().item()
+            assert agree >= (0.999 if dt == "bf16" else 0.9999), agree
+        elif dt == "f32":
+            torch.testing.assert_close(g, r, rtol=2e-4, atol=2e-4)
+        else:
+            err = (g.float() - r.float()).abs()
+            assert bool((err <= ckp.bf16_tolerance(r)).all()), err.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["flagship_stem", "flagship_deep",
+                                  "pb_fcn_down", "pb_fcn_down_dil",
+                                  "pb_fcn_deep", "pb_fcn_up_head"])
+def test_chain_kernel_stage_features_match_reference(cuda_device, dt, case):
+    """stem_f, dil and relu_only stages on the card against chain_reference."""
+    x, stages, skips = _feature_chain(case, dt, cuda_device)
+    before = ckp.fused_conv_chain.launches
+    got = ckp.fused_conv_chain(x, stages, skips)
+    torch.cuda.synchronize()
+    assert ckp.fused_conv_chain.launches == before + 1
+    _assert_chain_close(got, ckp.chain_reference(x, stages, skips), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,bands", [("flagship_stem", (1, 5, 30)),
+                                        ("pb_fcn_deep", (1, 2, 8)),
+                                        ("pb_fcn_down_dil", (1, 4, 32))])
+def test_chain_kernel_band_sweep_new_features(cuda_device, monkeypatch, case,
+                                              bands):
+    """Every band gives bit-identical results on a stem_f chain and on
+    dil=2 chains (their halos are deeper: reach = dil * (K // 2))."""
+    x, stages, skips = _feature_chain(case, "bf16", cuda_device)
+    outs = []
+    for band in bands:
+        monkeypatch.setattr(ckp, "choose_band", lambda n, h, dev: band)
+        outs.append(ckp.fused_conv_chain(x, stages, skips))
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+    _assert_chain_close(outs[0], ckp.chain_reference(x, stages, skips), "bf16")
 
 
 @pytest.mark.cuda

@@ -1,7 +1,11 @@
 """The port's fused conv chain (robocupvision_tpu_torch.ops.cuda_packed)
-against the JAX package's ``chain_reference`` on the flagship's own down
-and up stages, taken from the JAX ``build_packed_infer(pallas=True)``
-chains at QVGA (packed grid 30x40).
+against the JAX package's ``chain_reference`` on JAX's own stages: the
+flagship's down and up chains from ``build_packed_infer(pallas=True)`` at
+QVGA (packed grid 30x40), its folded-stem down chain (``stem_f``) and deep
+chain from ``pallas_fold_stem=True, pallas_deep=True``, and PB_FCN's down
+chain (``relu_only``, and ``dil`` on its appended stage), deep chain
+(``dil``) and up chain from ``build_packed_pb_fcn(pallas=True,
+pallas_deep=True)``.
 
 Tolerances: f32 at rtol = atol = 2e-4 (conv reassociation); bf16 per
 element at two bf16 ulps of the reference plus 2**-8 of its largest
@@ -10,6 +14,8 @@ bf16 and a sum that lands on the other side of a rounding boundary moves by
 one bf16 ulp, which the later stages carry. Labels: f32 equal, bf16 >= 0.999 agreement. The K2 kernel is
 held against ``chain_reference`` on the card in
 tests/test_torch_cuda_kernels.py."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -42,7 +48,9 @@ def _port_stage(st):
         return None if a is None else torch.from_numpy(_np32(a))
     return tppk.ChainStage(w=t(st.w), b=t(st.b), scale=t(st.scale),
                            shift=t(st.shift), rbb=st.rbb, skip_idx=st.skip_idx,
-                           emit=st.emit, argmax_groups=st.argmax_groups)
+                           emit=st.emit, stem_f=st.stem_f,
+                           relu_only=st.relu_only, dil=st.dil,
+                           argmax_groups=st.argmax_groups)
 
 
 def _input(seed, shape, tdtype):
@@ -54,6 +62,51 @@ def _input(seed, shape, tdtype):
 
 def _jdt(tdtype):
     return jnp.bfloat16 if tdtype == torch.bfloat16 else jnp.float32
+
+
+def _assert_outputs_match(got, ref, dt, tdtype):
+    assert len(got) == len(ref)
+    for g, r in zip(got, ref):
+        r = np.array(r.astype(jnp.float32)) if r.dtype != jnp.int32 else np.asarray(r)
+        assert tuple(g.shape) == r.shape
+        if g.dtype == torch.int32:
+            agree = np.mean(g.numpy() == r)
+            assert agree >= (1.0 if dt == "f32" else 0.999), agree
+        elif dt == "f32":
+            assert g.dtype == tdtype
+            np.testing.assert_allclose(g.numpy(), r, rtol=2e-4, atol=2e-4)
+        else:
+            assert g.dtype == tdtype
+            err = (g.float() - torch.from_numpy(r)).abs()
+            tol = tppk.bf16_tolerance(torch.from_numpy(r))
+            assert bool((err <= tol).all()), float(err.max())
+
+
+def _randomized(params, seed):
+    """Params with BN running stats drawn from numpy, so the BN fold of
+    every affine stage is exercised."""
+    rng = np.random.default_rng(seed)
+    out = {k: np.array(v) for k, v in params.items()}
+    for k in out:
+        if k.endswith(".running_mean"):
+            out[k] = rng.standard_normal(out[k].shape).astype(np.float32) * 0.3
+        elif k.endswith(".running_var"):
+            out[k] = (0.5 + rng.random(out[k].shape)).astype(np.float32)
+    return {k: jnp.asarray(v) for k, v in out.items()}
+
+
+def _jax_feature_chains(family, jdtype):
+    if family == "flagship":
+        model = jzoo.make("robo_unet")
+        params = _randomized(model.init(jax.random.PRNGKey(11)), 11)
+        return jpacked.build_packed_infer(
+            model, params, dtype=jdtype, pallas=True, pallas_interpret=True,
+            pallas_fold_stem=True, pallas_deep=True).chains
+    model = jzoo.make("pb_fcn", no_scale=True)
+    params = _randomized(model.init(jax.random.PRNGKey(12)), 12)
+    return jpacked.build_packed_pb_fcn(model, params, dtype=jdtype, pallas=True,
+                                      pallas_interpret=True,
+                                      pallas_deep=True).chains
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -92,6 +145,50 @@ def test_chain_reference_matches_jax(dt, which, head):
             assert bool((err <= tol).all()), float(err.max())
 
 
+# (family, chain, head): input shape and skip widths of each chain
+_FEATURE_CASES = {
+    ("flagship", "down"): ((2, 120, 160, 3), ()),      # stem_f: raw image
+    ("flagship", "deep"): ((2, 8, 10, 64), ()),
+    ("pb_fcn", "down"): ((2, 16, 24, 48), ()),          # relu_only, dil
+    ("pb_fcn", "deep"): ((2, 8, 10, 64), ()),           # dil
+    ("pb_fcn", "up"): ((2, 16, 24, 32), (64, 128)),
+}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("family,which,head", [
+    ("flagship", "down", False), ("flagship", "deep", False),
+    ("pb_fcn", "down", False), ("pb_fcn", "deep", False),
+    ("pb_fcn", "up", False), ("pb_fcn", "up", True)])
+def test_chain_reference_matches_jax_stage_features(dt, family, which, head):
+    """stem_f, dil and relu_only stages, and the chains they sit in (the
+    flagship's deep chain is plain stages only), on the CPU path against
+    JAX's chain_reference."""
+    jdtype, tdtype = _DT[dt]
+    stages = _jax_feature_chains(family, jdtype)[which]
+    if head:
+        stages = jppk.with_argmax_head(stages, 16)
+    tstages = [_port_stage(s) for s in stages]
+    shape, skip_c = _FEATURE_CASES[(family, which)]
+    x_t, x_j = _input(3, shape, tdtype)
+    skips = [_input(4 + i, shape[:3] + (c,), tdtype)
+             for i, c in enumerate(skip_c)]
+    ref = jppk.chain_reference(x_j, stages, skips=[s[1] for s in skips])
+    got = tppk.fused_conv_chain(x_t, tstages, skips=[s[0] for s in skips])
+    _assert_outputs_match(got, ref, dt, tdtype)
+
+
+def test_stem_chain_grid_and_emits():
+    """A stem_f=4 chain takes the raw image and runs on the /4 grid; its
+    stage 0 output (feats0) is emitted first."""
+    stages = [_port_stage(s) for s in _jax_feature_chains("flagship",
+                                                          jnp.float32)["down"]]
+    x, _ = _input(9, (1, 64, 96, 3), torch.float32)
+    outs = tppk.fused_conv_chain(x, stages)
+    assert [tuple(o.shape) for o in outs] == [(1, 16, 24, 128), (1, 16, 24, 64),
+                                              (1, 16, 24, 32)]
+
+
 def test_argmax_head_equals_argmax_of_logits():
     """First max wins, on the logits rounded to the chain dtype."""
     stages = [_port_stage(s) for s in _jax_chains(jnp.bfloat16)["up"]]
@@ -109,13 +206,34 @@ def test_halo_depths():
     w3, w1 = torch.zeros(3, 3, 4, 4), torch.zeros(1, 1, 4, 4)
     st = [tppk.ChainStage(w=w, b=torch.zeros(4)) for w in (w3, w3, w1, w3, w1)]
     assert tppk._halo_depths(st) == [2, 1, 1, 0, 0]
+    # a dilated stage reaches dil * (K // 2) rows: it deepens every halo
+    # before it
+    st[1] = dataclasses.replace(st[1], dil=2)
+    assert tppk._halo_depths(st) == [3, 1, 1, 0, 0]
 
 
-@pytest.mark.parametrize("field", [dict(stem_f=4), dict(dil=2),
-                                   dict(relu_only=True), dict(pool=True),
+@pytest.mark.parametrize("field", [dict(w_scale=torch.ones(4)), dict(pool=True),
+                                   dict(skip_w=torch.zeros(3, 3, 4, 4)),
+                                   dict(pool=True, x_scale=0.1),
                                    dict(x_scale=0.1),
                                    dict(skip_w=torch.zeros(1, 1, 4, 4))])
 def test_unported_stage_features_raise(field):
     st = tppk.ChainStage(w=torch.zeros(3, 3, 4, 4), b=torch.zeros(4), **field)
     with pytest.raises(NotImplementedError):
         tppk.fused_conv_chain(torch.zeros(1, 4, 4, 4), [st])
+
+
+@pytest.mark.parametrize("stages", [
+    # a stem stage after stage 0, a dilated stem, a stem kernel of the
+    # wrong height, a zero dilation, a relu-only argmax head
+    lambda w3, ws: [tppk.ChainStage(w=w3, b=torch.zeros(4)),
+                    tppk.ChainStage(w=ws, b=torch.zeros(4), stem_f=4)],
+    lambda w3, ws: [tppk.ChainStage(w=ws, b=torch.zeros(4), stem_f=4, dil=2)],
+    lambda w3, ws: [tppk.ChainStage(w=ws, b=torch.zeros(4), stem_f=2)],
+    lambda w3, ws: [tppk.ChainStage(w=w3, b=torch.zeros(4), dil=0)],
+    lambda w3, ws: [tppk.ChainStage(w=w3, b=torch.zeros(4), relu_only=True,
+                                    argmax_groups=2)]])
+def test_misplaced_stage_features_raise(stages):
+    w3, ws = torch.zeros(3, 3, 4, 4), torch.zeros(6, 3, 4, 4)
+    with pytest.raises(ValueError):
+        tppk.fused_conv_chain(torch.zeros(1, 8, 8, 4), stages(w3, ws))

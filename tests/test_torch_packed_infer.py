@@ -1,12 +1,15 @@
-"""The port's packed flagship graph (robocupvision_tpu_torch.models.packed)
-against the JAX package's, on the CPU at f32: the port's
-``build_packed_infer(pallas=True)`` (whose chains take the plain path on
-CPU tensors) and ``pallas=False`` against JAX's ``pallas=False`` graph and
-its ``pallas=True, pallas_interpret=True`` graph, at QVGA and at a small
-``no_scale`` input. Weights enter both sides only through the weight carry
-(export/torch_io.py). Logits at rtol = atol = 2e-4; labels by
-tests/test_pallas_packed.py's rule: at most a 2e-5 mismatch share, and only
-where the top-2 logit gap is below 1e-4 (an argmax tie)."""
+"""The port's packed graphs (robocupvision_tpu_torch.models.packed) against
+the JAX package's, on the CPU at f32: the port's chain graphs (whose chains
+take the plain path on CPU tensors) and plain graphs against JAX's
+``pallas=False`` graph and its ``pallas_interpret=True`` chain graph. The
+flagship at QVGA and at a small ``no_scale`` input, in its two-chain form
+and its full chain form (``pallas_fold_stem``, ``pallas_deep``); PB_FCN_2
+through ``build_packed_infer``; PB_FCN through ``build_packed_pb_fcn``
+with ``pallas`` and ``pallas_deep`` off and on. Weights enter both sides
+only through the weight carry (export/torch_io.py). Logits at rtol = atol =
+2e-4; labels by tests/test_pallas_packed.py's rule: at most a 2e-5
+mismatch share, and only where the top-2 logit gap is below 1e-4 (an
+argmax tie)."""
 
 import numpy as np
 import pytest
@@ -36,13 +39,33 @@ def _assert_labels_match(got, ref, ref_logits, max_mismatch=2e-5):
         assert np.max(gaps) < 1e-4, np.max(gaps)
 
 
-def _pair(kw, seed=0):
-    jm = jzoo.make("robo_unet", **kw)
-    jp = jm.init(jax.random.PRNGKey(seed))
-    model = tzoo.make("robo_unet", device="cpu", **kw)
-    model.load_state_dict(torch_io.from_jax_params(
-        model.registry, {k: np.asarray(v) for k, v in jp.items()}))
-    return jm, jp, model
+def _pair(kw, seed=0, family="robo_unet", randomize_bn=False):
+    jm = jzoo.make(family, **kw)
+    jp = {k: np.array(v) for k, v in jm.init(jax.random.PRNGKey(seed)).items()}
+    if randomize_bn:  # BN running stats from numpy: the BN fold is exercised
+        rng = np.random.default_rng(seed)
+        for k in jp:
+            if k.endswith(".running_mean"):
+                jp[k] = rng.standard_normal(jp[k].shape).astype(np.float32) * 0.3
+            elif k.endswith(".running_var"):
+                jp[k] = (0.5 + rng.random(jp[k].shape)).astype(np.float32)
+    model = tzoo.make(family, device="cpu", **kw)
+    model.load_state_dict(torch_io.from_jax_params(model.registry, jp))
+    return jm, {k: jnp.asarray(v) for k, v in jp.items()}, model
+
+
+def _check_serving_forms(pi, x, ref_logits, ref_labels):
+    """logits, infer and the infer_u8_packed pair of a port graph against
+    the JAX reference logits and labels."""
+    np.testing.assert_allclose(pi.logits(x).numpy(), ref_logits,
+                               rtol=2e-4, atol=2e-4)
+    got = pi.infer(x)
+    assert got.dtype == torch.int32
+    _assert_labels_match(got, ref_labels, ref_logits)
+    fn, unpack = pi.infer_u8_packed()
+    packed_labels = fn(x)
+    assert packed_labels.dtype == torch.uint8
+    np.testing.assert_array_equal(unpack(packed_labels), got.numpy())
 
 
 @pytest.mark.parametrize("kw,hw", [(dict(), (120, 160)),
@@ -124,11 +147,106 @@ def test_space_to_depth_roundtrip_matches_jax():
     np.testing.assert_array_equal(tpacked.depth_to_space(got, 4).numpy(), x)
 
 
+@pytest.mark.parametrize("argmax_head", [True, False])
+def test_full_chain_graph_matches_jax(argmax_head):
+    """The flagship with the folded stem and the deep chain (three chains):
+    against JAX's plain packed graph, and its labels against JAX's
+    interpreted full chain graph."""
+    jm, jp, model = _pair(dict(no_scale=True), seed=2, randomize_bn=True)
+    x = np.random.default_rng(3).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    jbase = jpacked.build_packed_infer(jm, jp, dtype=jnp.float32)
+    ref_logits = np.asarray(jbase.logits(jnp.asarray(x)))
+    ref_labels = np.asarray(jbase.infer(jnp.asarray(x)))
+    pi = tpacked.build_packed_infer(model, None, torch.float32, pallas=True,
+                                    pallas_fold_stem=True, pallas_deep=True,
+                                    pallas_argmax_head=argmax_head,
+                                    device="cpu")
+    assert [len(pi.chains[k]) for k in ("down", "deep", "up")] == [5, 6, 3]
+    assert pi.chains["down"][0].stem_f == 4
+    _check_serving_forms(pi, x, ref_logits, ref_labels)
+    if argmax_head:
+        jchain = jpacked.build_packed_infer(
+            jm, jp, dtype=jnp.float32, pallas=True, pallas_interpret=True,
+            pallas_fold_stem=True, pallas_deep=True)
+        _assert_labels_match(pi.infer(x), jchain.infer(jnp.asarray(x)),
+                             ref_logits)
+
+
+def test_full_chain_graph_launches_three_chains_a_frame():
+    """Each served frame of the full chain graph makes three chain calls:
+    the folded-stem down chain, the deep chain, the up chain with its head."""
+    model = tzoo.make("robo_unet", no_scale=True, device="cpu")
+    pi = tpacked.build_packed_infer(model, None, torch.float32, pallas=True,
+                                    pallas_fold_stem=True, pallas_deep=True,
+                                    device="cpu")
+    calls = []
+    orig = pi._chain
+
+    def record(x, stages, skips=()):
+        calls.append([st.argmax_groups for st in stages])
+        return orig(x, stages, skips)
+
+    pi._chain = record
+    fn, _ = pi.infer_u8_packed()
+    fn(np.zeros((1, 64, 64, 3), np.float32))
+    assert len(calls) == 3 and calls[-1][-1] == 16
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_pb_fcn_2_packed_graph_matches_jax(pallas):
+    """PB_FCN_2 (the tester's --v2 net) rides the flagship plan."""
+    jm, jp, model = _pair(dict(), seed=5, family="pb_fcn_2", randomize_bn=True)
+    x = np.random.default_rng(6).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    jbase = jpacked.build_packed_infer(jm, jp, dtype=jnp.float32)
+    kw = dict(pallas=True, pallas_fold_stem=True, pallas_deep=True) if pallas \
+        else {}
+    pi = tpacked.build_packed_infer(model, None, torch.float32, device="cpu",
+                                    **kw)
+    _check_serving_forms(pi, x, np.asarray(jbase.logits(jnp.asarray(x))),
+                         np.asarray(jbase.infer(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("no_scale,hw", [(False, (32, 64)), (True, (64, 64))])
+def test_pb_fcn_packed_graph_matches_jax(no_scale, hw):
+    """build_packed_pb_fcn with pallas and pallas_deep off and on, against
+    JAX's plain packed graph; the deep chain graph's labels also against
+    JAX's interpreted one."""
+    jm, jp, model = _pair(dict(no_scale=no_scale), seed=7, family="pb_fcn",
+                          randomize_bn=True)
+    x = np.random.default_rng(8).standard_normal((2, *hw, 3)).astype(np.float32)
+    jbase = jpacked.build_packed_pb_fcn(jm, jp, dtype=jnp.float32)
+    ref_logits = np.asarray(jbase.logits(jnp.asarray(x)))
+    ref_labels = np.asarray(jbase.infer(jnp.asarray(x)))
+    for kw in (dict(), dict(pallas=True), dict(pallas=True, pallas_deep=True)):
+        pi = tpacked.build_packed_pb_fcn(model, None, torch.float32,
+                                         device="cpu", **kw)
+        _check_serving_forms(pi, x, ref_logits, ref_labels)
+    assert [st.dil for st in pi.chains["down"]] == [1, 1, 1, 1, 2]
+    assert [st.relu_only for st in pi.chains["down"]] == [False, False, True,
+                                                          False, True]
+    assert [st.dil for st in pi.chains["deep"]] == [2] * 5
+    if not no_scale:
+        jchain = jpacked.build_packed_pb_fcn(jm, jp, dtype=jnp.float32,
+                                            pallas=True, pallas_interpret=True,
+                                            pallas_deep=True)
+        _assert_labels_match(pi.infer(x), jchain.infer(jnp.asarray(x)),
+                             ref_logits)
+
+
 def test_unported_build_options_raise():
-    model = tzoo.make("robo_unet", device="cpu")
-    for kw in (dict(pallas_fold_stem=True), dict(pallas_deep=True)):
-        with pytest.raises(NotImplementedError):
-            tpacked.build_packed_infer(model, None, torch.float32, pallas=True,
-                                       device="cpu", **kw)
+    model = tzoo.make("robo_unet", device="cpu", levels=3)
+    with pytest.raises(NotImplementedError):  # per-level chains: later slice
+        tpacked.build_packed_infer(model, None, torch.float32, pallas=True,
+                                   device="cpu")
+    no_belly = tzoo.make("robo_unet", device="cpu", belly_size=0)
+    with pytest.raises(ValueError):  # the deep chain needs a PB belly
+        tpacked.build_packed_infer(no_belly, None, torch.float32, pallas=True,
+                                   pallas_deep=True, device="cpu")
+    with pytest.raises(ValueError):  # PB_FCN has its own builder
+        tpacked.build_packed_infer(tzoo.make("pb_fcn", device="cpu"), None,
+                                   torch.float32, device="cpu")
+    with pytest.raises(ValueError):  # the packed PB_FCN is its segment mode
+        tpacked.build_packed_pb_fcn(tzoo.make("pb_fcn", classify=True,
+                                              device="cpu"), device="cpu")
     with pytest.raises(NotImplementedError):
         tpacked.quantize_int8(None)

@@ -1,5 +1,7 @@
 """Rules of the PyTorch port: it imports neither JAX nor the JAX package,
-and its entry points never fall back to the CPU on their own."""
+nothing of it (nor chip_smoke.py) imports Pillow when a module is imported
+(the card's machine has none), and its entry points never fall back to the
+CPU on their own."""
 
 import ast
 import pathlib
@@ -36,23 +38,52 @@ def test_port_imports_no_jax(path):
         assert root not in FORBIDDEN, f"{path.name} imports {name}"
 
 
+def _module_level_imports(path):
+    """Names imported by statements that run when ``path`` is imported
+    (function bodies excluded)."""
+    todo = [ast.parse(path.read_text(), filename=str(path))]
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        todo.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_pil_at_module_level(path):
+    for name in _module_level_imports(path):
+        assert name.split(".")[0] != "PIL", f"{path.name} imports {name}"
+
+
 def _entry_points():
+    from robocupvision_tpu_torch.cli import tester
     from robocupvision_tpu_torch.models import packed, zoo
     from robocupvision_tpu_torch.ops import metrics
     from robocupvision_tpu_torch.utils.serving import ServingPipeline
 
     cpu_model = zoo.make("robo_unet", device="cpu")
+    cpu_pb_fcn = zoo.make("pb_fcn", device="cpu")
     maps = np.zeros((1, 4, 4), np.int32)
     return {
         "zoo.make": lambda: zoo.make("robo_unet"),
         "build_packed_infer": lambda: packed.build_packed_infer(cpu_model),
+        "build_packed_pb_fcn": lambda: packed.build_packed_pb_fcn(cpu_pb_fcn),
         "seg_batch_stats": lambda: metrics.seg_batch_stats(maps, maps, 5),
         "ServingPipeline": lambda: ServingPipeline(lambda x: x),
+        "tester.main": lambda: tester.main(["--noScale"]),
+        "tester.serve_and_score": lambda: tester.serve_and_score(
+            lambda x: x, [], 5),
     }
 
 
 @pytest.mark.parametrize("name", ["zoo.make", "build_packed_infer",
-                                  "seg_batch_stats", "ServingPipeline"])
+                                  "build_packed_pb_fcn", "seg_batch_stats",
+                                  "ServingPipeline", "tester.main",
+                                  "tester.serve_and_score"])
 def test_entry_points_raise_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point runs there")
