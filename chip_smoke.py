@@ -13,7 +13,12 @@ the launch counters set to 0 just before it and read just after:
     pallas_deep=True``: three chains a frame);
   - the PB_FCN deployment net through the tester's serve-and-score loop
     (``cli/tester.py``, ``--noScale --packed --pallas``, f32), from a
-    checkpoint the port wrote and read back.
+    checkpoint the port wrote and read back;
+  - the LabelProp net (planes 32) through validLabelProp's serve-and-score
+    loop (``cli/validLabelProp.py``, ``--packed --pallas``, f32: three
+    chains a frame pair, the classifier's channel-slice skip as a ``skip_w``
+    stage), from a checkpoint the port wrote and read back, after its
+    ``weightsLP`` deployment export.
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi reports them, and the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if
@@ -175,10 +180,13 @@ def chain_work(x, stages, skips, outs):
     dense = needed = 0
     n, h, w = chain_grid(x, stages)
     for st in stages:
-        moved += x.element_size() * st.w.numel() + 4 * (
+        # a skip_w stage's skip kernel is read and applied like its own
+        kernels = [st.w] + ([] if st.skip_w is None else [st.skip_w])
+        moved += x.element_size() * sum(k.numel() for k in kernels) + 4 * (
             st.b.numel() + (0 if st.scale is None else 2 * st.scale.numel()))
-        dense += 2 * n * h * w * st.w.numel()
-        needed += 2 * n * h * w * int(torch.count_nonzero(st.w))
+        dense += 2 * n * h * w * sum(k.numel() for k in kernels)
+        needed += 2 * n * h * w * sum(int(torch.count_nonzero(k))
+                                      for k in kernels)
     return moved, dense, needed
 
 
@@ -194,6 +202,8 @@ def chain_features(stages):
             feats.add("relu_only")
         if st.argmax_groups:
             feats.add("argmax_head")
+        if st.skip_w is not None:
+            feats.add("skip_w")
     return sorted(feats)
 
 
@@ -313,6 +323,38 @@ def phase_k2_features(flagship, pb_fcn, dev, chk: Checks) -> dict:
                               ("pb_fcn_up_argmax", pb_up_head)):
                 key = f"{tag}_b{b}_{name}"
                 results[key] = check_chain(key, call, chk, iters)
+    return results
+
+
+def lp_graph(lp_model, dt, dev):
+    """LabelProp's chain graph as ``validLabelProp.py --packed --pallas``
+    builds it: folded-stem down chain, dilated mid chain, up chain."""
+    from robocupvision_tpu_torch.models import packed
+
+    return packed.build_packed_label_prop(lp_model, None, dt, pallas=True,
+                                          pallas_fold_stem=True,
+                                          pallas_mid=True, device=dev)
+
+
+def phase_k2_lp(lp_model, dev, chk: Checks) -> dict:
+    """K2 on LabelProp's three chains at planes 32, on the inputs a random
+    (2, 120, 160, 8) frame pair gives them, bf16 and f32: the folded-stem
+    down chain [pre, down1, down2], the dilated mid chain [conv1, conv2,
+    conv3] on the 15x20 grid, and the up chain [upConv2 + skip, upConv3,
+    classifier + 1x1 skip_w over ``top``] in its logits form (where a wrong
+    skip_w shows) and with the argmax head."""
+    results = {}
+    g = torch.Generator(device="cpu").manual_seed(SEED + 7)
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        pi = lp_graph(lp_model, dt, dev)
+        x = torch.randn((2, 120, 160, 8), generator=g).to(dev)
+        down, mid, up = record_chain_calls(pi, pi.logits, x)
+        _, _, up_head = record_chain_calls(pi, pi.infer, x)
+        for tag, call in (("lp_down", down), ("lp_mid", mid), ("lp_up", up),
+                          ("lp_up_argmax", up_head)):
+            key = f"{tag}_{name}"
+            results[key] = check_chain(key, call, chk, 20)
     return results
 
 
@@ -611,6 +653,127 @@ def phase_tester(pb_model, dev, chk: Checks) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# LabelProp through validLabelProp's serve-and-score loop
+# ---------------------------------------------------------------------------
+
+
+def phase_valid_label_prop(lp_model, dev, chk: Checks) -> dict:
+    """The LabelProp net (planes 32, 5 classes) the way ``validLabelProp.py
+    --packed --pallas`` serves it: saved with the port's
+    ``checkpoint.save`` and read back with ``load_any``; its ``weightsLP``
+    export written (``weights.dat`` must hold LabelProp(32)'s 92,837 float32
+    values, ``net.cfg`` must parse); then 32 (2, 120, 160, 8) frame pairs
+    from ``build_lp_pairs`` through ``serve_and_score`` on the f32 chain
+    graph, the counters set to 0 just before and read just after: 3 K2
+    launches and 1 K1 launch a pair. Labels are held to the plain zoo
+    forward in f32 (>= 0.999, mismatches only at ties), K1's confusion to
+    the einsum's. The plain zoo forward and the plain packed graph go
+    through the same loop for their ms per image."""
+    from robocupvision_tpu_torch.cli import validLabelProp
+    from robocupvision_tpu_torch.cli.labelPropTrain import build_lp_pairs
+    from robocupvision_tpu_torch.export import deploy, netcfg
+    from robocupvision_tpu_torch.models import packed, zoo
+    from robocupvision_tpu_torch.ops import metrics
+    from robocupvision_tpu_torch.ops.cuda_kernels import confusion_count
+    from robocupvision_tpu_torch.ops.cuda_packed import fused_conv_chain
+    from robocupvision_tpu_torch.train import checkpoint
+
+    lp_shape = (120, 160)
+    res = {"phase": "valid_label_prop", "pairs": N_FRAMES,
+           "shape": [2, *lp_shape, 8], "dtype": "float32"}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here, prefix=".chip_smoke_") as tmp:
+        path = os.path.join(tmp, "pth", "bestModelLP.pth")
+        checkpoint.save(path, lp_model.registry, lp_model.state_dict())
+        loaded = checkpoint.load_any(path, lp_model.registry)
+        model = zoo.make("label_prop", planes=32, num_classes=5, device=dev,
+                         generator=torch.Generator().manual_seed(SEED + 98))
+        model.load_state_dict(loaded)
+        out = deploy.export_deployment(os.path.join(tmp, "weightsLP"), model)
+        dat_bytes = os.path.getsize(os.path.join(out, "weights.dat"))
+        secs = netcfg.parse_cfg(os.path.join(out, "net.cfg"))
+    state = lp_model.state_dict()
+    same = list(loaded) == list(state) and all(
+        torch.equal(loaded[k], state[k].cpu()) for k in state)
+    chk.expect(same, "LabelProp checkpoint did not read back exactly")
+    chk.expect(dat_bytes == 92837 * 4,
+               f"weightsLP/weights.dat holds {dat_bytes} bytes, not 92837 * 4")
+    cfg_ok = (secs[0][0] == "net" and secs[-1][0] == "softmax"
+              and sum(name == "convolutional" for name, _ in secs) == 8
+              and sum(name == "transposedconv" for name, _ in secs) == 3)
+    chk.expect(cfg_ok, "weightsLP/net.cfg does not parse to LabelProp's graph")
+    res.update(checkpoint_roundtrip_exact=same, weights_dat_bytes=dat_bytes,
+               net_cfg_sections=len(secs), net_cfg_ok=cfg_ok)
+
+    rng = np.random.default_rng(SEED + 8)
+    pairs = [build_lp_pairs(
+        rng.standard_normal((1, 2, *lp_shape, 3)).astype(np.float32),
+        rng.integers(0, 5, (1, 2, *lp_shape)), 5) for _ in range(N_FRAMES)]
+    with torch.no_grad():
+        ref_logits = [model(torch.from_numpy(x).to(dev)) for x, _ in pairs]
+    ref_labels = np.stack([r.argmax(-1).cpu().numpy() for r in ref_logits])
+    gap = np.stack([top2_gap(r) for r in ref_logits])
+
+    pi = lp_graph(model, torch.float32, dev)
+    with torch.no_grad():
+        err = max(float((pi.logits(torch.from_numpy(x).to(dev)) - r)
+                        .abs().max()) for (x, _), r in zip(pairs[:4],
+                                                         ref_logits[:4]))
+    served = np.zeros((N_FRAMES, 2, *lp_shape), np.int64)
+
+    def keep(i, labels):
+        served[i // 2, i % 2] = labels
+
+    # --- the main path: validLabelProp's loop, counters around it ----------
+    fused_conv_chain.launches = 0
+    confusion_count.launches = 0
+    with torch.no_grad():
+        acc, t_total, n = validLabelProp.serve_and_score(
+            pi.infer, pairs, 5, on_mask=keep, device=dev)
+    k2, k1 = fused_conv_chain.launches, confusion_count.launches
+    launches = {"fused_conv_chain": k2, "confusion_count": k1}
+    mism = served != ref_labels
+    agree = 1.0 - float(mism.mean())
+    max_gap = float(gap[mism].max()) if mism.any() else 0.0
+    fin = metrics.seg_finalize(acc, 1.0 / (lp_shape[0] * lp_shape[1]))
+    res.update(images=n, ms_per_image=t_total / n * 1000,
+               main_path_launches=launches, f32_agreement=agree,
+               mismatch_max_top2_gap=max_gap, logit_max_abs_err_4_pairs=err,
+               pixel_acc=float(fin["pixel_acc"]),
+               mean_iou=float(fin["mean_iou"]))
+    chk.expect(n == 2 * N_FRAMES, f"validLabelProp served {n} images")
+    chk.expect(k2 == 3 * N_FRAMES, f"validLabelProp: K2 launches {k2} != 3/pair")
+    chk.expect(k1 == N_FRAMES, f"validLabelProp: K1 launches {k1} != 1/pair")
+    chk.expect(agree >= 0.999, f"validLabelProp: f32 agreement {agree}")
+    chk.expect(max_gap <= max(1e-4, 2 * err),
+               f"validLabelProp: mismatch at a top-2 gap {max_gap} > the tie "
+               f"band {max(1e-4, 2 * err)}")
+
+    # scoring: K1 (impl auto) equals the plain einsum count, every field
+    lab_d = torch.from_numpy(served.reshape(-1, *lp_shape)).to(dev)
+    tgt_d = torch.from_numpy(np.concatenate([t for _, t in pairs])).to(dev)
+    a = metrics.to_host(metrics.seg_batch_stats(lab_d, tgt_d, 5, device=dev))
+    e = metrics.to_host(metrics.seg_batch_stats(lab_d, tgt_d, 5,
+                                                impl="einsum", device=dev))
+    eq = all(np.array_equal(getattr(a, f), getattr(e, f))
+             for f in ("conf", "iou_sum", "lab_cnts", "correct", "img_cnt"))
+    res["scoring_equal_einsum"] = eq
+    chk.expect(eq, "validLabelProp: seg_batch_stats K1 != einsum")
+
+    # the CLI's other graphs through the same loop, for their ms per image
+    plain_packed = packed.build_packed_label_prop(model, None, torch.float32,
+                                                  device=dev)
+    for tag, infer in (("zoo", lambda x: torch.argmax(model(x), dim=-1)),
+                       ("packed", plain_packed.infer)):
+        with torch.no_grad():
+            _, t, m = validLabelProp.serve_and_score(infer, pairs, 5,
+                                                     device=dev)
+        res[f"{tag}_ms_per_image"] = t / m * 1000
+    emit(res)
+    return res
+
+
 def k2_entry(cases, launches, features) -> dict:
     """The ``kernels`` line's K2 object: times, bound and error summed (err:
     max) over the chains of one served frame."""
@@ -656,9 +819,12 @@ def main() -> int:
     pb_model = zoo.make("pb_fcn", planes=32, num_classes=5, kernel_size=1,
                         no_scale=True, device=dev,
                         generator=torch.Generator().manual_seed(SEED + 4))
+    lp_model = zoo.make("label_prop", planes=32, num_classes=5, device=dev,
+                        generator=torch.Generator().manual_seed(SEED + 9))
     k1 = phase_k1(dev, chk)
     k2 = phase_k2(model, dev, chk)
     k2f = phase_k2_features(model, pb_model, dev, chk)
+    k2lp = phase_k2_lp(lp_model, dev, chk)
 
     rng = np.random.default_rng(SEED + 3)
     frames = [rng.integers(0, 256, (1, *VGA, 3), dtype=np.uint8)
@@ -672,15 +838,17 @@ def main() -> int:
     del ref
     phase_device_fps(model, dev, frames)
     ts = phase_tester(pb_model, dev, chk)
+    vlp = phase_valid_label_prop(lp_model, dev, chk)
 
     # the main paths' launches; K1's shapes: one (1, 480, 640) map pair
     # scored per frame; K2's: the bf16 VGA b1 chains of one frame of the
     # full chain graph (folded-stem down, deep, up with its head)
     main_runs = [sv2["main_path_launches"], sv3["main_path_launches"]] + [
-        r["launches"] for r in ts["runs"].values()]
+        r["launches"] for r in ts["runs"].values()] + [
+        vlp["main_path_launches"]]
     k1m = k1[1]
     features = sorted({f for r in list(k2.values()) + list(k2f.values())
-                       for f in r["features"]})
+                       + list(k2lp.values()) for f in r["features"]})
     kernels = [
         {"name": "confusion_count", "route": "cuda",
          "source": "robocupvision_tpu_torch/csrc/confusion.cu",

@@ -27,7 +27,8 @@ from typing import Callable, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from robocupvision_tpu_torch.device import DeviceLike, resolve_device
+from robocupvision_tpu_torch.device import (DeviceLike, resolve_device,
+                                            synchronize)
 from robocupvision_tpu_torch.ops.metrics import SegAccum, seg_batch_stats_host
 
 
@@ -62,11 +63,6 @@ def build_parser() -> argparse.ArgumentParser:
                    "extension, utils/serving.py). 1 = the reference's serial "
                    "per-frame timing (tester.py:142-144)")
     return p
-
-
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def serve_and_score(infer: Callable, frames: Iterable[Tuple[np.ndarray, np.ndarray]],
@@ -112,10 +108,10 @@ def serve_and_score(infer: Callable, frames: Iterable[Tuple[np.ndarray, np.ndarr
     t_total = 0.0
     for img, lab in frames:
         x = torch.from_numpy(np.ascontiguousarray(img[None])).to(dev)
-        _sync(dev)
+        synchronize(dev)
         beg = time.perf_counter()
         pred = infer(x)
-        _sync(dev)
+        synchronize(dev)
         t_total += time.perf_counter() - beg
         acc = acc + consume(n, pred.cpu(), lab)
         n += 1

@@ -1,0 +1,174 @@
+"""Label-propagation evaluation CLI, the reference's ``python
+validLabelProp.py`` (the JAX package's cli/validLabelProp.py).
+
+Loads the LabelProp checkpoint (pth/bestModelLP{Finetuned}{Pruned}.pth),
+writes its deployment export to ./weightsLP, serves the LPDataSet val
+pairs (both temporal directions, one (2, 120, 160, 8) pair a call), writes
+colourized predictions to output/LabelProp/{Real,Synthetic}/, and prints
+pixel accuracy, mean class accuracy, mean IoU, the normalized confusion
+matrix and the mean per-image latency in ms. ``--packed`` serves the
+lane-packed graph in f32 (``--pallas``: its three fused chains, kernel K2
+on CUDA); scores go through ``seg_batch_stats`` (kernel K1 on CUDA).
+
+    python -m robocupvision_tpu_torch.cli.validLabelProp --packed --pallas
+
+runs on the CUDA card; ``main(argv, device="cpu")`` runs the plain
+PyTorch path on the CPU. ``--optFlow``/``--jaxFlow`` (the optical-flow
+baseline) and ``--int8`` need later slices of the port and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from typing import Callable, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from robocupvision_tpu_torch.device import (DeviceLike, resolve_device,
+                                            synchronize)
+from robocupvision_tpu_torch.ops.metrics import SegAccum, seg_batch_stats_host
+
+NUM_CLASSES = 5
+IMG_SIZE = (120, 160)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Label propagation evaluation")
+    p.add_argument("--finetuned", action="store_true", default=False)
+    p.add_argument("--pruned", action="store_true", default=False)
+    p.add_argument("--optFlow", action="store_true", default=False,
+                   help="the optical-flow baseline (not ported yet)")
+    p.add_argument("--jaxFlow", action="store_true", default=False,
+                   help="with --optFlow: the Farneback port (not ported yet)")
+    p.add_argument("--packed", action="store_true", default=False,
+                   help="lane-packed LP inference graph (exact rewrite)")
+    p.add_argument("--pallas", action="store_true", default=False,
+                   help="with --packed: run the packed conv regions as fused "
+                   "chain kernels (exact rewrite; ops/cuda_packed.py)")
+    p.add_argument("--int8", action="store_true", default=False,
+                   help="with --packed --pallas: static int8 serving (not "
+                   "ported yet)")
+    p.add_argument("--root", type=str,
+                   default=os.environ.get("ROBOCUP_DATA", "./data"))
+    return p
+
+
+def serve_and_score(infer: Callable,
+                    pairs: Iterable[Tuple[np.ndarray, np.ndarray]],
+                    num_classes: int = NUM_CLASSES,
+                    on_mask: Optional[Callable[[int, np.ndarray], None]] = None,
+                    device: DeviceLike = None) -> Tuple[SegAccum, float, int]:
+    """Serve ``pairs``, (inputs (2, H, W, 8) float32, targets (2, H, W) int)
+    frame pairs built by ``build_lp_pairs``, one pair a call through
+    ``infer`` ((2, H, W, 8) tensor on ``device`` -> (2, H, W) int labels),
+    and score each served pair against its targets with
+    ``seg_batch_stats``. ``on_mask(i, labels)`` sees every served (H, W) map
+    in order. Each call is timed alone, from its input on the device to its
+    synchronise, as the reference does (validLabelProp.py:133-139). Returns
+    (host accumulator, seconds, images served)."""
+    dev = resolve_device(device)
+    acc = SegAccum.zero(num_classes)
+    t_total = 0.0
+    n = 0
+    for inputs, targets in pairs:
+        x = torch.from_numpy(np.ascontiguousarray(inputs)).to(dev)
+        synchronize(dev)
+        beg = time.perf_counter()
+        pred = infer(x)
+        synchronize(dev)
+        t_total += time.perf_counter() - beg
+        if on_mask is not None:
+            for j, labels in enumerate(pred.cpu().numpy()):
+                on_mask(n + j, labels)
+        n += int(pred.shape[0])
+        acc = acc + seg_batch_stats_host(pred, targets, num_classes, device=dev)
+    return acc, t_total, n
+
+
+def main(argv=None, device: DeviceLike = None) -> int:
+    opt = build_parser().parse_args(argv)
+    dev = resolve_device(device)
+
+    from robocupvision_tpu_torch.cli.labelPropTrain import build_lp_pairs
+    from robocupvision_tpu_torch.data.datasets import LPDataSet
+    from robocupvision_tpu_torch.export import deploy
+    from robocupvision_tpu_torch.models import packed as packed_mod
+    from robocupvision_tpu_torch.models import zoo
+    from robocupvision_tpu_torch.ops.labels import colorize
+    from robocupvision_tpu_torch.ops.metrics import seg_finalize
+    from robocupvision_tpu_torch.train import checkpoint
+
+    if opt.optFlow or opt.jaxFlow:
+        raise NotImplementedError(
+            "--optFlow and --jaxFlow need the port's ops/optflow (cv2 and the "
+            "Farneback port, ROADMAP.md A.11), which is not ported yet")
+    if opt.int8 and not (opt.packed and opt.pallas):
+        print("--int8 requires --packed --pallas")
+        return -1
+    if opt.int8:
+        raise NotImplementedError(
+            "--int8 needs quantize_int8 and K2's int8 stages (ROADMAP.md A.9 "
+            "and B.2f), which are not ported yet")
+    fine_str = "Finetuned" if opt.finetuned else ""
+    prune_str = "Pruned" if opt.pruned else ""
+    out_dir = os.path.join("output", "LabelProp",
+                           "Real" if opt.finetuned else "Synthetic")
+    os.makedirs(out_dir, exist_ok=True)
+
+    ds = LPDataSet(opt.root, train=False, img_size=IMG_SIZE,
+                   finetune=opt.finetuned, len_seq=2)
+    if len(ds) == 0:
+        print(f"No LabelProp data under {opt.root}")
+        return -1
+    out_size = 1.0 / (IMG_SIZE[0] * IMG_SIZE[1])
+
+    model = zoo.make("label_prop", num_classes=NUM_CLASSES, planes=32,
+                     device=dev)
+    path = "pth/bestModelLP" + fine_str + prune_str + ".pth"
+    print(f"Loading {path}")
+    model.load_state_dict(checkpoint.load_any(path, model.registry))
+    deploy.export_deployment("./weightsLP", model)
+
+    if opt.packed:
+        # f32: the packed graph's labels stay those of the plain graph but
+        # for argmax ties; --pallas runs the three fused chains (K2 on CUDA)
+        pk = dict(pallas=True, pallas_fold_stem=True, pallas_mid=True) \
+            if opt.pallas else {}
+        pi = packed_mod.build_packed_label_prop(model, None, torch.float32,
+                                                device=dev, **pk)
+        infer = pi.infer
+    else:
+        def infer(x):
+            return torch.argmax(model(x), dim=-1)
+
+    def write_mask(i, labels):
+        from PIL import Image
+
+        Image.fromarray(colorize(labels, NUM_CLASSES)).save(
+            os.path.join(out_dir, "%d.png" % i))
+
+    def pairs():
+        for i in range(len(ds)):
+            imgs, labs, _ = ds[i]
+            yield build_lp_pairs(imgs[None], labs[None], NUM_CLASSES)
+
+    with torch.no_grad():
+        acc, t_total, img_cnt = serve_and_score(infer, pairs(), NUM_CLASSES,
+                                                on_mask=write_mask, device=dev)
+
+    fin = seg_finalize(acc, out_size)
+    print("Validation Pixel Acc: %.2f Mean Class Acc: %.2f Mean IoU: %.2f"
+          % (float(fin["pixel_acc"]), float(fin["mean_class_acc"]),
+             float(fin["mean_iou"])))
+    print(np.array_str(np.asarray(fin["conf"]), precision=2, suppress_small=True))
+    print(t_total / max(img_cnt, 1) * 1000)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -4,22 +4,30 @@
 // Replaces the TPU kernel robocupvision_tpu/ops/pallas_packed.py
 // `fused_conv_chain` (body `_chain_kernel`), for its plain stages (KxK/s1
 // conv, optionally dilated, bias, folded-BN affine in either order or a bare
-// ReLU, identity skip), its folded space-to-depth stem (`stem_f`) and its
-// fused argmax head. The Python wrapper (ops/cuda_packed.py) rejects the
-// stage features outside these (`skip_w`, `pool`, int8).
+// ReLU, identity skip), its conv'd skip (`skip_w`), its folded
+// space-to-depth stem (`stem_f`) and its fused argmax head. The Python
+// wrapper (ops/cuda_packed.py) rejects the stage features outside these
+// (`pool`, int8).
 //
-// Stage k of a chain: y = conv(in) + b; then rbb ? relu(y)*scale + shift
-// : relu(y*scale + shift) when the stage has an affine, else relu(y) for a
-// `relu_only` stage; then y += skip; rows outside the image are zero (they
-// are the next stage's padding; the columns are bounds-checked instead); y
-// is rounded to the chain dtype. A conv tap (dy, dx) of a `dil`-dilated
-// stage reads input row g + dil*(dy - KH/2) and column c + dil*(dx - KW/2).
+// Stage k of a chain: y = conv(in) [+ conv(skip, skip_w)] + b; then rbb ?
+// relu(y)*scale + shift : relu(y*scale + shift) when the stage has an
+// affine, else relu(y) for a `relu_only` stage; then y += skip for an
+// identity skip (a `skip_w` stage takes its skip through the conv instead,
+// before the bias: the second half of a conv split over a concat); rows
+// outside the image are zero (they are the next stage's padding; the
+// columns are bounds-checked instead); y is rounded to the chain dtype. A
+// conv tap (dy, dx) of a `dil`-dilated stage reads input row
+// g + dil*(dy - KH/2) and column c + dil*(dx - KW/2).
 // A `stem_f` stage (stage 0 only) reads the raw (N, f*H, f*W, cin) image as
 // its free grouped view (N, f*H, W, f*cin): output row g, tap dy in
 // [0, f+2) reads raw row f*g + dy - 1 and tap dx in [0, 3) reads group
 // c + dx - 1, i.e. the (f, 1)-strided, padding-1 conv of the JAX package's
 // chain_reference (the TPU kernel's f row-phase buffers exist only for
-// Mosaic's static strided reads and are not needed here).
+// Mosaic's static strided reads and are not needed here). A `skip_w` stage's
+// (K, K, Cskip, Cout) skip kernel (K in {1, 3}, padding K/2) reads the skip
+// tensor straight from device memory at row g + dy - K/2 and column c + dx -
+// K/2, both bounds-checked, so it deepens no halo (the TPU kernel pads the
+// skips instead).
 //
 // Bound on the H100: bytes. At the flagship's VGA shapes the packed taps
 // are mostly structural zeros (each original weight lands in one output
@@ -57,6 +65,8 @@ struct RcvStage {
   const float* b;      // (cout,) f32
   const float* scale;  // (cout,) f32, or null: no affine (the head)
   const float* shift;  // (cout,) f32
+  const void* skip_w;  // (skip_k, skip_k, skip_cin, cout) chain dtype, 16-byte
+                       // aligned, or null: skips[skip_idx] is an identity skip
   void* out;           // emitted (N, H, W, cout) chain dtype, (N, H, W, G)
                        // int32 for the argmax head, or null
   long long ws_off;    // element offset of the strip in a block's workspace
@@ -64,12 +74,14 @@ struct RcvStage {
   int dil;             // tap spacing (1: a plain conv)
   int stem_f;          // stage 0 only: the folded stem's factor f, else 0
   int relu_only;       // no affine: y = relu(conv + b)
+  int skip_k, skip_cin;  // the skip kernel's K and Cskip (skip_w only)
   int pad_;
 };
 
 struct RcvChain {
   const void* x;                     // (N, H, W, cin0) chain dtype
-  const void* skips[RCV_MAX_SKIPS];  // (N, H, W, cout of the consumer)
+  const void* skips[RCV_MAX_SKIPS];  // (N, H, W, C): C is the consumer's
+                                     // cout, or its skip_cin for skip_w
   void* ws;                          // workspace, ws_per_block per block
   long long ws_per_block;
   int n, h, w, band, n_stages, bf16, pad0, pad1;
@@ -79,6 +91,11 @@ struct RcvChain {
 namespace {
 
 constexpr int kThreads = 256;
+// Two blocks per SM: caps a thread at 128 registers, so a grid of up to
+// 264 blocks (b8, or the 30-row deep chains' 240) runs in one wave.
+// Without the cap ptxas may take more (164 for an f32 build, seen on an
+// H100) and halve the occupancy: f32 chains ran ~25% slower at b8.
+constexpr int kMinBlocksPerSm = 2;
 constexpr int kPix = 4;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -149,10 +166,13 @@ __device__ void conv_stage(const RcvChain& c, const RcvStage& st, int img,
   const int ncog = cout / COB;
   const int npg = (W + kPix - 1) / kPix;
   const int items = strip * npg * ncog;
-  const T* skip = st.skip_idx >= 0
+  // the identity skip added after the epilogue (a skip_w stage convolves
+  // its skip instead)
+  const T* skip = st.skip_idx >= 0 && st.skip_w == nullptr
       ? static_cast<const T*>(c.skips[st.skip_idx]) : nullptr;
   T* out = (st.out != nullptr && st.argmax_groups == 0)
       ? static_cast<T*>(st.out) : nullptr;
+  const int n_src = st.skip_w != nullptr ? 2 : 1;
 
   for (int it = threadIdx.x; it < items; it += blockDim.x) {
     const int cog = it % ncog;
@@ -170,28 +190,43 @@ __device__ void conv_stage(const RcvChain& c, const RcvStage& st, int img,
 #pragma unroll
       for (int q = 0; q < COB; ++q) acc[p][q] = 0.f;
 
-    if (in_image) {  // rows outside the image end as zero: skip their math
-      for (int dy = 0; dy < KH; ++dy) {
-        const int lr = sy * g + dil * dy - py - in_row0;
-        if (lr < 0 || lr >= in_rows) continue;
-        const T* in_row = in + (long long)lr * W * cin;
-        for (int dx = 0; dx < KW; ++dx) {
-          const T* wt = static_cast<const T*>(st.w) +
-                        (long long)(dy * KW + dx) * cin * cout + co0;
+    // rows outside the image end as zero: skip their math. Source 0 is the
+    // stage's own conv over its input; source 1, on a skip_w stage, the
+    // skip kernel's conv over the skip image (K x K, padding K/2), summed
+    // into the same accumulator. Tap (dy, dx) reads source row
+    // ssy*g + sdil*dy - spy (rows [srow0, srow0 + srows) exist) and column
+    // c + sdil*dx - spx.
+    for (int s = 0; in_image && s < n_src; ++s) {
+      const bool sk = s == 1;
+      const int scin = sk ? st.skip_cin : cin;
+      const int skh = sk ? st.skip_k : KH, skw = sk ? st.skip_k : KW;
+      const int sdil = sk ? 1 : dil, ssy = sk ? 1 : sy;
+      const int spy = sk ? st.skip_k / 2 : py, spx = sk ? st.skip_k / 2 : px;
+      const int srow0 = sk ? 0 : in_row0, srows = sk ? H : in_rows;
+      const T* src = sk ? static_cast<const T*>(c.skips[st.skip_idx]) +
+                              (long long)img * H * W * scin
+                        : in;
+      const T* wsrc = static_cast<const T*>(sk ? st.skip_w : st.w);
+      for (int dy = 0; dy < skh; ++dy) {
+        const int lr = ssy * g + sdil * dy - spy - srow0;
+        if (lr < 0 || lr >= srows) continue;
+        const T* in_row = src + (long long)lr * W * scin;
+        for (int dx = 0; dx < skw; ++dx) {
+          const T* wt = wsrc + (long long)(dy * skw + dx) * scin * cout + co0;
           int col[kPix];
           bool ok[kPix];
 #pragma unroll
           for (int p = 0; p < kPix; ++p) {
-            col[p] = col0 + p + dil * dx - px;
+            col[p] = col0 + p + sdil * dx - spx;
             ok[p] = col0 + p < W && col[p] >= 0 && col[p] < W;
           }
-          for (int ci = 0; ci < cin; ++ci) {
+          for (int ci = 0; ci < scin; ++ci) {
             float wv[COB];
             load_w<COB>(wt + (long long)ci * cout, wv);
 #pragma unroll
             for (int p = 0; p < kPix; ++p) {
               const float xv =
-                  ok[p] ? to_f(in_row[(long long)col[p] * cin + ci]) : 0.f;
+                  ok[p] ? to_f(in_row[(long long)col[p] * scin + ci]) : 0.f;
 #pragma unroll
               for (int q = 0; q < COB; ++q)
                 acc[p][q] = fmaf(xv, wv[q], acc[p][q]);
@@ -260,7 +295,8 @@ __device__ void argmax_stage(const RcvChain& c, const RcvStage& st, int img,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) chain_kernel(const RcvChain c) {
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+    chain_kernel(const RcvChain c) {
   const int band_i = blockIdx.x;
   const int img = blockIdx.y;
   const int off = band_i * c.band;

@@ -1,12 +1,16 @@
-"""The legacy segmentation dataset reader (the JAX package's
-data/datasets.py ``SSDataSet`` and its helpers).
+"""The legacy segmentation and label-propagation dataset readers (the JAX
+package's data/datasets.py ``SSDataSet``, ``LPDataSet`` and their helpers).
 
-Layout (reference dataset.py:135-189, trainer.py:75-104):
+SSDataSet (reference dataset.py:135-189, trainer.py:75-104):
 root/{split}/{images,labels}/*.png, sorted by the reference's alphanumeric
 key, with optional per-image camera sidecars ``*.txt`` holding 'u' (top) or
 'b' (bottom). Images pass the Scale -> ToYUV -> Normalize([.5, 0, 0],
 [.5, .5, .5]) stack and come back as (H, W, 3) float32 numpy arrays, labels
 as (H, W) int32.
+
+LPDataSet (reference dataset.py:191-270):
+root/LabelProp/{Real,Synthetic}/{train,val}/<seq>/{images,labels}/*.png;
+an item is ``len_seq`` consecutive frames of one sequence.
 
 Pillow is imported inside the functions that read files, so that importing
 this module needs no Pillow.
@@ -20,6 +24,8 @@ import re
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from robocupvision_tpu_torch.ops import color as color_ops
 
 # BT.601 matrix (skimage.color.yuv_from_rgb) for the legacy ToYUV stack
 _YUV_FROM_RGB = np.array([[0.299, 0.587, 0.114],
@@ -122,3 +128,66 @@ class SSDataSet:
         img = legacy_normalize(load_image_rgb(path, size))
         lab = load_label(osp.join(self.lab_dir, self.labels[i]), size)
         return img, lab
+
+
+class LPDataSet:
+    """Label-propagation sequence dataset (reference dataset.py:191-270).
+
+    ``__getitem__`` returns (imgs (S, H, W, 3) YUV, normalized with the
+    domain's constants; labels (S, H, W) int32; gray (S, H, W) uint8 frames
+    for optical flow)."""
+
+    def __init__(self, root: str, train: bool = True, img_size=(120, 160),
+                 finetune: bool = True, len_seq: int = 2):
+        self.img_size = tuple(img_size)
+        self.len_seq = len_seq
+        self.mean = color_ops.MEAN_FINETUNE if finetune else color_ops.MEAN_SYNTHETIC
+        self.std = color_ops.STD_FINETUNE if finetune else color_ops.STD_SYNTHETIC
+        base = osp.join(root, "LabelProp", "Real" if finetune else "Synthetic",
+                        "train" if train else "val")
+        self.seqs: List[Tuple[List[str], List[str]]] = []
+        if osp.isdir(base):
+            for d in sorted(os.listdir(base)):
+                cur = osp.join(base, d)
+                if not osp.isdir(cur):
+                    continue
+                idir, ldir = osp.join(cur, "images"), osp.join(cur, "labels")
+                self.seqs.append(([osp.join(idir, f) for f in _list_pngs(idir)],
+                                  [osp.join(ldir, f) for f in _list_pngs(ldir)]))
+
+    def __len__(self) -> int:
+        return sum(max(len(i) - self.len_seq + 1, 0) for i, _ in self.seqs)
+
+    def _locate(self, index: int) -> Tuple[int, int]:
+        for d, (imgs, _) in enumerate(self.seqs):
+            n = max(len(imgs) - self.len_seq + 1, 0)
+            if index < n:
+                return d, index
+            index -= n
+        raise IndexError(index)
+
+    def __getitem__(self, index: int):
+        d, item = self._locate(index)
+        imgs, labs, grays = [], [], []
+        mean = np.asarray(self.mean, np.float32)
+        std = np.asarray(self.std, np.float32)
+        for i in range(self.len_seq):
+            rgb = load_image_rgb(self.seqs[d][0][item + i], self.img_size)
+            # the reference converts with cv2's RGB2YUV (dataset.py:260)
+            yuv = (_cv2_rgb2yuv(rgb) - mean) / std
+            imgs.append(yuv.astype(np.float32))
+            labs.append(load_label(self.seqs[d][1][item + i], self.img_size))
+            grays.append((np.clip(rgb @ np.array([0.299, 0.587, 0.114]), 0, 1)
+                          * 255).astype(np.uint8))
+        return np.stack(imgs), np.stack(labs), np.stack(grays)
+
+
+def _cv2_rgb2yuv(rgb01: np.ndarray) -> np.ndarray:
+    """cv2.COLOR_RGB2YUV on [0, 1] floats: Y = BT.601 luma; U, V offset by
+    0.5."""
+    m = np.array([[0.299, 0.587, 0.114],
+                  [-0.14713769, -0.28886174, 0.43599929],
+                  [0.61499662, -0.51498428, -0.10001026]], np.float32)
+    yuv = rgb01 @ m.T
+    yuv[..., 1:] += 0.5
+    return yuv

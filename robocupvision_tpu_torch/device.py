@@ -20,3 +20,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "plain PyTorch path on the CPU")
     return dev
+
+
+def synchronize(dev: torch.device) -> None:
+    """Wait for the work queued on ``dev`` (nothing to wait for on the CPU)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)

@@ -1,0 +1,240 @@
+"""net.cfg, the darknet-style deployment graph format, write side (the JAX
+package's export/netcfg.py, less its interpreter ``run_cfg``).
+
+The reference hand-maintains these files (weights/net.cfg,
+weightsVGA/net.cfg, weightsLP/net.cfg) to describe the deployed networks
+for the external C++ engine: section order is the layer list, and
+``[shortcut] from=N`` names the 0-based output of layer N. They are
+generated here from the model configs. Sections written:
+  [net] height width channels downscale
+  [convolutional] filters size stride pad dilation activation hasBias
+  [batchnorm] activation
+  [transposedconv] filters size stride pad outpad activation
+  [shortcut] from activation      (adds over the first min(C) channels)
+  [concat] from
+  [maxpool] size stride
+  [softmax]
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+from robocupvision_tpu_torch.models.layers import Registry
+
+Section = Tuple[str, Dict[str, str]]
+
+
+# ---------------------------------------------------------------------------
+# writer / parser
+# ---------------------------------------------------------------------------
+
+
+def write_cfg(path: str, sections: List[Section]) -> None:
+    lines = []
+    for name, kv in sections:
+        lines.append(f"[{name}]")
+        for k, v in kv.items():
+            lines.append(f"{k}={v}")
+        lines.append("")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def parse_cfg(path: str) -> List[Section]:
+    sections: List[Section] = []
+    with open(path) as f:
+        for raw in f:
+            line = raw.strip()
+            if not line or line.startswith(("#", ";")):
+                continue
+            if line.startswith("[") and line.endswith("]"):
+                sections.append((line[1:-1], {}))
+            else:
+                k, _, v = line.partition("=")
+                sections[-1][1][k.strip()] = v.strip()
+    return sections
+
+
+# ---------------------------------------------------------------------------
+# emitters
+# ---------------------------------------------------------------------------
+
+
+def _conv(filters, size, stride=1, pad=0, dilation=1, activation="linear",
+          has_bias=0) -> Section:
+    return ("convolutional", dict(filters=filters, size=size, stride=stride,
+                                  pad=pad, dilation=dilation,
+                                  activation=activation, hasBias=has_bias))
+
+
+def _bn() -> Section:
+    return ("batchnorm", {"activation": "relu"})
+
+
+def _tconv(filters, size=3, stride=2, pad=1, outpad=1) -> Section:
+    return ("transposedconv", dict(filters=filters, size=size, stride=stride,
+                                   pad=pad, outpad=outpad, activation="linear"))
+
+
+def _shortcut(frm: int) -> Section:
+    return ("shortcut", {"activation": "linear", "from": frm})
+
+
+def pb_fcn_sections(planes: int = 32, num_classes: int = 5,
+                    no_scale: bool = False, kernel_size: int = 1) -> List[Section]:
+    """PB-FCN deployment graph; the layout of weights/net.cfg (QVGA) and
+    weightsVGA/net.cfg (VGA) for the default planes=32."""
+    h, w = (480, 640) if no_scale else (120, 160)
+    p = planes
+    secs: List[Section] = [("net", dict(height=h, width=w, channels=3,
+                                        downscale=4))]
+
+    def cps(filters, stride, pad, dilation):  # ConvPoolSimple: conv+bn+relu
+        secs.append(_conv(filters, 3, stride, pad, dilation))
+        secs.append(_bn())
+
+    def cp(filters):  # ConvPool: conv(d2, relu) + conv(s2) + bn + relu
+        secs.append(_conv(filters, 3, 1, 2, 2, activation="relu"))
+        secs.append(_conv(filters, 3, 2, 1, 1))
+        secs.append(_bn())
+
+    cps(p // 4, 1, 2, 2)          # conv0 -> skip idx 1 (its bn)
+    skip0 = len(secs) - 2          # 0-based excluding [net]
+    cps(p // 2, 2, 1, 1)          # conv1 -> skip idx 3
+    skip1 = len(secs) - 2
+    cp(p)                          # conv2 -> skip idx 6
+    skip2 = len(secs) - 2
+    if no_scale:
+        cp(p)                      # conv_ext
+        skip3 = len(secs) - 2
+    cp(p * 2)                      # conv3
+    for _ in range(4):             # conv4..conv7
+        cps(p * 4, 1, 2, 2)
+    cps(p * 2, 1, 2, 2)           # conv8
+
+    mult = 2 if no_scale else 1
+    ups = [p, p // 2 * mult, p // 4 * mult] + ([p // 4] if no_scale else [])
+    skips = ([skip3, skip2, skip1, skip0] if no_scale
+             else [skip2, skip1, skip0])
+    for f, s in zip(ups, skips):
+        secs.append(_tconv(f))
+        secs.append(_bn())
+        secs.append(_shortcut(s))
+    secs.append(_conv(num_classes, kernel_size, 1, kernel_size // 2,
+                      activation="linear", has_bias=1))
+    secs.append(("softmax", {}))
+    return secs
+
+
+def label_prop_sections(planes: int = 32, num_classes: int = 5) -> List[Section]:
+    """LabelProp deployment graph; the layout of weightsLP/net.cfg."""
+    p = planes
+    secs: List[Section] = [("net", dict(height=120, width=160, channels=8,
+                                        downscale=4))]
+
+    def cps(filters, stride, pad, dilation):
+        secs.append(_conv(filters, 3, stride, pad, dilation))
+        secs.append(_bn())
+
+    cps(p // 4, 1, 1, 1)   # pre  -> bn at idx 1
+    cps(p // 2, 2, 1, 1)   # down1 -> bn at idx 3
+    cps(p // 2, 2, 1, 1)   # down2 -> bn at idx 5
+    cps(p, 2, 1, 1)        # down3
+    cps(p * 2, 1, 2, 2)    # conv1
+    cps(p * 2, 1, 2, 2)    # conv2
+    cps(p, 1, 2, 2)        # conv3
+    for f, s in [(p // 2, 5), (p // 2, 3), (p // 2, 1)]:
+        secs.append(_tconv(f))
+        secs.append(_bn())
+        secs.append(_shortcut(s))
+    secs.append(_conv(num_classes, 1, 1, 0, activation="linear", has_bias=1))
+    secs.append(("softmax", {}))
+    return secs
+
+
+def robo_unet_sections(cfg) -> List[Section]:
+    """ROBO-UNet deployment graph from a zoo.RoboUNetCfg. ``pool`` (--UNet)
+    writes [maxpool] + stride-1 convs per LevelDown; ``v2`` writes [concat]
+    instead of [shortcut]."""
+    h, w = cfg.img_shape
+    secs: List[Section] = [("net", dict(height=h, width=w, channels=3,
+                                        downscale=2 if cfg.no_scale else 4))]
+    depth = cfg.eff_depth
+    pl = cfg.planes
+    skips: List[int] = []
+
+    def conv_bn_relu(filters, stride):
+        # the zoo's "Conv" block: conv(relu) then BN, written as
+        # conv(act=relu) + bn(linear)
+        secs.append(_conv(filters, 3, stride, 1, 1, activation="relu", has_bias=1))
+        secs.append(("batchnorm", {"activation": "linear"}))
+
+    def level(cin, cout, levels, do_pool, pool):
+        # mirrors layers.level_down (reference LevelDown, model.py:379-401):
+        # pool mode downsamples with MaxPool(2, 2) and drops one conv level
+        if pool:
+            if do_pool:
+                secs.append(("maxpool", {"size": 2, "stride": 2}))
+                levels -= 1
+            for _ in range(max(levels, 1)):
+                conv_bn_relu(cout, 1)
+        else:
+            conv_bn_relu(cout, 2 if do_pool else 1)
+            for _ in range(max(levels, 1) - 1):
+                conv_bn_relu(cout, 1)
+
+    level(3, pl, cfg.levels - 1, False, cfg.pool)
+    skips.append(len(secs) - 2)
+    for i in range(depth - 1):
+        n_ch = pl * 2 ** i
+        level(n_ch, n_ch * 2, cfg.levels, True, cfg.pool)
+        skips.append(len(secs) - 2)
+    if cfg.belly_size > 0:
+        level(pl * 2 ** (depth - 1), cfg.belly_planes, cfg.belly_size - 1,
+              False, False)
+        level(cfg.belly_planes, pl * 2 ** (depth - 1), 1, False, False)
+    for i in range(depth - 1):
+        n_ch = pl * 2 ** (depth - 1 - i)
+        secs.append(_tconv(n_ch // 2))
+        secs.append(_bn())
+        src = skips[-(i + 2)]
+        if cfg.v2:
+            secs.append(("concat", {"from": src}))
+        else:
+            secs.append(_shortcut(src))
+    secs.append(_conv(cfg.num_classes, cfg.class_size, 1, cfg.class_size // 2,
+                      activation="linear", has_bias=1))
+    secs.append(("softmax", {}))
+    return secs
+
+
+def apply_param_widths(secs: List[Section], reg: Registry, state,
+                       skip_prefixes: Tuple[str, ...] = ()) -> List[Section]:
+    """Rewrite each [convolutional]/[transposedconv] section's ``filters``
+    from the kernels of ``state`` (a state_dict, torch layouts). The
+    emitters derive widths from the model config; a structurally-pruned
+    checkpoint carries other per-layer widths. Section order equals the
+    registry's conv/tconv order less ``skip_prefixes``, the invariant the
+    flat weights.dat reader depends on. A dense state returns the sections
+    unchanged."""
+    kernels = [(n, s.kind) for n, s in reg.specs.items()
+               if s.kind in ("conv_w", "tconv_w")
+               and not any(n.startswith(p) for p in skip_prefixes)]
+    out: List[Section] = []
+    ki = 0
+    for name, kv in secs:
+        if name in ("convolutional", "transposedconv"):
+            if ki >= len(kernels):
+                raise ValueError(
+                    f"cfg has more weighted layers than the registry's "
+                    f"{len(kernels)} (check skip_prefixes / emitter)")
+            kname, kind = kernels[ki]
+            ki += 1
+            # conv (out, in, kh, kw), tconv (in, out, kh, kw)
+            filters = state[kname].shape[0 if kind == "conv_w" else 1]
+            kv = dict(kv, filters=int(filters))
+        out.append((name, kv))
+    if ki != len(kernels):
+        raise ValueError(f"cfg has {ki} weighted layers, registry {len(kernels)}")
+    return out

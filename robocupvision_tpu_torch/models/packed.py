@@ -1,5 +1,5 @@
 """Lane-packed (space-to-depth) inference graphs: the flagship ROBO-UNet
-plan (PB_FCN_2 rides it) and PB_FCN.
+plan (PB_FCN_2 rides it), PB_FCN and LabelProp.
 
 An exact graph rewrite (the JAX package's models/packed.py): the top of
 the U-Net trades spatial resolution for channels (space-to-depth by 4 at
@@ -32,6 +32,13 @@ its up chain [up(n-1)+skip, up(n)+skip, head], and with ``pallas_deep``
 the dilated conv1 of the next ConvPool in the down chain and the five
 dilated deep convs as a third chain.
 
+``build_packed_label_prop`` compiles LabelProp, whose 8-channel
+full-resolution input packs into 128 lanes: its down chain [down1, down2]
+(``pallas_fold_stem``: [pre, down1, down2] from the raw input), the
+dilated belly [conv1, conv2, conv3] on the 1/8 grid (``pallas_mid``), and
+its up chain [upConv2 + skip, upConv3, classifier], whose classifier takes
+the channel-slice skip of ``top`` through a 1x1 ``skip_w`` kernel.
+
 The packers work on numpy arrays in the JAX package's HWIO layout (their
 arithmetic is layout-bound); ``build_packed_infer`` takes the port's
 state_dict and carries it there with export/torch_io.to_jax_params.
@@ -48,7 +55,8 @@ import torch
 from robocupvision_tpu_torch.device import DeviceLike, resolve_device
 from robocupvision_tpu_torch.export.torch_io import to_jax_params
 from robocupvision_tpu_torch.models import layers as L
-from robocupvision_tpu_torch.models.zoo import (Model, PBFCN2Cfg, PBFCNCfg,
+from robocupvision_tpu_torch.models.zoo import (LabelPropCfg, Model,
+                                                PBFCN2Cfg, PBFCNCfg,
                                                 RoboUNetCfg)
 from robocupvision_tpu_torch.ops import cuda_packed as ckp
 from robocupvision_tpu_torch.ops import nn
@@ -784,6 +792,138 @@ def build_packed_pb_fcn(model: Model, params: Optional[Params] = None,
                 _plain_stage(np_params, f"FCN.conv{i}", dtype, dev, rbb=False,
                              dil=2) for i in range(4, 9)]
     return PackedPBFCNInfer(cfg, packed, plain, dtype, dev, chains)
+
+
+# ---------------------------------------------------------------------------
+# LabelProp
+# ---------------------------------------------------------------------------
+
+
+# Packed blocks of LabelProp (reference model.py:538-567): conv -> BN -> ReLU
+# blocks and tconvs at f > 1; down3, the dilated belly and upConv1 stay plain
+# (f == 1).
+_LABEL_PROP_BLKS = {b.name: b for b in (
+    _Blk("stem", "pre", 4, 4, rbb=False),
+    _Blk("pconv", "down1", 4, 2, stride=2, rbb=False),
+    _Blk("pconv", "down2", 2, 1, stride=2, rbb=False),
+    _Blk("ptconv", "upConv2", 1, 2, rbb=False),
+    _Blk("ptconv", "upConv3", 2, 4, rbb=False),
+    _Blk("head", "classifier", 4, 4, k=1, pad=0),
+)}
+
+
+@dataclasses.dataclass
+class PackedLabelPropInfer(_PackedBase):
+    """Compiled-for-inference LabelProp net (reference model.py:538-567),
+    an exact rewrite of zoo.label_prop_apply. Input: (N, H, W, 8) = [Y_t,
+    Y_other, Y_t - Y_other, one-hot previous label]."""
+
+    cfg: LabelPropCfg
+    packed: Params
+    plain: Params
+    dtype: torch.dtype
+    device: torch.device
+    chains: Optional[dict] = None   # fused regions (pallas=True)
+
+    def _logits_packed(self, x: torch.Tensor, argmax: bool = False
+                       ) -> torch.Tensor:
+        p, ch = self.plain, self.chains
+        assert not argmax or ch is not None  # the fused argmax is a chain head
+        h = x.to(self.dtype)
+        blks = _LABEL_PROP_BLKS
+
+        def cps(name, x, stride, padding, dilation):
+            return L.conv_pool_simple(p, name, x, stride, padding, dilation)
+
+        if ch is not None and ch["fold_stem"]:
+            # stage 0 reads the raw input and emits top itself
+            top, middle, bottom = self._chain(h, ch["down"])
+        else:
+            top = self._blk(blks["pre"], h)
+            if ch is not None:
+                middle, bottom = self._chain(top, ch["down"])
+            else:
+                middle = self._blk(blks["down1"], top)
+                bottom = self._blk(blks["down2"], middle)
+        h = cps("down3", bottom, 2, 1, 1)
+        if ch is not None and ch.get("mid") is not None:
+            # the dilated belly as one chain on the 1/8 grid
+            h = self._chain(h, ch["mid"])[-1]
+        else:
+            h = cps("conv3", cps("conv2", cps("conv1", h, 1, 2, 2), 1, 2, 2),
+                    1, 2, 2)
+        h = bottom + L.up_tconv(p, "upConv1", h)
+        if ch is not None:
+            up_ch = ckp.with_argmax_head(ch["up"], 16) if argmax else ch["up"]
+            return self._chain(h, up_ch, skips=[middle, top])[-1]
+        h = middle + self._blk(blks["upConv2"], h)
+        h = self._blk(blks["upConv3"], h)
+        # the channel-slice skip h[..., :C_pre] += top (model.py:565), folded
+        # into the 1x1 classifier: conv(h + embed(top), W) == conv(h, W) +
+        # conv(top, W[:, :C_pre])
+        return self._conv_packed("classifier", h) \
+            + nn.conv2d(top, self.packed["classifier.wtop"])
+
+
+def build_packed_label_prop(model: Model, params: Optional[Params] = None,
+                            dtype: torch.dtype = torch.bfloat16,
+                            stem_group: int = 4, pallas: bool = False,
+                            pallas_fold_stem: bool = False,
+                            pallas_mid: bool = False,
+                            pallas_argmax_head: bool = True,
+                            device: DeviceLike = None) -> PackedLabelPropInfer:
+    """Compile a LabelProp net for inference (exact rewrite of
+    zoo.label_prop_apply), the net validLabelProp.py serves.
+
+    ``params``: the port's state_dict (``model.state_dict()`` when None).
+    ``stem_group``: the stem's input group width in pixels; only the group
+    == f stem (4, or 0 for f) is ported, the wider groups the JAX package
+    measured slower are not. ``pallas=True``: the down and up regions run
+    as fused chains (K2 on CUDA), the stem folded into the down chain with
+    ``pallas_fold_stem`` and the dilated belly as a third chain with
+    ``pallas_mid``.
+    ``pallas_argmax_head=False`` keeps the logits head and argmaxes outside
+    the kernel. Runs on ``device`` (``cuda`` unless the caller passes
+    another)."""
+    dev = resolve_device(device)
+    cfg = model.cfg
+    if not isinstance(cfg, LabelPropCfg):
+        raise ValueError("build_packed_label_prop takes the LabelProp family")
+    if stem_group not in (0, 4):
+        raise ValueError("only the group == f stem (stem_group 4) is ported, "
+                         f"got {stem_group}")
+    state = model.state_dict() if params is None else params
+    np_params = to_jax_params(model.registry, state)
+    packed = _pack_blocks(np_params, _LABEL_PROP_BLKS.values(), dtype, dev)
+    # the channel-slice skip's classifier half (see _logits_packed), OIHW
+    c_pre = np_params["pre.conv.weight"].shape[-1]
+    wtop = pack_conv_weight(np_params["classifier.weight"][:, :, :c_pre], 4, 4)
+    packed["classifier.wtop"] = torch.as_tensor(
+        np.ascontiguousarray(np.transpose(wtop, (3, 2, 0, 1)))).to(
+            device=dev, dtype=dtype)
+    plain = {k: v.detach().to(device=dev, dtype=dtype) for k, v in state.items()}
+    chains = None
+    if pallas:
+        def pk(prefix, **kw):
+            return _packed_stage(packed, prefix, **kw)
+
+        down = [pk("down1.conv", rbb=False, emit=True),          # middle
+                pk("down2.conv", rbb=False)]                      # bottom
+        if pallas_fold_stem:
+            down.insert(0, pk("pre.conv", rbb=False, emit=True, stem_f=4))
+        skip_w = packed["classifier.wtop"].permute(2, 3, 1, 0).contiguous()
+        up = [pk("upConv2.conv", rbb=False, skip_idx=0),          # + middle
+              pk("upConv3.conv", rbb=False),
+              pk("classifier", skip_idx=1, skip_w=skip_w)]        # + top
+        chains = {"down": down, "up": up, "fold_stem": pallas_fold_stem,
+                  "argmax_head": pallas_argmax_head}
+        if pallas_mid:
+            # the dilated belly (model.py:556-558): plain f == 1
+            # conv_pool_simple blocks, conv -> BN -> ReLU
+            chains["mid"] = [_plain_stage(np_params, n, dtype, dev, rbb=False,
+                                          dil=2)
+                             for n in ("conv1", "conv2", "conv3")]
+    return PackedLabelPropInfer(cfg, packed, plain, dtype, dev, chains)
 
 
 def quantize_int8(*args, **kwargs):

@@ -1,7 +1,8 @@
 """Model zoo, eval-mode: the flagship ROBO-UNet (reference model.py:461-536)
 in its additive-skip form at QVGA and at VGA (``no_scale``), PB_FCN over
 its DownSampler encoder (model.py:201-232, 269-309) and PB_FCN_2
-(model.py:416-459), each in its segmentation and classification modes.
+(model.py:416-459), each in its segmentation and classification modes, and
+the LabelProp net (model.py:538-567).
 
 ``make(family, ...)`` returns a :class:`Model`, an ``nn.Module`` whose
 ``state_dict`` carries the registry names; its ``forward`` takes NHWC input
@@ -13,6 +14,7 @@ belong to a later slice of the port and raise ``NotImplementedError``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -255,6 +257,53 @@ def pb_fcn_2_apply(cfg: PBFCN2Cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # =============================================================================
+# LabelProp -- reference model.py:538-567
+# =============================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class LabelPropCfg:
+    num_classes: int = 5
+    planes: int = 32
+    dropout: float = 0.0  # training only (its dropout2d is not ported yet)
+
+
+def label_prop_registry(cfg: LabelPropCfg) -> L.Registry:
+    r = L.Registry()
+    pl = cfg.planes
+    cin = 8  # the reference hard-codes 8 input channels (model.py:542)
+    L.conv_pool_simple_def(r, "pre", cin, pl // 4, 3, bias=False)
+    L.conv_pool_simple_def(r, "down1", pl // 4, pl // 2, 3, bias=False)
+    L.conv_pool_simple_def(r, "down2", pl // 2, pl // 2, 3, bias=False)
+    L.conv_pool_simple_def(r, "down3", pl // 2, pl, 3, bias=False)
+    L.conv_pool_simple_def(r, "conv1", pl, pl * 2, 3, bias=False)
+    L.conv_pool_simple_def(r, "conv2", pl * 2, pl * 2, 3, bias=False)
+    L.conv_pool_simple_def(r, "conv3", pl * 2, pl, 3, bias=False)
+    L.up_tconv_def(r, "upConv1", pl, pl // 2)
+    L.up_tconv_def(r, "upConv2", pl // 2, pl // 2)
+    L.up_tconv_def(r, "upConv3", pl // 2, pl // 2)
+    r.conv("classifier", pl // 2, cfg.num_classes, 1, bias=True)
+    return r
+
+
+def label_prop_apply(cfg: LabelPropCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Eval-mode forward: (N, H, W, 8) frame-pair input -> NHWC logits."""
+    cps = functools.partial(L.conv_pool_simple, p)
+    top = cps("pre", x, 1, 1, 1)
+    middle = cps("down1", top, 2, 1, 1)
+    bottom = cps("down2", middle, 2, 1, 1)
+    h = cps("down3", bottom, 2, 1, 1)
+    h = cps("conv3", cps("conv2", cps("conv1", h, 1, 2, 2), 1, 2, 2), 1, 2, 2)
+    h = bottom + L.up_tconv(p, "upConv1", h)
+    h = middle + L.up_tconv(p, "upConv2", h)
+    h = L.up_tconv(p, "upConv3", h)
+    # channel-slice skip: x[:, 0:C_pre] += top (reference model.py:565), NHWC
+    pre_ch = top.shape[-1]
+    h = torch.cat([h[..., :pre_ch] + top, h[..., pre_ch:]], dim=-1)
+    return L.conv(p, "classifier", h, padding=0)
+
+
+# =============================================================================
 # Generic model handle
 # =============================================================================
 
@@ -262,6 +311,7 @@ _FAMILIES = {
     "robo_unet": (RoboUNetCfg, robo_unet_registry, robo_unet_apply),
     "pb_fcn": (PBFCNCfg, pb_fcn_registry, pb_fcn_apply),
     "pb_fcn_2": (PBFCN2Cfg, pb_fcn_2_registry, pb_fcn_2_apply),
+    "label_prop": (LabelPropCfg, label_prop_registry, label_prop_apply),
 }
 
 

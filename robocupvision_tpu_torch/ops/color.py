@@ -1,7 +1,8 @@
 """Colour constants and the serving-side camera preprocessing.
 
 rgb2yuv uses skimage.color's BT.601 constants (the legacy pipeline's
-ToYUV), copied from the JAX package's ops/color.py.
+ToYUV), and the per-domain normalization constants are the reference's;
+both copied from the JAX package's ops/color.py.
 """
 
 from __future__ import annotations
@@ -14,6 +15,12 @@ YUV_FROM_RGB = np.array(
     [[0.299, 0.587, 0.114],
      [-0.14714119, -0.28886916, 0.43601035],
      [0.61497538, -0.51496512, -0.10001026]], np.float32)
+
+# Per-domain normalization constants (reference dataset.py:74-75)
+MEAN_SYNTHETIC = (0.36269532, 0.41144562, 0.282713)
+STD_SYNTHETIC = (0.31111388, 0.21010718, 0.34060917)
+MEAN_FINETUNE = (0.34190056, 0.4833289, 0.48565758)
+STD_FINETUNE = (0.47421749, 0.13846053, 0.1714848)
 
 
 def rgb_to_yuv(rgb: torch.Tensor) -> torch.Tensor:

@@ -7,9 +7,13 @@ package's Pallas kernel ``fused_conv_chain``
 A stage is a 3x3/s1 or 1x1 conv, ``dil``-dilated with padding
 ``dil * (K // 2)``, then bias, then the folded-BN affine (``rbb``: conv ->
 ReLU -> affine; else conv -> affine -> ReLU) or, for a ``relu_only`` stage,
-a bare ReLU, then an identity skip add; rows and columns outside the image
-are zero (they are the next stage's padding) and every inter-stage value is
-rounded to the chain dtype. Stage 0 may be the folded space-to-depth stem
+a bare ReLU, then an identity skip add. A ``skip_w`` stage instead adds
+``conv(skips[skip_idx], skip_w)`` (a (K, K, Cskip, Cout) kernel, K in {1,
+3}, padding K // 2) to the conv's f32 sum before the bias: the second half
+of a conv split over a concat, or LabelProp's channel-slice skip folded
+into its classifier. Rows and columns outside the image are zero (they are
+the next stage's padding) and every inter-stage value is rounded to the
+chain dtype. Stage 0 may be the folded space-to-depth stem
 (``stem_f = f``): the chain then takes the raw (N, f*H, f*W, cin) image and
 the stem's (f+2, 3, f*cin, Cout) kernel runs as the (f, 1)-strided,
 padding-1 conv over its free grouped view (N, f*H, W, f*cin), so the chain
@@ -22,8 +26,8 @@ int32 labels instead of logits, first max winning ties.
 ``fused_conv_chain.launches`` counts kernel launches.
 
 Stage features of the JAX kernel outside these slices of the port
-(``skip_w``, ``pool`` and int8 ``x_scale``/``w_scale``) keep their
-ChainStage fields but raise ``NotImplementedError`` in both paths.
+(``pool`` and int8 ``x_scale``/``w_scale``) keep their ChainStage fields
+but raise ``NotImplementedError`` in both paths.
 """
 
 from __future__ import annotations
@@ -46,7 +50,9 @@ class ChainStage:
     scale/shift: (Cout,) folded-BN affine (None for the bias-only head and
     for ``relu_only`` stages). rbb: affine order (see module docstring).
     skip_idx: index into the chain's ``skips`` added after the epilogue, -1
-    for none. emit: return this stage's (N, H, W, Cout) output. stem_f:
+    for none. skip_w: (K, K, Cskip, Cout) kernel that takes
+    ``skips[skip_idx]`` through a conv added before the bias instead.
+    emit: return this stage's (N, H, W, Cout) output. stem_f:
     stage 0 only, the folded stem's factor. relu_only: ReLU instead of an
     affine. dil: tap spacing. argmax_groups: last stage only, emit (N, H,
     W, groups) int32 labels, argmax over each group of Cout/groups adjacent
@@ -106,14 +112,14 @@ def _prepare(stages: Sequence[ChainStage]) -> List[ChainStage]:
         stages[-1] = dataclasses.replace(stages[-1], emit=True)
     for i, st in enumerate(stages):
         unported = [name for name, on in (
-            ("skip_w", st.skip_w is not None), ("pool", st.pool),
+            ("pool", st.pool),
             ("x_scale", st.x_scale), ("w_scale", st.w_scale is not None))
             if on]
         if unported:
             raise NotImplementedError(
                 f"stage {i}: {', '.join(unported)} not ported yet (plain, "
-                "dilated, relu-only and folded-stem stages and the argmax "
-                "head only)")
+                "dilated, relu-only, conv'd-skip and folded-stem stages and "
+                "the argmax head only)")
         if st.w.dim() != 4:
             raise ValueError(f"stage {i}: kernel must be 4-D, got "
                              f"{tuple(st.w.shape)}")
@@ -129,6 +135,17 @@ def _prepare(stages: Sequence[ChainStage]) -> List[ChainStage]:
                              f"with K in (1, 3), got {tuple(st.w.shape)}")
         if st.dil < 1:
             raise ValueError(f"stage {i}: dil must be >= 1, got {st.dil}")
+        if st.skip_w is not None:
+            sw = st.skip_w
+            if (sw.dim() != 4 or int(sw.shape[0]) not in (1, 3)
+                    or sw.shape[0] != sw.shape[1]
+                    or sw.shape[3] != st.w.shape[3]):
+                raise ValueError(
+                    f"stage {i}: skip_w must be (K, K, Cskip, "
+                    f"{int(st.w.shape[3])}) with K in (1, 3), got "
+                    f"{tuple(sw.shape)}")
+            if st.skip_idx < 0:
+                raise ValueError(f"stage {i}: skip_w needs a skip_idx >= 0")
         if st.argmax_groups and i != len(stages) - 1:
             raise ValueError("argmax_groups is a final-stage (serving head) "
                              "epilogue")
@@ -163,6 +180,12 @@ def chain_reference(x: torch.Tensor, stages: Sequence[ChainStage],
         else:
             y = F.conv2d(h.float().permute(0, 3, 1, 2), w, padding=st.reach,
                          dilation=st.dil)
+        if st.skip_w is not None:
+            # the skip's conv, its kernel at the chain dtype, summed in f32
+            # before the bias
+            sw = st.skip_w.to(chain_dtype).float().permute(3, 2, 0, 1)
+            y = y + F.conv2d(skips[st.skip_idx].float().permute(0, 3, 1, 2),
+                             sw, padding=int(sw.shape[2]) // 2)
         y = y.permute(0, 2, 3, 1) + st.b.float()
         if st.scale is not None:
             s, sh = st.scale.float(), st.shift.float()
@@ -170,7 +193,7 @@ def chain_reference(x: torch.Tensor, stages: Sequence[ChainStage],
                 else torch.clamp_min(y * s + sh, 0.)
         elif st.relu_only:
             y = torch.clamp_min(y, 0.)
-        if st.skip_idx >= 0:
+        if st.skip_idx >= 0 and st.skip_w is None:
             y = y + skips[st.skip_idx].float()
         if st.argmax_groups:
             yr = y.to(chain_dtype).float()
@@ -196,13 +219,15 @@ _MAX_SKIPS = 4    # csrc/conv_chain.cu RCV_MAX_SKIPS
 class _Stage(ctypes.Structure):
     _fields_ = [("w", ctypes.c_void_p), ("b", ctypes.c_void_p),
                 ("scale", ctypes.c_void_p), ("shift", ctypes.c_void_p),
+                ("skip_w", ctypes.c_void_p),
                 ("out", ctypes.c_void_p), ("ws_off", ctypes.c_longlong),
                 ("kh", ctypes.c_int), ("kw", ctypes.c_int),
                 ("cin", ctypes.c_int), ("cout", ctypes.c_int),
                 ("rbb", ctypes.c_int), ("skip_idx", ctypes.c_int),
                 ("argmax_groups", ctypes.c_int), ("depth", ctypes.c_int),
                 ("dil", ctypes.c_int), ("stem_f", ctypes.c_int),
-                ("relu_only", ctypes.c_int), ("pad_", ctypes.c_int)]
+                ("relu_only", ctypes.c_int), ("skip_k", ctypes.c_int),
+                ("skip_cin", ctypes.c_int), ("pad_", ctypes.c_int)]
 
 
 class _Chain(ctypes.Structure):
@@ -306,10 +331,12 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
         kh, kw, wcin, cout = (int(v) for v in st.w.shape)
         if wcin != cin:
             raise ValueError(f"stage {i}: Cin {wcin} != incoming channels {cin}")
+        # an identity skip is cout wide, a conv'd one skip_w's Cskip
+        skip_c = cout if st.skip_w is None else int(st.skip_w.shape[2])
         if st.skip_idx >= 0 and (st.skip_idx >= len(skips)
-                                 or skips[st.skip_idx].shape[3] != cout):
+                                 or skips[st.skip_idx].shape[3] != skip_c):
             raise ValueError(f"stage {i}: skip {st.skip_idx} missing or not "
-                             f"{cout} channels wide")
+                             f"{skip_c} channels wide")
         d = desc.st[i]
         w, b = _param(st.w, dev, x.dtype), _param(st.b, dev, torch.float32)
         keep += [w, b]
@@ -319,6 +346,11 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
             sh = _param(st.shift, dev, torch.float32)
             keep += [sc, sh]
             d.scale, d.shift = sc.data_ptr(), sh.data_ptr()
+        if st.skip_w is not None:
+            sw = _param(st.skip_w, dev, x.dtype)
+            keep.append(sw)
+            d.skip_w = sw.data_ptr()
+            d.skip_k, d.skip_cin = int(sw.shape[0]), int(sw.shape[2])
         if st.argmax_groups:
             out = torch.empty((n, H, W, st.argmax_groups), dtype=torch.int32,
                               device=dev)

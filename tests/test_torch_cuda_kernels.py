@@ -11,7 +11,8 @@ reassociation, TF32 off), in bf16 per element at two bf16 ulps of the
 reference plus 2**-8 of its largest magnitude (``bf16_tolerance``: a
 rounding flip carried through the later stages), labels >= 0.9999 (f32) /
 0.999 (bf16) agreement. The band splits only the halo recompute, so every
-band gives bit-identical results, for dilated and folded-stem chains too.
+band gives bit-identical results, for dilated, folded-stem and conv'd-skip
+(``skip_w``) chains too.
 """
 
 import numpy as np
@@ -179,6 +180,80 @@ def test_chain_kernel_band_sweep_new_features(cuda_device, monkeypatch, case,
         for a, b in zip(outs[0], other):
             assert torch.equal(a, b)
     _assert_chain_close(outs[0], ckp.chain_reference(x, stages, skips), "bf16")
+
+
+def _skip_w_chain(case, dt, dev):
+    """(x, stages, skips) of a chain with a skip_w stage: LabelProp's up
+    chain at planes=32 on its 30x40 grid (upConv2 + skip 0, upConv3, the
+    classifier with its (1, 1, 128, 80) skip kernel over skip 1), with or
+    without the argmax head, or a synthetic chain whose middle stage adds
+    a 3x3 conv of a 24-wide skip to its 16-wide conv (the v2 split
+    concat's form) on a 30x20 grid."""
+    tdtype = _DT[dt]
+    if case.startswith("lp_up"):
+        model = zoo.make("label_prop", device=dev,
+                         generator=torch.Generator().manual_seed(8))
+        up = packed.build_packed_label_prop(model, None, tdtype, pallas=True,
+                                            device=dev).chains["up"]
+        if case == "lp_up_head":
+            up = ckp.with_argmax_head(up, 16)
+        skips = [_randn(31 + i, (2, 30, 40, c), tdtype, dev)
+                 for i, c in enumerate((64, 128))]
+        return _randn(30, (2, 30, 40, 16), tdtype, dev), up, skips
+
+    def w(seed, *shape):
+        return (_randn(seed, shape, torch.float32, dev) * 0.2).to(tdtype)
+
+    def v(seed, c):
+        return _randn(seed, (c,), torch.float32, dev) * 0.1
+
+    stages = [ckp.ChainStage(w=w(40, 3, 3, 8, 16), b=v(41, 16),
+                             scale=1 + v(42, 16), shift=v(43, 16), rbb=False),
+              ckp.ChainStage(w=w(44, 3, 3, 16, 16), b=v(45, 16),
+                             scale=1 + v(46, 16), shift=v(47, 16), skip_idx=0,
+                             skip_w=w(48, 3, 3, 24, 16), emit=True),
+              ckp.ChainStage(w=w(49, 1, 1, 16, 8), b=v(50, 8))]
+    return (_randn(51, (2, 30, 20, 8), tdtype, dev), stages,
+            [_randn(52, (2, 30, 20, 24), tdtype, dev)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["lp_up", "lp_up_head", "skip_w3"])
+def test_chain_kernel_skip_w_matches_reference(cuda_device, monkeypatch, dt,
+                                               case):
+    """skip_w stages, K = 1 (LabelProp's classifier) and K = 3, against
+    chain_reference; bands 1, 5 and 30 give bit-identical outputs."""
+    x, stages, skips = _skip_w_chain(case, dt, cuda_device)
+    outs = []
+    for band in (1, 5, 30):
+        monkeypatch.setattr(ckp, "choose_band", lambda n, h, dev: band)
+        before = ckp.fused_conv_chain.launches
+        outs.append(ckp.fused_conv_chain(x, stages, skips))
+        torch.cuda.synchronize()
+        assert ckp.fused_conv_chain.launches == before + 1
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+    _assert_chain_close(outs[0], ckp.chain_reference(x, stages, skips), dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["lp_up", "skip_w3"])
+def test_chain_kernel_rejects_wrong_skip_widths(cuda_device, case):
+    """A conv'd skip must be as wide as its kernel's Cin (not the stage's
+    Cout); an identity skip as wide as the stage's Cout."""
+    x, stages, skips = _skip_w_chain(case, "f32", cuda_device)
+    cout = int(stages[-1 if case == "lp_up" else 1].w.shape[3])
+    conv_skip = skips[-1]
+    for bad in (conv_skip[..., :-8].contiguous(),       # narrower than Cin
+                conv_skip[..., :cout].contiguous()):    # the stage's Cout
+        with pytest.raises(ValueError, match="channels wide"):
+            ckp.fused_conv_chain(x, stages, skips[:-1] + [bad])
+    if case == "lp_up":  # skip 0 is upConv2's identity skip
+        with pytest.raises(ValueError, match="channels wide"):
+            ckp.fused_conv_chain(x, stages,
+                                 [skips[0][..., :-8].contiguous(), skips[1]])
 
 
 @pytest.mark.cuda

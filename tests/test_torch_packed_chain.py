@@ -5,7 +5,9 @@ QVGA (packed grid 30x40), its folded-stem down chain (``stem_f``) and deep
 chain from ``pallas_fold_stem=True, pallas_deep=True``, and PB_FCN's down
 chain (``relu_only``, and ``dil`` on its appended stage), deep chain
 (``dil``) and up chain from ``build_packed_pb_fcn(pallas=True,
-pallas_deep=True)``.
+pallas_deep=True)``, LabelProp's up chain from
+``build_packed_label_prop(pallas=True)``, whose classifier takes a 1x1
+``skip_w`` kernel, and a synthetic chain with a 3x3 ``skip_w`` stage.
 
 Tolerances: f32 at rtol = atol = 2e-4 (conv reassociation); bf16 per
 element at two bf16 ulps of the reference plus 2**-8 of its largest
@@ -50,7 +52,8 @@ def _port_stage(st):
                            shift=t(st.shift), rbb=st.rbb, skip_idx=st.skip_idx,
                            emit=st.emit, stem_f=st.stem_f,
                            relu_only=st.relu_only, dil=st.dil,
-                           argmax_groups=st.argmax_groups)
+                           argmax_groups=st.argmax_groups,
+                           skip_w=t(st.skip_w))
 
 
 def _input(seed, shape, tdtype):
@@ -213,10 +216,12 @@ def test_halo_depths():
 
 
 @pytest.mark.parametrize("field", [dict(w_scale=torch.ones(4)), dict(pool=True),
-                                   dict(skip_w=torch.zeros(3, 3, 4, 4)),
+                                   dict(pool=True, skip_w=torch.zeros(3, 3, 4, 4),
+                                        skip_idx=0),
                                    dict(pool=True, x_scale=0.1),
                                    dict(x_scale=0.1),
-                                   dict(skip_w=torch.zeros(1, 1, 4, 4))])
+                                   dict(x_scale=0.1, skip_w=torch.zeros(1, 1, 4, 4),
+                                        skip_idx=0)])
 def test_unported_stage_features_raise(field):
     st = tppk.ChainStage(w=torch.zeros(3, 3, 4, 4), b=torch.zeros(4), **field)
     with pytest.raises(NotImplementedError):
@@ -237,3 +242,89 @@ def test_misplaced_stage_features_raise(stages):
     w3, ws = torch.zeros(3, 3, 4, 4), torch.zeros(6, 3, 4, 4)
     with pytest.raises(ValueError):
         tppk.fused_conv_chain(torch.zeros(1, 8, 8, 4), stages(w3, ws))
+
+
+def _lp_up_chain(jdtype):
+    """LabelProp's up chain [upConv2 + skip 0, upConv3, classifier + 1x1
+    skip_w over skip 1] from the JAX package's builder, planes=8 (widths
+    4 -> 16 -> 64 -> 80 on the packed grid, skips 16 and 32 wide)."""
+    model = jzoo.make("label_prop", planes=8)
+    params = _randomized(model.init(jax.random.PRNGKey(13)), 13)
+    return jpacked.build_packed_label_prop(model, params, dtype=jdtype,
+                                           pallas=True,
+                                           pallas_interpret=True).chains["up"]
+
+
+def _skip_w3_chain(jdtype, seed=14):
+    """A synthetic chain whose second stage is the v2 split concat's form:
+    a 3x3 conv of the previous stage plus a 3x3 conv of skip 0 (12 channels
+    wide, not the stage's 8), before its bias and affine."""
+    rng = np.random.default_rng(seed)
+
+    def a(*shape):
+        return jnp.asarray(rng.standard_normal(shape).astype(np.float32)
+                           * 0.3).astype(jdtype)
+
+    def v(c):
+        return jnp.asarray(rng.standard_normal(c).astype(np.float32) * 0.1)
+
+    return [jppk.ChainStage(w=a(3, 3, 6, 8), b=v(8), scale=1 + v(8),
+                            shift=v(8), rbb=False),
+            jppk.ChainStage(w=a(3, 3, 8, 8), b=v(8), scale=1 + v(8),
+                            shift=v(8), rbb=True, skip_idx=0,
+                            skip_w=a(3, 3, 12, 8), emit=True),
+            jppk.ChainStage(w=a(1, 1, 8, 10), b=v(10))]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["lp_up", "lp_up_head", "skip_w3",
+                                  "skip_w3_head"])
+def test_chain_reference_matches_jax_skip_w(dt, case):
+    """skip_w stages (K = 1 and K = 3) on the CPU path against JAX's
+    chain_reference: the skip's conv summed before the bias, no identity
+    add after the epilogue, the skip as wide as skip_w's Cin."""
+    jdtype, tdtype = _DT[dt]
+    if case.startswith("lp_up"):
+        stages = _lp_up_chain(jdtype)
+        shape, skip_c = (2, 12, 16, 4), (16, 32)
+    else:
+        stages = _skip_w3_chain(jdtype)
+        shape, skip_c = (2, 9, 11, 6), (12,)
+    if case.endswith("head"):
+        stages = jppk.with_argmax_head(stages, 2 if case == "skip_w3_head"
+                                       else 16)
+    x_t, x_j = _input(15, shape, tdtype)
+    skips = [_input(16 + i, shape[:3] + (c,), tdtype)
+             for i, c in enumerate(skip_c)]
+    ref = jppk.chain_reference(x_j, stages, skips=[s[1] for s in skips])
+    got = tppk.fused_conv_chain(x_t, [_port_stage(s) for s in stages],
+                                skips=[s[0] for s in skips])
+    _assert_outputs_match(got, ref, dt, tdtype)
+
+
+def test_skip_w_replaces_the_identity_add():
+    """A zero skip kernel adds nothing: the stage equals the same stage
+    with no skip at all, not one with the identity skip added."""
+    w = torch.from_numpy(np.random.default_rng(17).standard_normal(
+        (3, 3, 4, 4)).astype(np.float32))
+    x, _ = _input(18, (1, 6, 7, 4), torch.float32)
+    skip, _ = _input(19, (1, 6, 7, 4), torch.float32)
+    plain = tppk.ChainStage(w=w, b=torch.zeros(4))
+    zero_skip = dataclasses.replace(plain, skip_idx=0,
+                                    skip_w=torch.zeros(1, 1, 4, 4))
+    want = tppk.fused_conv_chain(x, [plain])[0]
+    assert torch.equal(tppk.fused_conv_chain(x, [zero_skip], [skip])[0], want)
+
+
+@pytest.mark.parametrize("skip_w,skip_idx", [
+    (torch.zeros(3, 4, 4), 0),           # not 4-D
+    (torch.zeros(2, 2, 4, 4), 0),        # K not in (1, 3)
+    (torch.zeros(1, 3, 4, 4), 0),        # not square
+    (torch.zeros(1, 1, 4, 5), 0),        # Cout differs from the stage's
+    (torch.zeros(1, 1, 4, 4), -1)])      # no skip to convolve
+def test_bad_skip_w_raises(skip_w, skip_idx):
+    st = tppk.ChainStage(w=torch.zeros(3, 3, 4, 4), b=torch.zeros(4),
+                         skip_w=skip_w, skip_idx=skip_idx)
+    with pytest.raises(ValueError):
+        tppk.fused_conv_chain(torch.zeros(1, 4, 4, 4), [st],
+                              [torch.zeros(1, 4, 4, 4)])

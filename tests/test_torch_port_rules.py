@@ -60,30 +60,39 @@ def test_port_imports_no_pil_at_module_level(path):
 
 
 def _entry_points():
-    from robocupvision_tpu_torch.cli import tester
+    from robocupvision_tpu_torch.cli import tester, validLabelProp
     from robocupvision_tpu_torch.models import packed, zoo
     from robocupvision_tpu_torch.ops import metrics
     from robocupvision_tpu_torch.utils.serving import ServingPipeline
 
     cpu_model = zoo.make("robo_unet", device="cpu")
     cpu_pb_fcn = zoo.make("pb_fcn", device="cpu")
+    cpu_lp = zoo.make("label_prop", device="cpu")
     maps = np.zeros((1, 4, 4), np.int32)
     return {
         "zoo.make": lambda: zoo.make("robo_unet"),
         "build_packed_infer": lambda: packed.build_packed_infer(cpu_model),
         "build_packed_pb_fcn": lambda: packed.build_packed_pb_fcn(cpu_pb_fcn),
+        "build_packed_label_prop": lambda: packed.build_packed_label_prop(
+            cpu_lp),
         "seg_batch_stats": lambda: metrics.seg_batch_stats(maps, maps, 5),
         "ServingPipeline": lambda: ServingPipeline(lambda x: x),
         "tester.main": lambda: tester.main(["--noScale"]),
         "tester.serve_and_score": lambda: tester.serve_and_score(
             lambda x: x, [], 5),
+        "validLabelProp.main": lambda: validLabelProp.main([]),
+        "validLabelProp.serve_and_score":
+            lambda: validLabelProp.serve_and_score(lambda x: x, []),
     }
 
 
 @pytest.mark.parametrize("name", ["zoo.make", "build_packed_infer",
                                   "build_packed_pb_fcn", "seg_batch_stats",
                                   "ServingPipeline", "tester.main",
-                                  "tester.serve_and_score"])
+                                  "tester.serve_and_score",
+                                  "build_packed_label_prop",
+                                  "validLabelProp.main",
+                                  "validLabelProp.serve_and_score"])
 def test_entry_points_raise_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point runs there")
