@@ -18,7 +18,15 @@ the launch counters set to 0 just before it and read just after:
     loop (``cli/validLabelProp.py``, ``--packed --pallas``, f32: three
     chains a frame pair, the classifier's channel-slice skip as a ``skip_w``
     stage), from a checkpoint the port wrote and read back, after its
-    ``weightsLP`` deployment export.
+    ``weightsLP`` deployment export;
+  - the ``--UNet`` ROBO-UNet (VGA) through ``ServingPipeline`` with its
+    folded-stem chain graph (two chains a frame, its down chain holding
+    the two ``pool`` stages), and the ``--v2`` ROBO-UNet with its folded
+    stem and deep chain (three chains a frame, its head and last up taking
+    their concat skip through 3x3 ``skip_w`` kernels);
+  - both through test.py's evaluation loop (``cli/test.py evaluate``, the
+    ``--noScale`` working size 240x320, batch 16), held to the same loop
+    on the CPU.
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi reports them, and the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if
@@ -27,6 +35,7 @@ any phase fails, and at once when no CUDA device is present.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -174,12 +183,17 @@ def chain_work(x, stages, skips, outs):
     tap, ``needed`` counts only the taps whose packed weight is non-zero --
     the packing scatters each original weight into one phase, so most
     packed taps are structural zeros, and ``needed`` equals the unpacked
-    convolutions' own work."""
+    convolutions' own work. A pool stage does no multiply-adds (it gathers
+    and compares) and reads its (4, Cout) int32 table of source lanes, not
+    its selection stack."""
     moved = nbytes(x) + sum(nbytes(s) for s in skips) \
         + sum(nbytes(o) for o in outs)
     dense = needed = 0
     n, h, w = chain_grid(x, stages)
     for st in stages:
+        if st.pool:
+            moved += 4 * 4 * int(st.w.shape[3])
+            continue
         # a skip_w stage's skip kernel is read and applied like its own
         kernels = [st.w] + ([] if st.skip_w is None else [st.skip_w])
         moved += x.element_size() * sum(k.numel() for k in kernels) + 4 * (
@@ -204,6 +218,8 @@ def chain_features(stages):
             feats.add("argmax_head")
         if st.skip_w is not None:
             feats.add("skip_w")
+        if st.pool:
+            feats.add("pool")
     return sorted(feats)
 
 
@@ -358,6 +374,103 @@ def phase_k2_lp(lp_model, dev, chk: Checks) -> dict:
     return results
 
 
+def phase_k2_pool(dev, chk: Checks) -> dict:
+    """K2's pool stage, bit-identical (``torch.equal``) to
+    ``packed_max_pool``: a pool-only chain at f_in 4 (the --UNet VGA
+    feats0, (1, 120, 160, 128)) and at f_in 2 ((1, 120, 160, 64)), f32 and
+    bf16; and a conv -> pool -> conv chain whose pool output must be
+    ``packed_max_pool`` of the kernel's own conv output at bands 1, 5 and
+    30."""
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 10)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    res = {"phase": "k2_pool", "cases": {}}
+    choose = ckp.choose_band
+    try:
+        for dt in (torch.bfloat16, torch.float32):
+            name = "bf16" if dt == torch.bfloat16 else "f32"
+            for f_in, c in ((4, 8), (2, 16)):
+                x = randn(1, 120, 160, f_in * f_in * c).to(dt)
+                st = packed._pool_chain_stage(f_in, c, dt, dev)
+                got = ckp.fused_conv_chain(x, [st])[0]
+                want = packed.packed_max_pool(x, f_in)
+                torch.cuda.synchronize()
+                exact = bool(torch.equal(got, want))
+                chk.expect(exact, f"K2 pool f_in {f_in} {name}: not "
+                                  "bit-identical to packed_max_pool")
+                res["cases"][f"pool_f{f_in}_{name}"] = {
+                    "exact": exact,
+                    "kernel_ms": cuda_ms(lambda: ckp.fused_conv_chain(x, [st]),
+                                         20),
+                    "packed_max_pool_ms": cuda_ms(
+                        lambda: packed.packed_max_pool(x, f_in), 20)}
+            stages = [ckp.ChainStage(w=(randn(3, 3, 32, 64) * 0.2).to(dt),
+                                     b=randn(64) * 0.1, scale=1 + randn(64) * 0.1,
+                                     shift=randn(64) * 0.1, emit=True),
+                      packed._pool_chain_stage(2, 16, dt, dev, emit=True),
+                      ckp.ChainStage(w=(randn(3, 3, 16, 24) * 0.2).to(dt),
+                                     b=randn(24) * 0.1, scale=1 + randn(24) * 0.1,
+                                     shift=randn(24) * 0.1, rbb=False)]
+            x = randn(2, 30, 40, 32).to(dt)
+            for band in (1, 5, 30):
+                ckp.choose_band = lambda n, h, d, band=band: band
+                conv, pooled, _ = ckp.fused_conv_chain(x, stages)
+                torch.cuda.synchronize()
+                exact = bool(torch.equal(pooled,
+                                         packed.packed_max_pool(conv, 2)))
+                chk.expect(exact, f"K2 conv-pool-conv band {band} {name}: "
+                                  "pool not bit-identical")
+                res["cases"][f"conv_pool_conv_band{band}_{name}"] = {
+                    "exact": exact}
+    finally:
+        ckp.choose_band = choose
+    emit(res)
+    return res
+
+
+def phase_k2_variants(variants, dev, chk: Checks) -> dict:
+    """K2 on the --UNet and --v2 chains at VGA, b1 and b8, bf16 and f32,
+    on the inputs their serving graphs (``variants``: tag -> (model, build
+    flags)) give them: the --UNet folded-stem down chain (stem,
+    Level0.Conv1, pool, two convs, pool, two convs) and up chain with its
+    head; the --v2 folded-stem down chain, its 9-stage deep chain, and its
+    up chain (3x3 skip_w stages, a 3x3 head) in logits form (where a wrong
+    skip_w shows) and with the head."""
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+
+    results = {}
+    g = torch.Generator(device="cpu").manual_seed(SEED + 11)
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        graphs = {tag: packed.build_packed_infer(net, None, dt, pallas=True,
+                                                 device=dev, **kw)
+                  for tag, (net, kw) in variants.items()}
+        for b in (1, 8):
+            frames = torch.randint(0, 256, (b, *VGA, 3), generator=g,
+                                   dtype=torch.uint8).to(dev)
+            x = raw_camera_preprocess(frames)
+            calls = {}
+            calls["unet_down"], _ = record_chain_calls(
+                graphs["unet"], graphs["unet"].logits, x)
+            _, calls["unet_up_argmax"] = record_chain_calls(
+                graphs["unet"], graphs["unet"].infer_u8_packed()[0], x)
+            calls["v2_down"], calls["v2_deep"], calls["v2_up"] = \
+                record_chain_calls(graphs["v2"], graphs["v2"].logits, x)
+            calls["v2_up_argmax"] = record_chain_calls(
+                graphs["v2"], graphs["v2"].infer_u8_packed()[0], x)[-1]
+            iters = 10 if b == 1 else 3
+            for tag, call in calls.items():
+                key = f"{tag}_b{b}_{name}"
+                results[key] = check_chain(key, call, chk, iters)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # serving: the main paths
 # ---------------------------------------------------------------------------
@@ -416,8 +529,8 @@ def flagship_reference(model, dev, frames) -> dict:
 
 def phase_serving(model, dev, chk: Checks, frames, targets, ref, tag: str,
                   graph: dict, chains_per_frame: int) -> dict:
-    """One flagship main path: ``frames`` through ``ServingPipeline`` (depth
-    2) with ``infer_u8_packed`` on the bf16 chain graph built with
+    """One ROBO-UNet main path: ``frames`` through ``ServingPipeline``
+    (depth 2) with ``infer_u8_packed`` on the bf16 chain graph built with
     ``graph``, each served map scored by ``seg_batch_stats`` (K1), with the
     launch counters set to 0 just before and read just after; then the
     same graph's other serving forms and its f32 build."""
@@ -520,18 +633,24 @@ def phase_serving(model, dev, chk: Checks, frames, targets, ref, tag: str,
     return res
 
 
-def phase_device_fps(model, dev, frames) -> dict:
+def phase_device_fps(model, variants, dev, frames) -> dict:
     """Device frames/s of the bf16 serving function (CUDA events) at b1 and
-    b8: the plain packed graph, PR 1's two-chain graph, and the full chain
-    graph (folded stem + deep chain)."""
+    b8: the flagship's plain packed graph, its two-chain graph and the
+    full chain graph (folded stem + deep chain), and the --UNet and --v2
+    chain graphs the serving phases run (``variants``: tag -> (model,
+    build flags))."""
     from robocupvision_tpu_torch.models import packed
 
     fps = {}
-    for tag, kw in (("plain", dict(pallas=False)),
-                    ("chains2", dict(pallas=True)),
-                    ("chains3", dict(pallas=True, pallas_fold_stem=True,
-                                     pallas_deep=True))):
-        pib = packed.build_packed_infer(model, None, torch.bfloat16,
+    graphs = [(tag, model, kw) for tag, kw in (
+        ("plain", dict(pallas=False)),
+        ("chains2", dict(pallas=True)),
+        ("chains3", dict(pallas=True, pallas_fold_stem=True,
+                         pallas_deep=True)))]
+    graphs += [(tag, net, dict(pallas=True, **kw))
+               for tag, (net, kw) in variants.items()]
+    for tag, net, kw in graphs:
+        pib = packed.build_packed_infer(net, None, torch.bfloat16,
                                         device=dev, **kw)
         fnb, _ = camera_packed(pib)
         for b in (1, 8):
@@ -774,6 +893,129 @@ def phase_valid_label_prop(lp_model, dev, chk: Checks) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# --UNet and --v2 through test.py's evaluation loop
+# ---------------------------------------------------------------------------
+
+
+def eval_set(n: int, seed: int):
+    """``n`` frames at test.py's --noScale working size (240, 320): smooth
+    random images (16x16 blocks of normal noise, so a random net's maps
+    hold blobs rather than speckle) and labels of a few rectangles per
+    class, from a seeded numpy generator."""
+    h, w = 240, 320
+    rng = np.random.default_rng(seed)
+    low = rng.standard_normal((n, h // 16, w // 16, 3)).astype(np.float32)
+    imgs = np.repeat(np.repeat(low, 16, axis=1), 16, axis=2)
+    labs = np.zeros((n, h, w), np.int32)
+    for i in range(n):
+        for c in range(1, 5):
+            for _ in range(2):
+                y, x = rng.integers(0, h - 40), rng.integers(0, w - 40)
+                bh, bw = rng.integers(8, 40, 2)
+                labs[i, y:y + bh, x:x + bw] = c
+    return imgs, labs
+
+
+def phase_test_cli(models: dict, dev, chk: Checks) -> dict:
+    """test.py's evaluation loop (``cli/test.py evaluate``, f32, the
+    reference's class weights) for each model: 40 frames in a
+    ``DeviceCache`` on the card, batch 16, so the last batch holds 8 padded
+    samples that its mask drops; the K1 and K2 counters set to 0 just
+    before and read just after (1 K1 launch a batch, no K2: test.py runs
+    the zoo forward). Then each batch again, outside the counted run: K1
+    on the batch's (16, 240, 320) maps must equal its plain count, and the
+    masked statistics the two give must be equal. Last, the same loop over
+    the same inputs on the CPU: its metric line (loss, score, pixel
+    accuracy, class accuracy, IoU) must match within 1e-3, its object-level
+    IoU/Dist rates exactly."""
+    from robocupvision_tpu_torch.cli import test
+    from robocupvision_tpu_torch.data.device_cache import (DeviceCache,
+                                                           epoch_batches)
+    from robocupvision_tpu_torch.models import zoo
+    from robocupvision_tpu_torch.ops.cuda_kernels import (confusion_count,
+                                                          confusion_count_plain)
+    from robocupvision_tpu_torch.ops.cuda_packed import fused_conv_chain
+    from robocupvision_tpu_torch.ops.metrics import seg_batch_stats, to_host
+    from robocupvision_tpu_torch.train.step import StepCfg, make_eval_step
+
+    n, batch = 40, 16
+    n_batches = -(-n // batch)
+    imgs, labs = eval_set(n, SEED + 12)
+    out_size = 1.0 / (imgs.shape[1] * imgs.shape[2])
+    cfg = StepCfg(num_classes=5, class_weights=(1, 10, 30, 5, 2),
+                  out_size=out_size)
+    d_thresholds = [d * 2 for d in test.D_THRESHOLDS]
+    res = {"phase": "test_cli", "frames": n, "batch": batch,
+           "shape": list(imgs.shape), "dtype": "float32", "runs": {}}
+    for tag, model in models.items():
+        cache = DeviceCache.from_numpy(imgs, labs, device=dev)
+        # --- a main path: test.py's loop, the counters around it ----------
+        confusion_count.launches = fused_conv_chain.launches = 0
+        t0 = time.perf_counter()
+        card = test.evaluate(model, epoch_batches(cache, batch), cfg,
+                             test.THRESHOLDS, d_thresholds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"confusion_count": confusion_count.launches,
+                    "fused_conv_chain": fused_conv_chain.launches}
+        # K1 against its plain count on every batch of that loop
+        step = make_eval_step(model, cfg)
+        k1_equal, stats_equal, padded = True, True, 0
+        for x, tgt, mask in epoch_batches(cache, batch):
+            pred = step(x, tgt, mask)["pred"]
+            k1_equal &= torch.equal(confusion_count(pred, tgt, 5),
+                                    confusion_count_plain(pred, tgt, 5))
+            got, want = (to_host(seg_batch_stats(pred, tgt, 5, mask, impl=i,
+                                                 device=dev))
+                         for i in ("auto", "einsum"))
+            stats_equal &= all(np.array_equal(getattr(got, f.name),
+                                              getattr(want, f.name))
+                               for f in dataclasses.fields(got))
+            padded += int((mask == 0).sum())
+        cpu_model = zoo.make("robo_unet", device="cpu", **{
+            f.name: getattr(model.cfg, f.name)
+            for f in dataclasses.fields(model.cfg)})
+        cpu_model.load_state_dict(model.state_dict())
+        cpu = test.evaluate(cpu_model, epoch_batches(DeviceCache.from_numpy(
+            imgs, labs, device="cpu"), batch), cfg, test.THRESHOLDS,
+            d_thresholds)
+        line, cpu_line = (test.metric_line(0.0, r, out_size)
+                          for r in (card, cpu))
+        diff = max(abs(a - b) for a, b in zip(
+            test.metric_values(0.0, card, out_size),
+            test.metric_values(0.0, cpu, out_size)))
+        obj_diff = float(max(np.abs(card["iou"] - cpu["iou"]).max(),
+                             np.abs(card["dist"] - cpu["dist"]).max()))
+        res["runs"][tag] = {"metric_line": line, "cpu_metric_line": cpu_line,
+                            "max_abs_diff": diff, "iou": card["iou"].tolist(),
+                            "dist": card["dist"].tolist(),
+                            "iou_dist_max_abs_diff_vs_cpu": obj_diff,
+                            "k1_equal_plain_every_batch": k1_equal,
+                            "masked_stats_equal_plain": stats_equal,
+                            "padded_samples": padded,
+                            "launches": launches,
+                            "batches": card["batches"], "seconds": wall}
+        chk.expect(card["batches"] == n_batches and card["images"] == n
+                   and padded == n_batches * batch - n,
+                   f"test_cli {tag}: {card['batches']} batches, "
+                   f"{card['images']} images, {padded} padded")
+        chk.expect(launches == {"confusion_count": n_batches,
+                                "fused_conv_chain": 0},
+                   f"test_cli {tag}: launches {launches}, want 1 K1 a "
+                   f"batch and no K2")
+        chk.expect(k1_equal and stats_equal,
+                   f"test_cli {tag}: K1 or its masked statistics != plain")
+        chk.expect(diff <= 1e-3,
+                   f"test_cli {tag}: metric line {line} vs the CPU's "
+                   f"{cpu_line}")
+        chk.expect(obj_diff == 0,
+                   f"test_cli {tag}: IoU/Dist rates differ from the CPU's "
+                   f"by {obj_diff}")
+    emit(res)
+    return res
+
+
 def k2_entry(cases, launches, features) -> dict:
     """The ``kernels`` line's K2 object: times, bound and error summed (err:
     max) over the chains of one served frame."""
@@ -794,6 +1036,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from robocupvision_tpu_torch.cli.train import model_hyper
     from robocupvision_tpu_torch.csrc import build
     from robocupvision_tpu_torch.models import zoo
 
@@ -821,10 +1064,21 @@ def main() -> int:
                         generator=torch.Generator().manual_seed(SEED + 4))
     lp_model = zoo.make("label_prop", planes=32, num_classes=5, device=dev,
                         generator=torch.Generator().manual_seed(SEED + 9))
+    # the --UNet and --v2 nets at VGA (model_hyper sets neither flag)
+    unet = zoo.make("robo_unet", no_scale=True, pool=True, device=dev,
+                    generator=torch.Generator().manual_seed(SEED + 13),
+                    **model_hyper(True, False))
+    v2 = zoo.make("robo_unet", no_scale=True, v2=True, device=dev,
+                  generator=torch.Generator().manual_seed(SEED + 14),
+                  **model_hyper(False, True))
+    graphs = {"unet": (unet, dict(pallas_fold_stem=True)),
+              "v2": (v2, dict(pallas_fold_stem=True, pallas_deep=True))}
     k1 = phase_k1(dev, chk)
     k2 = phase_k2(model, dev, chk)
     k2f = phase_k2_features(model, pb_model, dev, chk)
     k2lp = phase_k2_lp(lp_model, dev, chk)
+    phase_k2_pool(dev, chk)
+    k2v = phase_k2_variants(graphs, dev, chk)
 
     rng = np.random.default_rng(SEED + 3)
     frames = [rng.integers(0, 256, (1, *VGA, 3), dtype=np.uint8)
@@ -836,19 +1090,29 @@ def main() -> int:
     sv3 = phase_serving(model, dev, chk, frames, targets, ref, "chains3",
                         dict(pallas_fold_stem=True, pallas_deep=True), 3)
     del ref
-    phase_device_fps(model, dev, frames)
+    variants = {}
+    for (tag, (net, graph)), per_frame in zip(graphs.items(), (2, 3)):
+        ref = flagship_reference(net, dev, frames)
+        variants[tag] = phase_serving(net, dev, chk, frames, targets, ref, tag,
+                                      graph, per_frame)
+        del ref
+    phase_device_fps(model, graphs, dev, frames)
     ts = phase_tester(pb_model, dev, chk)
     vlp = phase_valid_label_prop(lp_model, dev, chk)
+    tc = phase_test_cli({"unet": unet, "v2": v2}, dev, chk)
 
     # the main paths' launches; K1's shapes: one (1, 480, 640) map pair
     # scored per frame; K2's: the bf16 VGA b1 chains of one frame of the
     # full chain graph (folded-stem down, deep, up with its head)
     main_runs = [sv2["main_path_launches"], sv3["main_path_launches"]] + [
         r["launches"] for r in ts["runs"].values()] + [
-        vlp["main_path_launches"]]
+        vlp["main_path_launches"]] + [
+        v["main_path_launches"] for v in variants.values()] + [
+        r["launches"] for r in tc["runs"].values()]
     k1m = k1[1]
     features = sorted({f for r in list(k2.values()) + list(k2f.values())
-                       + list(k2lp.values()) for f in r["features"]})
+                       + list(k2lp.values()) + list(k2v.values())
+                       for f in r["features"]})
     kernels = [
         {"name": "confusion_count", "route": "cuda",
          "source": "robocupvision_tpu_torch/csrc/confusion.cu",

@@ -5,9 +5,9 @@
 // `fused_conv_chain` (body `_chain_kernel`), for its plain stages (KxK/s1
 // conv, optionally dilated, bias, folded-BN affine in either order or a bare
 // ReLU, identity skip), its conv'd skip (`skip_w`), its folded
-// space-to-depth stem (`stem_f`) and its fused argmax head. The Python
-// wrapper (ops/cuda_packed.py) rejects the stage features outside these
-// (`pool`, int8).
+// space-to-depth stem (`stem_f`), its packed 2x2 max pool (`pool`) and its
+// fused argmax head. The Python wrapper (ops/cuda_packed.py) rejects the
+// stage feature outside these (int8).
 //
 // Stage k of a chain: y = conv(in) [+ conv(skip, skip_w)] + b; then rbb ?
 // relu(y)*scale + shift : relu(y*scale + shift) when the stage has an
@@ -28,6 +28,14 @@
 // tensor straight from device memory at row g + dy - K/2 and column c + dx -
 // K/2, both bounds-checked, so it deepens no halo (the TPU kernel pads the
 // skips instead).
+// A `pool` stage (the --UNet downs' packed 2x2/s2 max pool) reads only its
+// input's centre (reach 0): output lane l of pixel (g, c) is the max of
+// input lanes src[t][l], t in [0, 4), of the same pixel -- a pure lane
+// gather (the wrapper turns the TPU kernel's four 0/1 lane-selection
+// matrices into that (4, cout) table; the selection dots exist there only
+// because Mosaic has no minor-dim reshape). No bias, no epilogue, and the
+// values stay in the chain dtype, so the result is bit-identical to
+// packed_max_pool.
 //
 // Bound on the H100: bytes. At the flagship's VGA shapes the packed taps
 // are mostly structural zeros (each original weight lands in one output
@@ -55,7 +63,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#define RCV_MAX_STAGES 8
+#define RCV_MAX_STAGES 16
 #define RCV_MAX_SKIPS 4
 
 // Mirrored by ctypes structures in ops/cuda_packed.py: keep the field
@@ -67,6 +75,7 @@ struct RcvStage {
   const float* shift;  // (cout,) f32
   const void* skip_w;  // (skip_k, skip_k, skip_cin, cout) chain dtype, 16-byte
                        // aligned, or null: skips[skip_idx] is an identity skip
+  const int* pool_src; // pool stages: (4, cout) int32 source lanes, else null
   void* out;           // emitted (N, H, W, cout) chain dtype, (N, H, W, G)
                        // int32 for the argmax head, or null
   long long ws_off;    // element offset of the strip in a block's workspace
@@ -75,7 +84,7 @@ struct RcvStage {
   int stem_f;          // stage 0 only: the folded stem's factor f, else 0
   int relu_only;       // no affine: y = relu(conv + b)
   int skip_k, skip_cin;  // the skip kernel's K and Cskip (skip_w only)
-  int pad_;
+  int pool;            // a packed 2x2 max pool: out[l] = max_t in[pool_src[t][l]]
 };
 
 struct RcvChain {
@@ -265,6 +274,39 @@ __device__ void conv_stage(const RcvChain& c, const RcvStage& st, int img,
   }
 }
 
+// Packed 2x2 max pool over this block's strip: every output lane is the max
+// of four lanes of the same input pixel (reach 0: input row g is output row
+// g). `in` as for conv_stage.
+template <typename T>
+__device__ void pool_stage(const RcvChain& c, const RcvStage& st, int img,
+                           int off, const T* __restrict__ in, int in_row0,
+                           T* __restrict__ strip_out) {
+  const int W = c.w, H = c.h, cin = st.cin, cout = st.cout;
+  const int d = st.depth;
+  const int row0 = off - d;
+  const int items = (c.band + 2 * d) * W * cout;
+  const int* __restrict__ src = st.pool_src;
+  T* out = static_cast<T*>(st.out);
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int co = it % cout;
+    const int rest = it / cout;
+    const int cc = rest % W;
+    const int r = rest / W;
+    const int g = row0 + r;  // image row of this output
+    T yt = from_f<T>(0.f);   // rows outside the image are zero
+    if (g >= 0 && g < H) {
+      const T* px = in + ((long long)(g - in_row0) * W + cc) * cin;
+      float y = to_f(px[src[co]]);
+#pragma unroll
+      for (int t = 1; t < 4; ++t) y = fmaxf(y, to_f(px[src[t * cout + co]]));
+      yt = from_f<T>(y);  // exact: y is one of the inputs
+    }
+    if (strip_out != nullptr) strip_out[((long long)r * W + cc) * cout + co] = yt;
+    if (out != nullptr && r >= d && r < d + c.band)
+      out[(((long long)img * H + g) * W + cc) * cout + co] = yt;
+  }
+}
+
 // Fused serving head: per output pixel and group, the index of the first
 // maximum over the group's cout/G adjacent (already rounded) logits.
 template <typename T>
@@ -319,7 +361,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
       in_rows = c.band + 2 * prev.depth;
     }
     T* strip_out = st.ws_off >= 0 ? ws + st.ws_off : nullptr;
-    if (st.cout % 16 == 0)
+    if (st.pool)
+      pool_stage<T>(c, st, img, off, in, in_row0, strip_out);
+    else if (st.cout % 16 == 0)
       conv_stage<T, 16>(c, st, img, off, in, in_row0, in_rows, strip_out);
     else if (st.cout % 8 == 0)
       conv_stage<T, 8>(c, st, img, off, in, in_row0, in_rows, strip_out);

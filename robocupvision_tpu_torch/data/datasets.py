@@ -1,5 +1,12 @@
-"""The legacy segmentation and label-propagation dataset readers (the JAX
-package's data/datasets.py ``SSDataSet``, ``LPDataSet`` and their helpers).
+"""The segmentation and label-propagation dataset readers (the JAX
+package's data/datasets.py ``SSYUVDataset``, ``SSDataSet``, ``LPDataSet``
+and their helpers).
+
+SSYUVDataset (reference dataset.py:65-133): the main segmentation set,
+root[/FinetuneHorizon]/{train,val}/{images,labels}/*.png with the same
+camera sidecars. Despite its name the reference never converts these
+images to YUV: they come back as RGB normalized with the domain's
+constants, (H, W, 3) float32, labels (H, W) int32.
 
 SSDataSet (reference dataset.py:135-189, trainer.py:75-104):
 root/{split}/{images,labels}/*.png, sorted by the reference's alphanumeric
@@ -96,6 +103,47 @@ def legacy_normalize(img01: np.ndarray) -> np.ndarray:
     img = to_yuv_legacy(img01)
     img = (img - np.array([0.5, 0.0, 0.0], np.float32)) / np.float32(0.5)
     return img.astype(np.float32)
+
+
+class SSYUVDataset:
+    """The main segmentation dataset (reference dataset.py:65-133): items
+    are (normalized RGB image (H, W, 3), label (H, W)) at ``img_size``."""
+
+    def __init__(self, root: str, img_size=(120, 160), train: bool = True,
+                 finetune: bool = False, camera: str = "both"):
+        self.img_size = tuple(img_size)
+        self.train = train
+        if finetune:
+            root = osp.join(root, "FinetuneHorizon")
+        data_dir = osp.join(root, "train" if train else "val")
+        self.img_dir = osp.join(data_dir, "images")
+        self.lab_dir = osp.join(data_dir, "labels")
+        self.mean = color_ops.MEAN_FINETUNE if finetune else color_ops.MEAN_SYNTHETIC
+        self.std = color_ops.STD_FINETUNE if finetune else color_ops.STD_SYNTHETIC
+        imgs = _list_pngs(self.img_dir)
+        labs = _list_pngs(self.lab_dir)
+        self.images, self.labels = _camera_filter(self.img_dir, imgs, labs,
+                                                  camera)
+
+    def __len__(self) -> int:
+        return len(self.images)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        img = load_image_rgb(osp.join(self.img_dir, self.images[i]),
+                             self.img_size)
+        lab = load_label(osp.join(self.lab_dir, self.labels[i]), self.img_size)
+        img = (img - np.asarray(self.mean, np.float32)) \
+            / np.asarray(self.std, np.float32)
+        return img.astype(np.float32), lab
+
+    def load_all(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Every item stacked: (N, H, W, 3) images, (N, H, W) labels."""
+        if not len(self):
+            return (np.zeros((0,) + self.img_size + (3,), np.float32),
+                    np.zeros((0,) + self.img_size, np.int32))
+        items = [self[i] for i in range(len(self))]
+        return (np.stack([img for img, _ in items]),
+                np.stack([lab for _, lab in items]))
 
 
 class SSDataSet:

@@ -1,5 +1,6 @@
-"""Lane-packed (space-to-depth) inference graphs: the flagship ROBO-UNet
-plan (PB_FCN_2 rides it), PB_FCN and LabelProp.
+"""Lane-packed (space-to-depth) inference graphs: the ROBO-UNet family's
+plan (the flagship, ``--UNet`` and ``--v2``; PB_FCN_2 rides it), PB_FCN and
+LabelProp.
 
 An exact graph rewrite (the JAX package's models/packed.py): the top of
 the U-Net trades spatial resolution for channels (space-to-depth by 4 at
@@ -14,17 +15,27 @@ on the packed grid whose kernel is a scatter of the original weights:
         packed tap  DY = r // f_in,  input phase  py = r % f_in
 
 Per-channel vectors (bias, folded BN scale/shift) tile across phases; the
-packed channel order is (py*f + px)*C + c.
+packed channel order is (py*f + px)*C + c. The ``--UNet`` downs' 2x2 max
+pool is a pure lane op on a packed grid (``packed_max_pool``). The ``--v2``
+concat skips are never materialized at f > 1: conv(concat(a, b), W) ==
+conv(a, W[:, :, :Ca]) + conv(b, W[:, :, Ca:]), so the consuming conv's
+packed kernel is split along the original Cin into ``.w0``/``.w1`` halves
+(``split2`` blocks) instead.
 
 ``build_packed_infer(..., pallas=True)`` runs the two packed-grid regions
 as fused chains (ops/cuda_packed.fused_conv_chain, kernel K2 on CUDA):
-[L1C0, L1C1, L2C0, L2C1] after the stem, and [Up(D-3)+skip,
-Up(D-2)+skip, head] before the output, the head fusing the serving argmax.
-``pallas_fold_stem`` moves the stem into the down chain (its stage 0 reads
-the raw image), and ``pallas_deep`` runs Level(D-1).Conv1 and the PB belly
-as a third chain on the deepest grid. Otherwise the stem is a plain conv
-with stride (f, 1) over the grouped input view, and the f == 1 levels run
-the zoo's blocks. ``pallas=False`` is the plain PyTorch packed graph.
+the down region after the stem ([L1C0, L1C1, L2C0, L2C1] for the
+flagship; pool, Level1's convs, pool, Level2's convs for ``--UNet``), and
+[Up(D-3)+skip, Up(D-2)+skip, head] before the output, the head fusing the
+serving argmax (for ``--v2`` the last two stages add their concat skip
+through a ``skip_w`` kernel, the split ``.w1`` half). ``pallas_fold_stem``
+moves the stem (and the rest of Level0) into the down chain (its stage 0
+reads the raw image), and ``pallas_deep`` runs Level(D-1)'s stride-1 convs
+and the PB belly as a third chain on the deepest grid. Strided plans with
+levels outside (1, 2) chain the up region only. Otherwise the stem is a
+plain conv with stride (f, 1) over the grouped input view, and the f == 1
+levels run the zoo's blocks. ``pallas=False`` is the plain PyTorch packed
+graph.
 
 ``build_packed_pb_fcn`` does the same for PB_FCN: its down chain [conv0,
 conv1, conv2.conv1 (ReLU only), conv2.pool] on the 1/4-resolution grid,
@@ -47,6 +58,7 @@ state_dict and carries it there with export/torch_io.to_jax_params.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -85,6 +97,20 @@ def depth_to_space(x: torch.Tensor, f: int) -> torch.Tensor:
     c = cp // (f * f)
     x = x.reshape(n, hp, wp, f, f, c).permute(0, 1, 3, 2, 4, 5)
     return x.reshape(n, hp * f, wp * f, c)
+
+
+def packed_max_pool(x: torch.Tensor, f_in: int) -> torch.Tensor:
+    """2x2/s2 max pool on a packed tensor: each packed cell holds f_in x f_in
+    original pixels, so each of the pooled cell's (f_in/2)^2 outputs is the
+    max of a 2x2 block inside the same cell (a pure lane op). Output packing
+    f_in/2."""
+    if f_in not in (2, 4):
+        raise ValueError(f"packed_max_pool takes f_in 2 or 4, got {f_in}")
+    n, hp, wp, cp = x.shape
+    fo = f_in // 2
+    c = cp // (f_in * f_in)
+    x = x.reshape(n, hp, wp, fo, 2, fo, 2, c)
+    return x.amax(dim=(4, 6)).reshape(n, hp, wp, fo * fo * c)
 
 
 def pack_conv_weight(w: np.ndarray, f_in: int, f_out: int, stride: int = 1,
@@ -192,10 +218,13 @@ class _Blk:
           "pconv_nr" conv + ReLU, no BN (ConvPool.conv1);
           "ptconv"   k3/s2/p1/op1 transpose conv (the plain up_tconv at
                      f_out 1);
+          "pool"     2x2/s2 max pool (packed_max_pool when f_in > 1);
           "head"     bias-only classifier conv.
     rbb: conv -> ReLU -> BN (conv_block) vs conv -> BN -> ReLU
     (conv_pool_simple, up_tconv). pad/dil: the f == 1 plain block's (the
-    packed taps encode them). wkey/bnkey: param prefixes of blocks whose
+    packed taps encode them). split2: the block consumes an unmaterialized
+    two-part concat (a ``--v2`` skip); its packed kernel is stored as
+    ``.w0``/``.w1`` halves. wkey/bnkey: param prefixes of blocks whose
     keys do not follow name + ".conv" / name + ".bn" (ConvPool's
     conv1/pool/bn).
     """
@@ -209,6 +238,7 @@ class _Blk:
     k: int = 3
     pad: int = 1
     dil: int = 1
+    split2: bool = False
     wkey: str = ""
     bnkey: str = ""
 
@@ -226,17 +256,20 @@ class _Blk:
 @dataclasses.dataclass(frozen=True)
 class _Plan:
     downs: tuple     # per resolution level: tuple of _Blk
-    ups: tuple       # one _Blk per up stage (additive skips)
+    ups: tuple       # one _Blk per up stage
     head: _Blk
+    v2: bool         # concat skips instead of additive ones
     belly: bool      # PB.PB_1 / PB.PB_2 bottleneck between down and up
 
 
 def _robo_unet_plan(cfg: RoboUNetCfg) -> _Plan:
-    """Packed plan for the flagship ROBO-UNet (strided convs, additive
-    skips) -- reference model.py:461-536."""
+    """Packed plan for the ROBO-UNet family -- reference model.py:461-536:
+    the flagship (strided convs, additive skips), ``--UNet`` (``pool``: a
+    max pool, then stride-1 convs) and ``--v2`` (concat skips, doubled up
+    widths, a 3x3 head)."""
     D = cfg.eff_depth
     n0 = max(cfg.levels - 1, 1)   # conv blocks in Level0
-    nI = cfg.levels               # per Level i >= 1
+    nI = max(cfg.levels - 1, 1) if cfg.pool else cfg.levels  # per Level i >= 1
     f0 = _f_at(0)
     blks = [_Blk("stem", "downPart.Level0.layers.Conv0", f0, f0)]
     for i in range(1, n0):
@@ -245,14 +278,23 @@ def _robo_unet_plan(cfg: RoboUNetCfg) -> _Plan:
     for lvl in range(1, D):
         f_in, f = _f_at(lvl - 1), _f_at(lvl)
         name = f"downPart.Level{lvl}"
-        blks = [_Blk("pconv", f"{name}.layers.Conv0", f_in, f, stride=2)]
+        if cfg.pool:
+            blks = [_Blk("pool", f_in=f_in, f_out=f),
+                    _Blk("pconv", f"{name}.layers.Conv0", f, f)]
+        else:
+            blks = [_Blk("pconv", f"{name}.layers.Conv0", f_in, f, stride=2)]
         for i in range(1, nI):
             blks.append(_Blk("pconv", f"{name}.layers.Conv{i}", f, f))
         downs.append(tuple(blks))
+    # a v2 up at f_in > 1 consumes the unmaterialized concat of the previous
+    # up and its skip; at f_in == 1 the concat is materialized
     ups = tuple(_Blk("ptconv", f"upPart.Up{j}", _f_at(D - 1 - j),
-                     _f_at(D - 2 - j), rbb=False) for j in range(D - 1))
-    head = _Blk("head", "segmenter.layers.Class", 4, 4, k=cfg.class_size)
-    return _Plan(tuple(downs), ups, head, cfg.belly_size > 0)
+                     _f_at(D - 2 - j), rbb=False,
+                     split2=cfg.v2 and j > 0 and _f_at(D - 1 - j) > 1)
+                for j in range(D - 1))
+    head = _Blk("head", "segmenter.layers.Class", 4, 4, k=cfg.class_size,
+                split2=cfg.v2)
+    return _Plan(tuple(downs), ups, head, cfg.v2, cfg.belly_size > 0)
 
 
 class _PackedBase:
@@ -351,12 +393,22 @@ class _PackedBase:
         return nn.relu(y * scale + shift)  # up_tconv order
 
     def _conv_packed(self, key: str, x) -> torch.Tensor:
-        w = self.packed[key + ".w"]
-        return nn.conv2d(x, w, self.packed[key + ".b"],
-                         padding=int(w.shape[2]) // 2)
+        """Packed conv; ``x`` may be a 2-tuple (an unmaterialized concat):
+        then the split .w0/.w1 halves are applied to its parts and summed."""
+        pp = self.packed
+        if isinstance(x, tuple):
+            w0 = pp[key + ".w0"]
+            pad = int(w0.shape[2]) // 2
+            return nn.conv2d(x[0], w0, pp[key + ".b"], padding=pad) \
+                + nn.conv2d(x[1], pp[key + ".w1"], padding=pad)
+        w = pp[key + ".w"]
+        return nn.conv2d(x, w, pp[key + ".b"], padding=int(w.shape[2]) // 2)
 
     def _blk(self, blk: _Blk, x) -> torch.Tensor:
         p = self.plain
+        if blk.kind == "pool":
+            return packed_max_pool(x, blk.f_in) if blk.f_in > 1 \
+                else nn.max_pool(x, 2, 2)
         if blk.kind == "stem":
             # s2d(f) folded into an (f+2, 3)/stride-(f, 1) conv on the
             # grouped input view (N, H, W/f, f*cin), a free reshape
@@ -426,26 +478,40 @@ class PackedInfer(_PackedBase):
         D = len(plan.downs)
         up = h
         for j, blk in enumerate(plan.ups):
-            up = self._blk(blk, up) + feats[D - 2 - j]
+            up = self._skip(self._blk(blk, up), feats[D - 2 - j],
+                            blk.f_out > 1)
         return self._blk(plan.head, up)
+
+    def _skip(self, y: torch.Tensor, skip: torch.Tensor, packed: bool):
+        """An up's skip: added, or for ``--v2`` concatenated -- at f > 1
+        (``packed``) left as the pair the consuming split2 block takes."""
+        if not self.plan.v2:
+            return y + skip
+        return (y, skip) if packed else torch.cat([y, skip], dim=-1)
 
     def _logits_packed_chains(self, x: torch.Tensor,
                               argmax: bool = False) -> torch.Tensor:
-        """Flagship plan with the packed-grid conv regions fused:
-        [L1C0, L1C1, L2C0, L2C1] after the stem (the stem too with
-        ``fold_stem``), [Up(D-3)+skip, Up(D-2)+skip, head] before the
-        output, and with ``deep`` [Level(D-1).Conv1.., PB_1.*, PB_2.Conv0]
-        on the deepest grid. ``argmax``: the head stage emits fused
-        per-phase int32 labels (serving form)."""
+        """The plan with its packed-grid conv regions fused: the down
+        region after the stem (Level0 too with ``fold_stem``; plain when
+        the chains have no ``down``), [Up(D-3)+skip, Up(D-2)+skip, head]
+        before the output, and with ``deep`` Level(D-1)'s stride-1 convs
+        and the PB belly on the deepest grid. ``argmax``: the head stage
+        emits fused per-phase int32 labels (serving form)."""
         plan, ch = self.plan, self.chains
         h = x.to(self.dtype)
         feats = {}
-        if ch["fold_stem"]:
+        if ch["down"] is None:
+            # strided plans with levels outside (1, 2): the downs stay plain
+            for lvl in range(3):
+                for blk in plan.downs[lvl]:
+                    h = self._blk(blk, h)
+                feats[lvl] = h
+        elif ch["fold_stem"]:
             # stage 0 reads the raw image and emits feats0 itself
             feats[0], feats[1], feats[2] = self._chain(h, ch["down"])
         else:
             for blk in plan.downs[0]:
-                h = self._blk(blk, h)     # stem (plain conv)
+                h = self._blk(blk, h)     # stem (plain conv) and Level0
             feats[0] = h
             feats[1], feats[2] = self._chain(h, ch["down"])
         h = feats[2]
@@ -465,7 +531,8 @@ class PackedInfer(_PackedBase):
             h = self._belly(h)
         up = h
         for j in range(D - 3):             # f == 1 ups stay on the plain path
-            up = self._blk(plan.ups[j], up) + feats[D - 2 - j]
+            up = self._skip(self._blk(plan.ups[j], up), feats[D - 2 - j],
+                            False)
         up_ch = ckp.with_argmax_head(ch["up"], 16) if argmax else ch["up"]
         return self._chain(up, up_ch, skips=[feats[1], feats[0]])[-1]
 
@@ -481,8 +548,8 @@ def _pack_blocks(np_params: NpParams, blks, dtype, device) -> Params:
         packed[key] = torch.as_tensor(np.ascontiguousarray(arr)).to(
             device=device, dtype=dtype)
 
-    def put_w(key, w_hwio):
-        put(key + ".w", np.transpose(w_hwio, (3, 2, 0, 1)))
+    def put_w(key, w_hwio, suffix=".w"):
+        put(key + suffix, np.transpose(w_hwio, (3, 2, 0, 1)))
 
     def put_vectors(blk, t):
         bias = np_params.get(blk.w_prefix + ".bias")
@@ -496,30 +563,49 @@ def _pack_blocks(np_params: NpParams, blks, dtype, device) -> Params:
             put(blk.w_prefix + ".shift", np.tile(shift, t))
 
     for blk in blks:
-        if blk.f_in == 1 and blk.f_out == 1 and blk.kind != "head":
-            continue  # plain conv_block / up_tconv path
+        if blk.kind == "pool" or (blk.f_in == 1 and blk.f_out == 1
+                                  and blk.kind != "head"):
+            continue  # a pool, or the plain conv_block / up_tconv path
         w = np_params[blk.w_prefix + ".weight"]
         if blk.kind == "stem":
-            put_w(blk.w_prefix, pack_stem_weight_grouped(w, blk.f_out))
+            pack = functools.partial(pack_stem_weight_grouped, f=blk.f_out)
         elif blk.kind == "ptconv":
-            put_w(blk.w_prefix, pack_conv_weight(w, blk.f_in, blk.f_out,
-                                                 transpose=True))
+            pack = functools.partial(pack_conv_weight, f_in=blk.f_in,
+                                     f_out=blk.f_out, transpose=True)
         else:
-            put_w(blk.w_prefix, pack_conv_weight(w, blk.f_in, blk.f_out,
-                                                 blk.stride,
-                                                 dilation=blk.dil))
+            pack = functools.partial(pack_conv_weight, f_in=blk.f_in,
+                                     f_out=blk.f_out, stride=blk.stride,
+                                     dilation=blk.dil)
+        if blk.split2:
+            # halves along the original Cin: a Cin slice of the original
+            # kernel packs to exactly the phase-major slice
+            cin = w.shape[2]
+            put_w(blk.w_prefix, pack(w[:, :, :cin // 2]), ".w0")
+            put_w(blk.w_prefix, pack(w[:, :, cin // 2:]), ".w1")
+        else:
+            put_w(blk.w_prefix, pack(w))
         put_vectors(blk, blk.f_out * blk.f_out)
     return packed
 
 
-def _packed_stage(packed: Params, prefix: str, **kw) -> ckp.ChainStage:
+def _hwio(w: torch.Tensor) -> torch.Tensor:
+    """An OIHW packed kernel as the (KH, KW, Cin, Cout) a ChainStage takes."""
+    return w.permute(2, 3, 1, 0).contiguous()
+
+
+def _packed_stage(packed: Params, prefix: str, split: bool = False,
+                  **kw) -> ckp.ChainStage:
     """ChainStage from a packed block: its kernel back from OIHW to
     (KH, KW, Cin, Cout) at ``dtype`` (the stem's is (f+2, 3, f*cin, Cout)),
     its vectors as f32 copies of the ``dtype`` values, no affine for the
-    head and ``pconv_nr`` blocks."""
+    head and ``pconv_nr`` blocks. ``split``: a split2 block, its ``.w0``
+    half as the stage's kernel and its ``.w1`` half as the ``skip_w``
+    kernel of the concat's second part."""
     scale = packed.get(prefix + ".scale")
+    if split:
+        kw["skip_w"] = _hwio(packed[prefix + ".w1"])
     return ckp.ChainStage(
-        w=packed[prefix + ".w"].permute(2, 3, 1, 0).contiguous(),
+        w=_hwio(packed[prefix + (".w0" if split else ".w")]),
         b=packed[prefix + ".b"].float(),
         scale=None if scale is None else scale.float(),
         shift=None if scale is None else packed[prefix + ".shift"].float(),
@@ -544,41 +630,103 @@ def _plain_stage(np_params: NpParams, name: str, dtype, device, rbb: bool,
                           shift=f32(shift), rbb=rbb, **kw)
 
 
+def _pool_chain_stage(f_in: int, c: int, dtype, device,
+                      **kw) -> ckp.ChainStage:
+    """:func:`packed_max_pool` as a ChainStage: output lane (qy*fo + qx)*c +
+    ch is the max of the four input lanes ((2qy + ry)*f_in + (2qx + rx))*c +
+    ch, given as four 0/1 lane-selection matrices (the JAX kernel's form)
+    and as the (4, Cout) table of those source lanes that the kernel reads."""
+    fo = f_in // 2
+    cin, cout = f_in * f_in * c, fo * fo * c
+    sel = np.zeros((1, 4, cin, cout), np.float32)
+    src_lanes = np.zeros((4, cout), np.int32)
+    eye = np.eye(c, dtype=np.float32)
+    for t, (ry, rx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        for qy in range(fo):
+            for qx in range(fo):
+                src = ((2 * qy + ry) * f_in + (2 * qx + rx)) * c
+                dst = (qy * fo + qx) * c
+                sel[0, t, src:src + c, dst:dst + c] = eye
+                src_lanes[t, dst:dst + c] = np.arange(src, src + c)
+    return ckp.ChainStage(w=torch.from_numpy(sel).to(device=device, dtype=dtype),
+                          b=torch.zeros(cout, device=device), pool=True,
+                          pool_src=torch.from_numpy(src_lanes).to(device),
+                          **kw)
+
+
+def _emit_last(stages):
+    stages[-1] = dataclasses.replace(stages[-1], emit=True)
+    return stages
+
+
 def _build_flagship_chains(cfg: RoboUNetCfg, packed: Params,
                            np_params: NpParams, dtype, device,
                            fold_stem: bool, deep: bool) -> dict:
-    """ChainStage lists for the flagship plan's fused regions (the non-v2
-    plan with levels in (1, 2)). ``fold_stem``: the down chain starts at
-    the raw image with the grouped space-to-depth stem as stage 0 and emits
-    feats0. ``deep``: Level(D-1).Conv1.. plus the PB belly, all stride-1
+    """ChainStage lists for the ROBO-UNet plan's fused regions.
+
+    down: ``--UNet`` [pool, Level1's convs, pool, Level2's convs] (every
+    conv grid-preserving, so the region fuses at any ``levels``); the
+    strided flagship [Level1's convs, Level2's convs] with levels in (1, 2);
+    None otherwise (the downs stay plain). ``fold_stem``: the down chain
+    starts at the raw image with the grouped space-to-depth stem as stage 0
+    (and the rest of Level0 after it) and emits feats0. up: [Up(D-3) +
+    skip, Up(D-2) + skip, head]; for ``--v2`` the last two add their
+    concat skip through the split ``.w1`` kernel (``skip_w``) instead, and
+    Up(D-3) takes the materialized f == 1 concat whole. ``deep``:
+    Level(D-1)'s stride-1 convs plus the PB belly, all stride-1
     conv_blocks on the deepest grid, as a third chain."""
     D = cfg.eff_depth
+    pk = functools.partial(_packed_stage, packed)
+
+    def plain_block(name, **kw):
+        return _plain_stage(np_params, name, dtype, device, rbb=True, **kw)
+
     nI = cfg.levels  # convs per down level (Conv0 strided + nI-1 preserving)
-    down = [_packed_stage(packed, f"downPart.Level1.layers.Conv{i}.conv",
-                          rbb=True) for i in range(nI)]
-    down[-1] = dataclasses.replace(down[-1], emit=True)   # feats[1]
-    down.append(_packed_stage(packed, "downPart.Level2.layers.Conv0.conv",
-                              rbb=True))
-    for i in range(1, nI):  # Level2 grid-preserving convs: plain (f == 1)
-        down.append(_plain_stage(np_params, f"downPart.Level2.layers.Conv{i}",
-                                 dtype, device, rbb=True))
-    down[-1] = dataclasses.replace(down[-1], emit=True)   # feats[2]
-    if fold_stem:
-        down.insert(0, _packed_stage(packed, "downPart.Level0.layers.Conv0.conv",
-                                     rbb=True, emit=True, stem_f=4))
-    up = [
-        _packed_stage(packed, f"upPart.Up{D - 3}.conv", rbb=False, skip_idx=0),
-        _packed_stage(packed, f"upPart.Up{D - 2}.conv", rbb=False, skip_idx=1),
-        _packed_stage(packed, "segmenter.layers.Class", rbb=False),
-    ]
+    if cfg.pool:
+        n0 = max(cfg.levels - 1, 1)   # Level0 convs, the stem included
+        nP = max(cfg.levels - 1, 1)   # convs per Level i >= 1
+        # a pool keeps its input's width: the consuming Conv0's Cin
+        c0 = int(np_params["downPart.Level1.layers.Conv0.conv.weight"].shape[2])
+        c1 = int(np_params["downPart.Level2.layers.Conv0.conv.weight"].shape[2])
+        down = [_pool_chain_stage(4, c0, dtype, device)]
+        down += _emit_last([pk(f"downPart.Level1.layers.Conv{i}.conv",
+                               rbb=True) for i in range(nP)])   # feats[1]
+        down.append(_pool_chain_stage(2, c1, dtype, device))
+        # Level2 runs at f == 1: plain conv_blocks
+        down += _emit_last([plain_block(f"downPart.Level2.layers.Conv{i}")
+                            for i in range(nP)])                # feats[2]
+        if fold_stem:
+            pre = [pk("downPart.Level0.layers.Conv0.conv", rbb=True, stem_f=4)]
+            pre += [pk(f"downPart.Level0.layers.Conv{i}.conv", rbb=True)
+                    for i in range(1, n0)]
+            down = _emit_last(pre) + down                        # feats[0]
+    elif cfg.levels not in (1, 2):
+        down = None
+    else:
+        down = _emit_last([pk(f"downPart.Level1.layers.Conv{i}.conv", rbb=True)
+                           for i in range(nI)])                 # feats[1]
+        down.append(pk("downPart.Level2.layers.Conv0.conv", rbb=True))
+        for i in range(1, nI):  # Level2 grid-preserving convs: plain (f == 1)
+            down.append(plain_block(f"downPart.Level2.layers.Conv{i}"))
+        _emit_last(down)                                        # feats[2]
+        if fold_stem:
+            down.insert(0, pk("downPart.Level0.layers.Conv0.conv", rbb=True,
+                              emit=True, stem_f=4))
+    if cfg.v2:
+        up = [pk(f"upPart.Up{D - 3}.conv", rbb=False),
+              pk(f"upPart.Up{D - 2}.conv", split=True, rbb=False, skip_idx=0),
+              pk("segmenter.layers.Class", split=True, rbb=False, skip_idx=1)]
+    else:
+        up = [pk(f"upPart.Up{D - 3}.conv", rbb=False, skip_idx=0),
+              pk(f"upPart.Up{D - 2}.conv", rbb=False, skip_idx=1),
+              pk("segmenter.layers.Class", rbb=False)]
     chains = {"down": down, "up": up, "fold_stem": fold_stem}
     if deep:
         names = [f"downPart.Level{D - 1}.layers.Conv{i}" for i in range(1, nI)] \
             + [f"PB.PB_1.layers.Conv{i}"
                for i in range(max(cfg.belly_size - 1, 1))] \
             + ["PB.PB_2.layers.Conv0"]
-        chains["deep"] = [_plain_stage(np_params, n, dtype, device, rbb=True)
-                          for n in names]
+        chains["deep"] = [plain_block(n) for n in names]
     return chains
 
 
@@ -588,8 +736,9 @@ def build_packed_infer(model: Model, params: Optional[Params] = None,
                        pallas_deep: bool = False,
                        pallas_argmax_head: bool = True,
                        device: DeviceLike = None) -> PackedInfer:
-    """Compile a flagship ROBO-UNet, or PB_FCN_2's segmentation net, for
-    inference (exact rewrite).
+    """Compile a ROBO-UNet (the flagship, ``--UNet``, ``--v2``, any levels,
+    QVGA and VGA), or PB_FCN_2's segmentation net, for inference (exact
+    rewrite).
 
     ``params``: the port's state_dict (``model.state_dict()`` when None).
     ``pallas=True``: the packed-grid regions run as fused chains (K2 on
@@ -613,9 +762,6 @@ def build_packed_infer(model: Model, params: Optional[Params] = None,
     if not isinstance(cfg, RoboUNetCfg):
         raise ValueError("build_packed_infer takes ROBO-UNet and PB_FCN_2; "
                          "use build_packed_pb_fcn for PB_FCN")
-    if cfg.v2 or cfg.pool:
-        raise NotImplementedError("the --v2 and --UNet plans are not ported "
-                                  "yet")
     if cfg.eff_depth < 4:
         raise ValueError("the packed plan needs eff_depth >= 4")
     plan = _robo_unet_plan(cfg)
@@ -627,11 +773,10 @@ def build_packed_infer(model: Model, params: Optional[Params] = None,
     plain = {k: v.detach().to(device=dev, dtype=dtype) for k, v in state.items()}
     chains = None
     if pallas:
-        if cfg.class_size != 1 or cfg.levels not in (1, 2):
-            raise NotImplementedError(
-                "the ported chains cover the 1x1-head flagship with levels "
-                "in (1, 2)")
-        if pallas_deep and cfg.belly_size == 0:
+        full_downs = cfg.pool or cfg.levels in (1, 2)
+        if pallas_fold_stem and not full_downs:
+            raise ValueError("fold_stem needs the fully chained down region")
+        if pallas_deep and (cfg.pool or not full_downs or cfg.belly_size == 0):
             raise ValueError("the deep chain covers strided plans with a PB "
                              "belly")
         chains = _build_flagship_chains(cfg, packed, np_params, dtype, dev,
@@ -911,7 +1056,7 @@ def build_packed_label_prop(model: Model, params: Optional[Params] = None,
                 pk("down2.conv", rbb=False)]                      # bottom
         if pallas_fold_stem:
             down.insert(0, pk("pre.conv", rbb=False, emit=True, stem_f=4))
-        skip_w = packed["classifier.wtop"].permute(2, 3, 1, 0).contiguous()
+        skip_w = _hwio(packed["classifier.wtop"])
         up = [pk("upConv2.conv", rbb=False, skip_idx=0),          # + middle
               pk("upConv3.conv", rbb=False),
               pk("classifier", skip_idx=1, skip_w=skip_w)]        # + top

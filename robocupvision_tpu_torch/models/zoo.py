@@ -1,14 +1,14 @@
-"""Model zoo, eval-mode: the flagship ROBO-UNet (reference model.py:461-536)
-in its additive-skip form at QVGA and at VGA (``no_scale``), PB_FCN over
-its DownSampler encoder (model.py:201-232, 269-309) and PB_FCN_2
-(model.py:416-459), each in its segmentation and classification modes, and
-the LabelProp net (model.py:538-567).
+"""Model zoo, eval-mode: the ROBO-UNet family (reference model.py:461-536)
+at QVGA and at VGA (``no_scale``), the flagship with additive skips, the
+``--UNet`` variant (``pool``: max-pool downs) and the ``--v2`` variant
+(concat skips), with its analytic op count; PB_FCN over its DownSampler
+encoder (model.py:201-232, 269-309) and PB_FCN_2 (model.py:416-459), each
+in its segmentation and classification modes; and the LabelProp net
+(model.py:538-567).
 
 ``make(family, ...)`` returns a :class:`Model`, an ``nn.Module`` whose
 ``state_dict`` carries the registry names; its ``forward`` takes NHWC input
-and returns NHWC logits, like the JAX package's ``Model.apply``. The
-ROBO-UNet ``--v2`` (concat skips) and ``--UNet`` (max-pool downs) variants
-belong to a later slice of the port and raise ``NotImplementedError``.
+and returns NHWC logits, like the JAX package's ``Model.apply``.
 """
 
 from __future__ import annotations
@@ -196,8 +196,101 @@ def robo_unet_apply(cfg: RoboUNetCfg, p: Params, x: torch.Tensor) -> torch.Tenso
 
     up = downs[-1]
     for i in range(depth - 1):
-        up = L.up_tconv(p, f"upPart.Up{i}", up) + downs[-(i + 2)]
+        y = L.up_tconv(p, f"upPart.Up{i}", up)
+        skip = downs[-(i + 2)]
+        up = torch.cat([y, skip], dim=-1) if cfg.v2 else y + skip
     return L.ult_classifier(p, "segmenter", up, cfg.class_size)
+
+
+def robo_unet_get_computations(cfg: RoboUNetCfg, params: Optional[Params] = None,
+                               pruned: bool = False):
+    """Analytic per-layer op counts (reference model.py:513-536).
+
+    Conv cost: k*k*W*H*Cin*Cout*2*nnz_ratio + W*H*Cout*4 (the BN/ReLU tail);
+    pool cost: W*H*C; the last entry is the segmenter estimate
+    H*W*nClass*planes*2 (the reference's formula, kept as it is).
+
+    ``params`` (the port's state_dict, torch layouts) gives each layer's
+    widths from its kernel's shape, and with ``pruned`` its share of
+    non-zero weights.
+    """
+    H, W = cfg.img_shape
+
+    def ratio(name):
+        if not pruned or params is None:
+            return 1.0
+        w = params[name + ".weight"]
+        return float(torch.count_nonzero(torch.as_tensor(w))) / w.numel()
+
+    def shape(name):
+        w = None if params is None else params.get(name + ".weight")
+        return None if w is None else tuple(w.shape)
+
+    comp = []
+    depth = cfg.eff_depth
+    pl = cfg.planes
+
+    def conv_cost(name, cin, cout, k, stride, w, h):
+        s = shape(name)
+        if s is not None:  # conv (out, in, kh, kw)
+            cout, cin, k = s[0], s[1], s[2]
+        w2, h2 = w // stride, h // stride
+        comp.append(k * k * w2 * h2 * cin * cout * 2 * ratio(name)
+                    + w2 * h2 * cout * 4)
+        return w2, h2
+
+    def level_cost(name, cin, cout, levels, do_pool, pool, w, h):
+        if pool:
+            if do_pool:
+                s = shape(name + ".layers.Conv0.conv")
+                if s is not None:  # a pool keeps its width: Conv0's Cin
+                    cin = s[1]
+                comp.append(w * h * cin)
+                w, h = w // 2, h // 2
+                levels -= 1
+            levels = max(levels, 1)
+            w, h = conv_cost(name + ".layers.Conv0.conv", cin, cout, 3, 1, w, h)
+        else:
+            w, h = conv_cost(name + ".layers.Conv0.conv", cin, cout, 3,
+                             2 if do_pool else 1, w, h)
+        for i in range(levels - 1):
+            w, h = conv_cost(f"{name}.layers.Conv{i + 1}.conv", cout, cout, 3,
+                             1, w, h)
+        return w, h
+
+    w, h = W, H
+    w, h = level_cost("downPart.Level0", 3, pl, cfg.levels - 1, False,
+                      cfg.pool, w, h)
+    for i in range(depth - 1):
+        n_ch = pl * 2 ** i
+        w, h = level_cost(f"downPart.Level{i + 1}", n_ch, n_ch * 2, cfg.levels,
+                          True, cfg.pool, w, h)
+    max_depth = pl * 2 ** (depth - 1)
+    if cfg.belly_size > 0:
+        w, h = level_cost("PB.PB_1", max_depth, cfg.belly_planes,
+                          cfg.belly_size - 1, False, False, w, h)
+        w, h = level_cost("PB.PB_2", cfg.belly_planes, max_depth, 1, False,
+                          False, w, h)
+    for i in range(depth - 1):
+        n_ch = pl * 2 ** (depth - 1 - i)
+        o_ch = n_ch // 2
+        if i > 0 and cfg.v2:
+            n_ch *= 2
+        name = f"upPart.Up{i}.conv"
+        s = shape(name)
+        if s is not None:  # tconv (in, out, kh, kw)
+            n_ch, o_ch = s[0], s[1]
+        comp.append(3 * 3 * w * h * n_ch * o_ch * 2 * ratio(name)
+                    + w * h * o_ch * 4)
+        w, h = w * 2, h * 2
+    # the reference's segmenter estimate uses nClass*planes*2 even for v2,
+    # whose head reads 2*planes; from params, planes is the head's Cin (/2
+    # for v2)
+    s = shape("segmenter.layers.Class")
+    if s is not None:
+        pl = s[1] // (2 if cfg.v2 else 1)
+    comp.append(H * W * cfg.num_classes * pl * 2)
+    return comp
 
 
 # =============================================================================
@@ -347,9 +440,6 @@ def make(family: str, *, device: DeviceLike = None,
     caller passes another)."""
     dev = resolve_device(device)
     cfg = _FAMILIES[family][0](**kwargs)
-    if getattr(cfg, "v2", False) or getattr(cfg, "pool", False):
-        raise NotImplementedError(
-            "the --v2 and --UNet ROBO-UNet variants are not ported yet")
     gen = generator if generator is not None else torch.Generator().manual_seed(0)
     params = _FAMILIES[family][1](cfg).init(gen)
     return Model(family, cfg, params).to(dev)

@@ -11,7 +11,12 @@ a bare ReLU, then an identity skip add. A ``skip_w`` stage instead adds
 ``conv(skips[skip_idx], skip_w)`` (a (K, K, Cskip, Cout) kernel, K in {1,
 3}, padding K // 2) to the conv's f32 sum before the bias: the second half
 of a conv split over a concat, or LabelProp's channel-slice skip folded
-into its classifier. Rows and columns outside the image are zero (they are
+into its classifier. A ``pool`` stage is the --UNet downs' packed 2x2/s2
+max pool (``models/packed.packed_max_pool``): its ``w`` is the (1, 4, Cin,
+Cout) stack of 0/1 lane-selection matrices, output lane l is the max over
+t of the input lane that column l of matrix t selects, with no bias and no
+epilogue, so it reads no halo and its output is bit-identical to
+``packed_max_pool``. Rows and columns outside the image are zero (they are
 the next stage's padding) and every inter-stage value is rounded to the
 chain dtype. Stage 0 may be the folded space-to-depth stem
 (``stem_f = f``): the chain then takes the raw (N, f*H, f*W, cin) image and
@@ -25,9 +30,8 @@ int32 labels instead of logits, first max winning ties.
 :func:`chain_reference` for CPU tensors; nothing else selects between them.
 ``fused_conv_chain.launches`` counts kernel launches.
 
-Stage features of the JAX kernel outside these slices of the port
-(``pool`` and int8 ``x_scale``/``w_scale``) keep their ChainStage fields
-but raise ``NotImplementedError`` in both paths.
+The int8 stage feature of the JAX kernel (``x_scale``/``w_scale``) keeps
+its ChainStage fields but raises ``NotImplementedError`` in both paths.
 """
 
 from __future__ import annotations
@@ -56,7 +60,11 @@ class ChainStage:
     stage 0 only, the folded stem's factor. relu_only: ReLU instead of an
     affine. dil: tap spacing. argmax_groups: last stage only, emit (N, H,
     W, groups) int32 labels, argmax over each group of Cout/groups adjacent
-    channels.
+    channels. pool: a packed max pool whose ``w`` is the (1, 4, Cin, Cout)
+    lane-selection stack (and ``b`` an unused zero bias). pool_src: the
+    pool's (4, Cout) int32 table of source lanes (:func:`pool_table` of
+    ``w``), which the kernel reads; ``None`` derives it from ``w`` on each
+    call.
     """
 
     w: Any
@@ -72,6 +80,7 @@ class ChainStage:
     dil: int = 1
     argmax_groups: int = 0
     pool: bool = False
+    pool_src: Any = None
     x_scale: float = 0.0
     w_scale: Any = None
 
@@ -103,6 +112,43 @@ def with_argmax_head(stages: Sequence[ChainStage],
     return stages
 
 
+def pool_table(w: torch.Tensor) -> torch.Tensor:
+    """A pool stage's (4, Cout) int32 table of source lanes, on ``w``'s
+    device: entry [t, l] is the one row of selection matrix ``w[0, t]``
+    whose column l holds a 1. Raises ``ValueError`` unless every column of
+    every matrix holds exactly one 1 and zeros elsewhere."""
+    sel = w.detach()[0]
+    ones = sel == 1
+    if not (bool(((sel == 0) | ones).all())
+            and bool((ones.sum(dim=1) == 1).all())):
+        raise ValueError("a pool stage's selection matrices need exactly one "
+                         "1 in every column and zeros elsewhere")
+    return ones.to(torch.int32).argmax(dim=1).to(torch.int32).contiguous()
+
+
+def _check_pool(i: int, st: ChainStage) -> ChainStage:
+    """The JAX kernel's asserts on a pool stage: the selection stack only.
+    Returns the stage with its ``pool_src`` table, derived from (and
+    checked against the form of) ``w`` when the caller gave none."""
+    if st.w.dim() != 4 or tuple(st.w.shape[:2]) != (1, 4):
+        raise ValueError(f"stage {i}: a pool stage's w is the (1, 4, Cin, "
+                         f"Cout) selection stack, got {tuple(st.w.shape)}")
+    extra = [name for name, on in (
+        ("scale", st.scale is not None), ("relu_only", st.relu_only),
+        ("skip_idx", st.skip_idx >= 0), ("skip_w", st.skip_w is not None),
+        ("stem_f", st.stem_f), ("argmax_groups", st.argmax_groups)) if on]
+    if extra:
+        raise ValueError(f"stage {i}: a pool stage takes no "
+                         f"{', '.join(extra)}")
+    if st.pool_src is None:
+        return dataclasses.replace(st, pool_src=pool_table(st.w))
+    if tuple(st.pool_src.shape) != (4, int(st.w.shape[3])):
+        raise ValueError(f"stage {i}: pool_src must be (4, "
+                         f"{int(st.w.shape[3])}), got "
+                         f"{tuple(st.pool_src.shape)}")
+    return st
+
+
 def _prepare(stages: Sequence[ChainStage]) -> List[ChainStage]:
     """Validate a chain for this port and mark its last stage emitted."""
     stages = list(stages)
@@ -111,15 +157,14 @@ def _prepare(stages: Sequence[ChainStage]) -> List[ChainStage]:
     if not stages[-1].emit:
         stages[-1] = dataclasses.replace(stages[-1], emit=True)
     for i, st in enumerate(stages):
-        unported = [name for name, on in (
-            ("pool", st.pool),
-            ("x_scale", st.x_scale), ("w_scale", st.w_scale is not None))
-            if on]
-        if unported:
+        if st.x_scale or st.w_scale is not None:
             raise NotImplementedError(
-                f"stage {i}: {', '.join(unported)} not ported yet (plain, "
-                "dilated, relu-only, conv'd-skip and folded-stem stages and "
-                "the argmax head only)")
+                f"stage {i}: int8 (x_scale, w_scale) not ported yet (plain, "
+                "dilated, relu-only, conv'd-skip, folded-stem and pool stages "
+                "and the argmax head only)")
+        if st.pool:
+            stages[i] = _check_pool(i, st)
+            continue
         if st.w.dim() != 4:
             raise ValueError(f"stage {i}: kernel must be 4-D, got "
                              f"{tuple(st.w.shape)}")
@@ -170,6 +215,18 @@ def chain_reference(x: torch.Tensor, stages: Sequence[ChainStage],
     outs = []
     for k, st in enumerate(stages):
         cout = int(st.w.shape[3])
+        if st.pool:
+            # the max over the four 0/1 selections (exact gathers, as the
+            # JAX package's chain_reference computes them), no epilogue
+            sel = st.w[0].float()
+            hf = h.float()
+            y = torch.einsum("nhwc,cd->nhwd", hf, sel[0])
+            for t in range(1, 4):
+                y = torch.maximum(y, torch.einsum("nhwc,cd->nhwd", hf, sel[t]))
+            if st.emit:
+                outs.append(y.to(chain_dtype))
+            h = y.to(chain_dtype)
+            continue
         # (KH, KW, in, out) -> OIHW, at the chain dtype as the kernel reads it
         w = st.w.to(chain_dtype).float().permute(3, 2, 0, 1)
         if st.stem_f:
@@ -212,14 +269,14 @@ def chain_reference(x: torch.Tensor, stages: Sequence[ChainStage],
 # the CUDA path
 # ---------------------------------------------------------------------------
 
-_MAX_STAGES = 8   # csrc/conv_chain.cu RCV_MAX_STAGES
+_MAX_STAGES = 16  # csrc/conv_chain.cu RCV_MAX_STAGES
 _MAX_SKIPS = 4    # csrc/conv_chain.cu RCV_MAX_SKIPS
 
 
 class _Stage(ctypes.Structure):
     _fields_ = [("w", ctypes.c_void_p), ("b", ctypes.c_void_p),
                 ("scale", ctypes.c_void_p), ("shift", ctypes.c_void_p),
-                ("skip_w", ctypes.c_void_p),
+                ("skip_w", ctypes.c_void_p), ("pool_src", ctypes.c_void_p),
                 ("out", ctypes.c_void_p), ("ws_off", ctypes.c_longlong),
                 ("kh", ctypes.c_int), ("kw", ctypes.c_int),
                 ("cin", ctypes.c_int), ("cout", ctypes.c_int),
@@ -227,7 +284,7 @@ class _Stage(ctypes.Structure):
                 ("argmax_groups", ctypes.c_int), ("depth", ctypes.c_int),
                 ("dil", ctypes.c_int), ("stem_f", ctypes.c_int),
                 ("relu_only", ctypes.c_int), ("skip_k", ctypes.c_int),
-                ("skip_cin", ctypes.c_int), ("pad_", ctypes.c_int)]
+                ("skip_cin", ctypes.c_int), ("pool", ctypes.c_int)]
 
 
 class _Chain(ctypes.Structure):
@@ -283,7 +340,8 @@ def _param(t, device, dtype) -> torch.Tensor:
 
 def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
                      skips: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
-    """Run a fused chain of conv3x3(s1)/conv1x1 (+epilogue, +skip) stages.
+    """Run a fused chain of conv3x3(s1)/conv1x1 (+epilogue, +skip) and
+    packed max-pool stages.
 
     x: (N, H, W, C0) in f32 or bf16, or the raw (N, f*H, f*W, cin) image
     when stage 0 is a ``stem_f = f`` stem. Kernels are read at x's dtype (as the
@@ -338,9 +396,16 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
             raise ValueError(f"stage {i}: skip {st.skip_idx} missing or not "
                              f"{skip_c} channels wide")
         d = desc.st[i]
-        w, b = _param(st.w, dev, x.dtype), _param(st.b, dev, torch.float32)
-        keep += [w, b]
-        d.w, d.b = w.data_ptr(), b.data_ptr()
+        if st.pool:
+            # the selection stack's (1, 4) is no tap grid: the kernel reads
+            # the table of source lanes instead
+            table = _param(st.pool_src, dev, torch.int32)
+            keep.append(table)
+            d.pool, d.pool_src, kh, kw = 1, table.data_ptr(), 1, 1
+        else:
+            w, b = _param(st.w, dev, x.dtype), _param(st.b, dev, torch.float32)
+            keep += [w, b]
+            d.w, d.b = w.data_ptr(), b.data_ptr()
         if st.scale is not None:
             sc = _param(st.scale, dev, torch.float32)
             sh = _param(st.shift, dev, torch.float32)

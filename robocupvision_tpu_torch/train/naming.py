@@ -1,8 +1,10 @@
 """Checkpoint file names of the reference (the JAX package's
-train/naming.py, the part the tester needs): the legacy pipeline writes
-``pth/bestModel{Seg}{VGA}{v2}{NoBall}{NoGoal}{NoRobot}{NoLine}{cam}
+train/naming.py, the part the evaluation CLIs need): the legacy pipeline
+writes ``pth/bestModel{Seg}{VGA}{v2}{NoBall}{NoGoal}{NoRobot}{NoLine}{cam}
 {Finetuned}{Pruned|Pruned2}.pth`` (reference trainer.py:149, 310;
-pruner.py:134, 291)."""
+pruner.py:134, 291), and test.py evaluates the family
+``checkpoints/best{Finetune}{v2}{VGA}{UNet}{NoBall}{NoGoal}{NoRobot}
+{NoLine}{cam}*.weights`` (test.py:264)."""
 
 from __future__ import annotations
 
@@ -43,6 +45,16 @@ class Flags:
                 + ("UNet" if self.unet else "") + ("NoBall" if self.no_ball else "")
                 + ("NoGoal" if self.no_goal else "") + ("NoRobot" if self.no_robot else "")
                 + ("NoLine" if self.no_line else ""))
+
+
+def test_ckpt_glob_base(f: Flags) -> str:
+    """test.py's checkpoint family base name (test.py:264)."""
+    return "checkpoints/best%s%s%s%s%s%s%s%s%s" % (
+        "Finetune" if f.finetune else "", "v2" if f.v2 else "",
+        "VGA" if f.no_scale else "", "UNet" if f.unet else "",
+        "NoBall" if f.no_ball else "", "NoGoal" if f.no_goal else "",
+        "NoRobot" if f.no_robot else "", "NoLine" if f.no_line else "",
+        f.camera_str if f.finetune else "")
 
 
 def legacy_model_name(f: Flags, seg: bool = False, finetuned: bool = False,

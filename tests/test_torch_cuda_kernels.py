@@ -11,9 +11,12 @@ reassociation, TF32 off), in bf16 per element at two bf16 ulps of the
 reference plus 2**-8 of its largest magnitude (``bf16_tolerance``: a
 rounding flip carried through the later stages), labels >= 0.9999 (f32) /
 0.999 (bf16) agreement. The band splits only the halo recompute, so every
-band gives bit-identical results, for dilated, folded-stem and conv'd-skip
-(``skip_w``) chains too.
+band gives bit-identical results, for dilated, folded-stem, conv'd-skip
+(``skip_w``) and pool chains too. A pool stage is exact: bit-identical to
+``packed_max_pool``.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -290,3 +293,112 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device,
     monkeypatch.setattr(ckp, "choose_band", lambda n, h, dev: 3)
     with pytest.raises(ValueError):
         ckp.fused_conv_chain(torch.zeros(1, 8, 8, 4, device=cuda_device), [st])
+
+
+def _pool_stage(f_in, c, tdtype, dev, **kw):
+    return packed._pool_chain_stage(f_in, c, tdtype, dev, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["builder", "from_stack"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("f_in,c", [(4, 8), (2, 16)])
+def test_pool_stage_is_packed_max_pool(cuda_device, monkeypatch, dt, f_in, c,
+                                       table):
+    """A pool-only chain (the pool as stage 0, reading the chain input) is
+    bit-identical to packed_max_pool at bands 1, 5 and 30, with the
+    builder's table of source lanes or the one the wrapper derives from
+    the selection stack alone."""
+    tdtype = _DT[dt]
+    x = _randn(60 + f_in, (2, 30, 40, f_in * f_in * c), tdtype, cuda_device)
+    want = packed.packed_max_pool(x, f_in)
+    st = _pool_stage(f_in, c, tdtype, cuda_device)
+    if table == "from_stack":
+        st = dataclasses.replace(st, pool_src=None)
+    for band in (1, 5, 30):
+        monkeypatch.setattr(ckp, "choose_band", lambda n, h, dev: band)
+        before = ckp.fused_conv_chain.launches
+        got = ckp.fused_conv_chain(x, [st])
+        torch.cuda.synchronize()
+        assert ckp.fused_conv_chain.launches == before + 1
+        assert got[0].dtype == tdtype and torch.equal(got[0], want), band
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_pool_stage_mid_chain(cuda_device, monkeypatch, dt):
+    """conv -> pool -> conv: the pool's emitted output is packed_max_pool
+    of the kernel's own emitted conv output, bit for bit, at every band,
+    and the chain agrees with chain_reference."""
+    tdtype = _DT[dt]
+
+    def v(seed, n):
+        return _randn(seed, (n,), torch.float32, cuda_device) * 0.1
+
+    w1 = (_randn(70, (3, 3, 32, 64), torch.float32, cuda_device) * 0.2).to(tdtype)
+    w2 = (_randn(71, (3, 3, 16, 24), torch.float32, cuda_device) * 0.2).to(tdtype)
+    stages = [ckp.ChainStage(w=w1, b=v(72, 64), scale=1 + v(73, 64),
+                             shift=v(74, 64), emit=True),
+              _pool_stage(2, 16, tdtype, cuda_device, emit=True),
+              ckp.ChainStage(w=w2, b=v(75, 24), scale=1 + v(76, 24),
+                             shift=v(77, 24), rbb=False)]
+    x = _randn(78, (2, 30, 40, 32), tdtype, cuda_device)
+    outs = []
+    for band in (1, 5, 30):
+        monkeypatch.setattr(ckp, "choose_band", lambda n, h, dev: band)
+        outs.append(ckp.fused_conv_chain(x, stages))
+        torch.cuda.synchronize()
+        assert torch.equal(outs[-1][1], packed.packed_max_pool(outs[-1][0], 2))
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+    _assert_chain_close(outs[0], ckp.chain_reference(x, stages), dt)
+
+
+def _variant_chain(case, dt, dev):
+    """(x, stages, skips) of the --UNet and --v2 chains from the port's
+    builder at QVGA: the --UNet folded-stem down chain (stem, Level0.Conv1,
+    pool, two convs, pool, two convs: 8 stages), the --v2 deep chain (9
+    stages) and the --v2 up chain, whose last two stages add their concat
+    skip through a 3x3 skip_w kernel (the head with the argmax)."""
+    tdtype = _DT[dt]
+    if case == "unet_down":
+        model = zoo.make("robo_unet", device=dev, pool=True, levels=3,
+                         belly_size=0, generator=torch.Generator().manual_seed(9))
+        ch = packed.build_packed_infer(model, None, tdtype, pallas=True,
+                                       pallas_fold_stem=True, device=dev).chains
+        return _randn(80, (2, 120, 160, 3), tdtype, dev), ch["down"], []
+    model = zoo.make("robo_unet", device=dev, v2=True, levels=1, belly_size=9,
+                     class_size=3, belly_planes=64,
+                     generator=torch.Generator().manual_seed(10))
+    ch = packed.build_packed_infer(model, None, tdtype, pallas=True,
+                                   pallas_fold_stem=True, pallas_deep=True,
+                                   device=dev).chains
+    if case == "v2_deep":
+        return _randn(81, (2, 8, 10, 64), tdtype, dev), ch["deep"], []
+    up = ckp.with_argmax_head(ch["up"], 16) if case == "v2_up_head" else ch["up"]
+    skips = [_randn(82 + i, (2, 30, 40, c), tdtype, dev)
+             for i, c in enumerate((64, 128))]
+    return _randn(84, (2, 30, 40, 64), tdtype, dev), up, skips
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["unet_down", "v2_deep", "v2_up",
+                                  "v2_up_head"])
+def test_chain_kernel_variants_match_reference(cuda_device, monkeypatch, dt,
+                                               case):
+    """The --UNet and --v2 chains (pool stages, a 9-stage chain, a 3x3 head
+    with a 3x3 skip_w and the argmax) against chain_reference; bands 1 and
+    2 bit-identical."""
+    x, stages, skips = _variant_chain(case, dt, cuda_device)
+    outs = []
+    for band in (1, 2):
+        monkeypatch.setattr(ckp, "choose_band", lambda n, h, dev: band)
+        before = ckp.fused_conv_chain.launches
+        outs.append(ckp.fused_conv_chain(x, stages, skips))
+        torch.cuda.synchronize()
+        assert ckp.fused_conv_chain.launches == before + 1
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    _assert_chain_close(outs[0], ckp.chain_reference(x, stages, skips), dt)

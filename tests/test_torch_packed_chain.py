@@ -7,7 +7,11 @@ chain (``relu_only``, and ``dil`` on its appended stage), deep chain
 (``dil``) and up chain from ``build_packed_pb_fcn(pallas=True,
 pallas_deep=True)``, LabelProp's up chain from
 ``build_packed_label_prop(pallas=True)``, whose classifier takes a 1x1
-``skip_w`` kernel, and a synthetic chain with a 3x3 ``skip_w`` stage.
+``skip_w`` kernel, a synthetic chain with a 3x3 ``skip_w`` stage, and the
+``--UNet`` down chain (``pool`` stages) and ``--v2`` up chain (3x3
+``skip_w`` stages and a 3x3 head) from ``build_packed_infer``. Pool stages
+alone are exact: a pool chain equals JAX's chain_reference and
+``packed_max_pool`` bit for bit.
 
 Tolerances: f32 at rtol = atol = 2e-4 (conv reassociation); bf16 per
 element at two bf16 ulps of the reference plus 2**-8 of its largest
@@ -53,7 +57,7 @@ def _port_stage(st):
                            emit=st.emit, stem_f=st.stem_f,
                            relu_only=st.relu_only, dil=st.dil,
                            argmax_groups=st.argmax_groups,
-                           skip_w=t(st.skip_w))
+                           skip_w=t(st.skip_w), pool=st.pool)
 
 
 def _input(seed, shape, tdtype):
@@ -215,17 +219,190 @@ def test_halo_depths():
     assert tppk._halo_depths(st) == [3, 1, 1, 0, 0]
 
 
-@pytest.mark.parametrize("field", [dict(w_scale=torch.ones(4)), dict(pool=True),
-                                   dict(pool=True, skip_w=torch.zeros(3, 3, 4, 4),
+_SEL = np.zeros((1, 4, 16, 4), np.float32)  # a valid f_in 2, c 4 stack
+for _t, _src in enumerate((0, 1, 2, 3)):
+    _SEL[0, _t, 4 * _src:4 * _src + 4] = np.eye(4)
+
+
+@pytest.mark.parametrize("field", [dict(w_scale=torch.ones(4)),
+                                   dict(w_scale=torch.ones(4), pool=True),
+                                   dict(x_scale=0.1, skip_w=torch.zeros(3, 3, 4, 4),
                                         skip_idx=0),
                                    dict(pool=True, x_scale=0.1),
                                    dict(x_scale=0.1),
                                    dict(x_scale=0.1, skip_w=torch.zeros(1, 1, 4, 4),
                                         skip_idx=0)])
 def test_unported_stage_features_raise(field):
+    """int8 (x_scale, w_scale) is the one stage feature still to port, on
+    a pool stage too."""
     st = tppk.ChainStage(w=torch.zeros(3, 3, 4, 4), b=torch.zeros(4), **field)
     with pytest.raises(NotImplementedError):
         tppk.fused_conv_chain(torch.zeros(1, 4, 4, 4), [st])
+
+
+@pytest.mark.parametrize("w,field", [
+    # a conv kernel, not the (1, 4, Cin, Cout) stack
+    (torch.zeros(3, 3, 4, 4), dict()),
+    (torch.zeros(1, 3, 16, 4), dict()),
+    # the JAX kernel's asserts: the selection stack only
+    (torch.from_numpy(_SEL), dict(scale=torch.ones(4), shift=torch.zeros(4))),
+    (torch.from_numpy(_SEL), dict(relu_only=True)),
+    (torch.from_numpy(_SEL), dict(skip_idx=0)),
+    (torch.from_numpy(_SEL), dict(skip_w=torch.zeros(3, 3, 4, 4), skip_idx=0)),
+    (torch.from_numpy(_SEL), dict(stem_f=4)),
+    (torch.from_numpy(_SEL), dict(argmax_groups=2)),
+    # selection matrices that are not one 1 per column
+    (torch.from_numpy(_SEL * 2), dict()),
+    (torch.from_numpy(_SEL + _SEL[:, :, ::-1]), dict()),
+    (torch.from_numpy(_SEL * (np.arange(4) != 2)), dict())])
+def test_bad_pool_stage_raises(w, field):
+    st = tppk.ChainStage(w=w, b=torch.zeros(4), pool=True, **field)
+    with pytest.raises(ValueError):
+        tppk.fused_conv_chain(torch.zeros(1, 4, 4, 16), [st],
+                              [torch.zeros(1, 4, 4, 4)])
+
+
+def test_bad_pool_src_raises():
+    st = tppk.ChainStage(w=torch.from_numpy(_SEL), b=torch.zeros(4), pool=True,
+                         pool_src=torch.zeros(4, 8, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        tppk.fused_conv_chain(torch.zeros(1, 4, 4, 16), [st])
+
+
+@pytest.mark.parametrize("f_in,c", [(4, 8), (2, 32), (2, 3)])
+def test_pool_stage_table_matches_its_stack(f_in, c):
+    """The builder's pool stage carries the table of source lanes that the
+    kernel reads: the one its selection stack gives, and for each output
+    lane (qy*fo + qx)*c + ch the input lanes of packed_max_pool."""
+    from robocupvision_tpu_torch.models import packed as tpacked
+
+    st = tpacked._pool_chain_stage(f_in, c, torch.float32, "cpu")
+    assert st.pool_src.dtype == torch.int32
+    assert torch.equal(st.pool_src, tppk.pool_table(st.w))
+    fo = f_in // 2
+    x = torch.arange(f_in * f_in * c, dtype=torch.float32).reshape(1, 1, 1, -1)
+    want = tpacked.packed_max_pool(x, f_in).reshape(-1)
+    assert fo * fo * c == want.numel()
+    assert torch.equal(st.pool_src.max(dim=0).values.float(), want)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("f_in", [4, 2])
+def test_packed_max_pool_matches_jax(dt, f_in):
+    from robocupvision_tpu_torch.models import packed as tpacked
+
+    _, tdtype = _DT[dt]
+    x_t, x_j = _input(30 + f_in, (2, 5, 7, f_in * f_in * 3), tdtype)
+    got = tpacked.packed_max_pool(x_t, f_in)
+    want = jpacked.packed_max_pool(x_j, f_in)
+    assert got.dtype == tdtype
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def _pool_stage_pair(f_in, c, jdtype, **kw):
+    """The JAX builder's pool stage and the port's copy of it."""
+    jst = jpacked._pool_chain_stage(f_in, c, jdtype, **kw)
+    return jst, _port_stage(jst)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["f4", "f2", "f4_f2"])
+def test_pool_chains_match_jax_exactly(dt, case):
+    """Pool-only chains (f_in 4 and 2 as stage 0; f_in 2 after an f_in 4
+    pool, mid-chain, both emitted) against JAX's chain_reference and
+    packed_max_pool, bit for bit."""
+    from robocupvision_tpu_torch.models import packed as tpacked
+
+    jdtype, tdtype = _DT[dt]
+    f_in = 2 if case == "f2" else 4
+    pairs = [_pool_stage_pair(f_in, 3, jdtype, emit=True)]
+    if case == "f4_f2":
+        pairs.append(_pool_stage_pair(2, 3, jdtype))
+    x_t, x_j = _input(40, (2, 6, 5, f_in * f_in * 3), tdtype)
+    ref = jppk.chain_reference(x_j, [j for j, _ in pairs])
+    got = tppk.fused_conv_chain(x_t, [t for _, t in pairs])
+    assert len(got) == len(ref) == len(pairs)
+    want = [tpacked.packed_max_pool(x_t, f_in)]
+    if case == "f4_f2":
+        want.append(tpacked.packed_max_pool(want[0], 2))
+    for g, r, w in zip(got, ref, want):
+        assert g.dtype == tdtype
+        np.testing.assert_array_equal(g.float().numpy(),
+                                      np.asarray(r.astype(jnp.float32)))
+        assert torch.equal(g, w)
+
+
+def _variant_chains(variant, jdtype):
+    """The JAX package's chains of a --UNet (folded stem) or --v2 (folded
+    stem, deep chain) graph at QVGA, BN statistics from numpy."""
+    kw = dict(pool=True, levels=3, belly_size=0) if variant == "unet" else \
+        dict(v2=True, levels=1, belly_size=9, class_size=3, belly_planes=64)
+    model = jzoo.make("robo_unet", **kw)
+    params = _randomized(model.init(jax.random.PRNGKey(21)), 21)
+    return jpacked.build_packed_infer(
+        model, params, dtype=jdtype, pallas=True, pallas_interpret=True,
+        pallas_fold_stem=True, pallas_deep=variant == "v2").chains
+
+
+# (variant, chain): input shape and skip widths at a 64x96 input
+_VARIANT_CASES = {
+    ("unet", "down"): ((2, 64, 96, 3), ()),          # stem_f, pool x2
+    ("unet", "up"): ((2, 16, 24, 32), (64, 128)),
+    ("v2", "deep"): ((2, 4, 6, 64), ()),             # 9 stages
+    ("v2", "up"): ((2, 16, 24, 64), (64, 128)),      # 3x3 skip_w, 3x3 head
+}
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("variant,which,head", [
+    ("unet", "down", False), ("unet", "up", True), ("v2", "deep", False),
+    ("v2", "up", False), ("v2", "up", True)])
+def test_chain_reference_matches_jax_variants(dt, variant, which, head):
+    """The --UNet and --v2 chains as the JAX package builds them, on the
+    CPU path against its chain_reference."""
+    jdtype, tdtype = _DT[dt]
+    stages = _variant_chains(variant, jdtype)[which]
+    if head:
+        stages = jppk.with_argmax_head(stages, 16)
+    shape, skip_c = _VARIANT_CASES[(variant, which)]
+    x_t, x_j = _input(22, shape, tdtype)
+    skips = [_input(23 + i, shape[:3] + (c,), tdtype)
+             for i, c in enumerate(skip_c)]
+    ref = jppk.chain_reference(x_j, stages, skips=[s[1] for s in skips])
+    got = tppk.fused_conv_chain(x_t, [_port_stage(s) for s in stages],
+                                skips=[s[0] for s in skips])
+    _assert_outputs_match(got, ref, dt, tdtype)
+
+
+def test_stage_cap_holds_the_longest_chain():
+    """RCV_MAX_STAGES in conv_chain.cu equals the wrapper's _MAX_STAGES and
+    holds every chain build_packed_infer builds: the --v2 deep chain's 9
+    stages, the --UNet folded-stem down chain's 8."""
+    import pathlib
+    import re
+
+    from robocupvision_tpu_torch.models import packed as tpacked
+    from robocupvision_tpu_torch.models import zoo as tzoo
+
+    src = (pathlib.Path(tppk.__file__).parents[1] / "csrc" / "conv_chain.cu"
+           ).read_text()
+    cap = int(re.search(r"#define RCV_MAX_STAGES (\d+)", src).group(1))
+    assert cap == tppk._MAX_STAGES
+    longest = 0
+    for kw, extra in ((dict(no_scale=True, v2=True, levels=1, belly_size=9,
+                            class_size=3, belly_planes=64),
+                       dict(pallas_fold_stem=True, pallas_deep=True)),
+                      (dict(no_scale=True, pool=True, levels=3, belly_size=0),
+                       dict(pallas_fold_stem=True)),
+                      (dict(no_scale=True), dict(pallas_fold_stem=True,
+                                                 pallas_deep=True))):
+        model = tzoo.make("robo_unet", device="cpu", **kw)
+        ch = tpacked.build_packed_infer(model, None, torch.float32, pallas=True,
+                                        device="cpu", **extra).chains
+        longest = max([longest] + [len(v) for v in ch.values()
+                                   if isinstance(v, list)])
+    assert longest == 9 and cap >= longest
 
 
 @pytest.mark.parametrize("stages", [

@@ -5,11 +5,16 @@ take the plain path on CPU tensors) and plain graphs against JAX's
 flagship at QVGA and at a small ``no_scale`` input, in its two-chain form
 and its full chain form (``pallas_fold_stem``, ``pallas_deep``); PB_FCN_2
 through ``build_packed_infer``; PB_FCN through ``build_packed_pb_fcn``
-with ``pallas`` and ``pallas_deep`` off and on. Weights enter both sides
-only through the weight carry (export/torch_io.py). Logits at rtol = atol =
-2e-4; labels by tests/test_pallas_packed.py's rule: at most a 2e-5
-mismatch share, and only where the top-2 logit gap is below 1e-4 (an
-argmax tie)."""
+with ``pallas`` and ``pallas_deep`` off and on; the ``--UNet`` and
+``--v2`` variants (their hyper-table rows, and the off-table ``levels=3``
+and ``v2_pool`` corners) in their plain and chain graphs. Weights enter
+both sides only through the weight carry (export/torch_io.py). Logits at
+rtol = atol = 2e-4; labels by tests/test_pallas_packed.py's rule: at most
+a 2e-5 mismatch share, and only where the top-2 logit gap is below 1e-4
+(an argmax tie). bf16 labels against the JAX package's bf16 graph at the
+agreement tests/test_pallas_packed.py holds its own chains to (0.99 for
+``--UNet``, whose pools flip their selection on sub-ulp ties; 0.995
+otherwise)."""
 
 import numpy as np
 import pytest
@@ -235,9 +240,17 @@ def test_pb_fcn_packed_graph_matches_jax(no_scale, hw):
 
 def test_unported_build_options_raise():
     model = tzoo.make("robo_unet", device="cpu", levels=3)
-    with pytest.raises(NotImplementedError):  # per-level chains: later slice
+    # strided levels=3 plans chain their up region only: no folded stem
+    assert tpacked.build_packed_infer(model, None, torch.float32, pallas=True,
+                                      device="cpu").chains["down"] is None
+    with pytest.raises(ValueError):
         tpacked.build_packed_infer(model, None, torch.float32, pallas=True,
-                                   device="cpu")
+                                   pallas_fold_stem=True, device="cpu")
+    unet = tzoo.make("robo_unet", device="cpu", pool=True, levels=3,
+                     belly_size=0)
+    with pytest.raises(ValueError):  # the deep chain is the strided plans'
+        tpacked.build_packed_infer(unet, None, torch.float32, pallas=True,
+                                   pallas_deep=True, device="cpu")
     no_belly = tzoo.make("robo_unet", device="cpu", belly_size=0)
     with pytest.raises(ValueError):  # the deep chain needs a PB belly
         tpacked.build_packed_infer(no_belly, None, torch.float32, pallas=True,
@@ -250,3 +263,92 @@ def test_unported_build_options_raise():
                                               device="cpu"), device="cpu")
     with pytest.raises(NotImplementedError):
         tpacked.quantize_int8(None)
+
+
+# the --UNet and --v2 rows of train.py's hyperparameter table, and the
+# off-table corners the plan must still cover (tests/test_packed_infer.py)
+_VARIANTS = {
+    "unet": dict(pool=True, levels=3, belly_size=0),
+    "v2": dict(v2=True, levels=1, belly_size=9, class_size=3, belly_planes=64),
+    "levels3": dict(levels=3, belly_size=0),
+    "v2_pool": dict(v2=True, pool=True, levels=2, class_size=3),
+}
+
+
+@pytest.mark.parametrize("variant,no_scale,chain_kw,lens", [
+    ("unet", False, dict(), [6, 3]),
+    ("unet", False, dict(pallas_fold_stem=True), [8, 3]),
+    ("unet", True, dict(pallas_fold_stem=True), [8, 3]),
+    ("v2", False, dict(pallas_fold_stem=True, pallas_deep=True), [3, 9, 3]),
+    ("v2", True, dict(pallas_fold_stem=True, pallas_deep=True), [3, 9, 3]),
+    ("levels3", False, dict(), [None, 3]),
+    ("v2_pool", False, dict(pallas_fold_stem=True), [5, 3]),
+])
+def test_variant_packed_graphs_match_jax(variant, no_scale, chain_kw, lens):
+    """The plain and chain graphs of a variant against JAX's plain packed
+    graph (which the JAX package's tests hold its chains to): logits, the
+    fused-argmax labels and the serving forms."""
+    jm, jp, model = _pair(dict(no_scale=no_scale, **_VARIANTS[variant]),
+                          seed=9, randomize_bn=True)
+    x = np.random.default_rng(10).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    jbase = jpacked.build_packed_infer(jm, jp, dtype=jnp.float32)
+    ref_logits = np.asarray(jbase.logits(jnp.asarray(x)))
+    ref_labels = np.asarray(jbase.infer(jnp.asarray(x)))
+    plain = tpacked.build_packed_infer(model, None, torch.float32, device="cpu")
+    np.testing.assert_allclose(plain.logits(x).numpy(), ref_logits,
+                               rtol=2e-4, atol=2e-4)
+    _assert_labels_match(plain.infer(x), ref_labels, ref_logits)
+    pi = tpacked.build_packed_infer(model, None, torch.float32, pallas=True,
+                                    device="cpu", **chain_kw)
+    got = [None if pi.chains[k] is None else len(pi.chains[k])
+           for k in ("down", "deep", "up") if k in pi.chains]
+    assert got == lens
+    _check_serving_forms(pi, x, ref_logits, ref_labels)
+
+
+def test_unet_chain_graph_matches_interpreted_jax_chains():
+    """The --UNet chain graph's labels against the JAX package's own chain
+    graph (its Pallas kernels in interpret mode), at QVGA's 32x64 corner."""
+    jm, jp, model = _pair(_VARIANTS["unet"], seed=11, randomize_bn=True)
+    x = np.random.default_rng(12).standard_normal((1, 32, 64, 3)).astype(np.float32)
+    jbase = jpacked.build_packed_infer(jm, jp, dtype=jnp.float32)
+    jchain = jpacked.build_packed_infer(jm, jp, dtype=jnp.float32, pallas=True,
+                                        pallas_interpret=True,
+                                        pallas_fold_stem=True)
+    pi = tpacked.build_packed_infer(model, None, torch.float32, pallas=True,
+                                    pallas_fold_stem=True, device="cpu")
+    _assert_labels_match(pi.infer(x), jchain.infer(jnp.asarray(x)),
+                         np.asarray(jbase.logits(jnp.asarray(x))))
+
+
+@pytest.mark.parametrize("variant,min_agree", [("unet", 0.99), ("v2", 0.995)])
+def test_variant_bf16_graphs_close_to_jax(variant, min_agree):
+    """bf16 (the serving dtype): the port's chain graph against the JAX
+    package's bf16 packed graph, and the fused argmax head equal to the
+    argmax of the same graph's logits, ties included."""
+    kw = dict(pallas_fold_stem=True) if variant == "unet" \
+        else dict(pallas_fold_stem=True, pallas_deep=True)
+    jm, jp, model = _pair(_VARIANTS[variant], seed=13, randomize_bn=True)
+    x = np.random.default_rng(14).standard_normal((2, 64, 64, 3)).astype(np.float32)
+    jbf16 = jpacked.build_packed_infer(jm, jp, dtype=jnp.bfloat16)
+    pi = tpacked.build_packed_infer(model, None, torch.bfloat16, pallas=True,
+                                    device="cpu", **kw)
+    labels = pi.infer(x)
+    agree = np.mean(labels.numpy() == np.asarray(jbf16.infer(jnp.asarray(x))))
+    assert agree >= min_agree, agree
+    logits = pi.logits(x)
+    assert logits.dtype == torch.bfloat16
+    assert torch.equal(labels.long(), torch.argmax(logits.float(), dim=-1))
+
+
+def test_packed_max_pool_matches_zoo_pool():
+    """packed_max_pool on the packed grid is the plain 2x2 max pool."""
+    x = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        (2, 16, 24, 6)).astype(np.float32))
+    from robocupvision_tpu_torch.ops import nn as tnn
+    for f in (4, 2):
+        got = tpacked.packed_max_pool(tpacked.space_to_depth(x, f), f)
+        want = tpacked.space_to_depth(tnn.max_pool(x, 2, 2), f // 2)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        tpacked.packed_max_pool(x, 1)

@@ -60,7 +60,8 @@ def test_port_imports_no_pil_at_module_level(path):
 
 
 def _entry_points():
-    from robocupvision_tpu_torch.cli import tester, validLabelProp
+    from robocupvision_tpu_torch.cli import test, tester, validLabelProp
+    from robocupvision_tpu_torch.data.device_cache import DeviceCache
     from robocupvision_tpu_torch.models import packed, zoo
     from robocupvision_tpu_torch.ops import metrics
     from robocupvision_tpu_torch.utils.serving import ServingPipeline
@@ -83,6 +84,9 @@ def _entry_points():
         "validLabelProp.main": lambda: validLabelProp.main([]),
         "validLabelProp.serve_and_score":
             lambda: validLabelProp.serve_and_score(lambda x: x, []),
+        "test.main": lambda: test.main(["--UNet"]),
+        "DeviceCache": lambda: DeviceCache.from_numpy(
+            np.zeros((1, 4, 4, 3), np.float32), maps),
     }
 
 
@@ -92,7 +96,8 @@ def _entry_points():
                                   "tester.serve_and_score",
                                   "build_packed_label_prop",
                                   "validLabelProp.main",
-                                  "validLabelProp.serve_and_score"])
+                                  "validLabelProp.serve_and_score",
+                                  "test.main", "DeviceCache"])
 def test_entry_points_raise_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point runs there")
