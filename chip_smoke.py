@@ -26,7 +26,15 @@ the launch counters set to 0 just before it and read just after:
     their concat skip through 3x3 ``skip_w`` kernels);
   - both through test.py's evaluation loop (``cli/test.py evaluate``, the
     ``--noScale`` working size 240x320, batch 16), held to the same loop
-    on the CPU.
+    on the CPU;
+  - int8 serving (``quantize_int8``): the flagship's bf16 full chain graph
+    quantized on the first frame and served through ``ServingPipeline``,
+    PB_FCN through the tester's loop and LabelProp through validLabelProp's
+    loop with ``--int8`` (f32), each calibrated through K2, with
+    ``chain_reference`` called no time.
+K2's int8 stages are held against the int8 ``chain_reference`` on every
+chain of the five families (VGA b1, bf16 and f32) and on one stage per
+feature.
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi reports them, and the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if
@@ -48,7 +56,8 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM device memory rate
 PEAK_FLOPS = {torch.bfloat16: 989e12,  # dense tensor-core bf16
-              torch.float32: 67e12}    # f32 outside the tensor cores
+              torch.float32: 67e12,    # f32 outside the tensor cores
+              torch.int8: 1979e12}     # dense tensor-core int8 (OP/s)
 VGA = (480, 640)
 N_FRAMES = 32
 SEED = 0
@@ -149,16 +158,19 @@ def phase_k1(dev, chk: Checks) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def record_chain_calls(pi, fn, x):
+def record_chain_calls(pi, fn, x, tags=None):
     """Run ``fn(x)`` on PackedInfer ``pi`` and return every chain call it
-    made as (x, stages, skips), in order."""
+    made as (x, stages, skips), in order; their chain tags are appended to
+    ``tags`` when given."""
     calls = []
     orig = pi._chain
 
-    def recorder(cx, stages, skips=()):
+    def recorder(tag, cx, stages, skips=()):
         calls.append((cx.contiguous(), list(stages),
                       [s.contiguous() for s in skips]))
-        return orig(cx, stages, skips)
+        if tags is not None:
+            tags.append(tag)
+        return orig(tag, cx, stages, skips)
 
     pi._chain = recorder
     try:
@@ -185,9 +197,12 @@ def chain_work(x, stages, skips, outs):
     packed taps are structural zeros, and ``needed`` equals the unpacked
     convolutions' own work. A pool stage does no multiply-adds (it gathers
     and compares) and reads its (4, Cout) int32 table of source lanes, not
-    its selection stack."""
-    moved = nbytes(x) + sum(nbytes(s) for s in skips) \
-        + sum(nbytes(o) for o in outs)
+    its selection stack. An int8 chain reads its input and its conv
+    kernels at 1 byte (its skips, skip kernels and outputs stay at the
+    chain dtype) and its w_scale rows in f32."""
+    quant = bool(stages[0].x_scale)
+    moved = (x.numel() if quant else nbytes(x)) \
+        + sum(nbytes(s) for s in skips) + sum(nbytes(o) for o in outs)
     dense = needed = 0
     n, h, w = chain_grid(x, stages)
     for st in stages:
@@ -196,8 +211,11 @@ def chain_work(x, stages, skips, outs):
             continue
         # a skip_w stage's skip kernel is read and applied like its own
         kernels = [st.w] + ([] if st.skip_w is None else [st.skip_w])
-        moved += x.element_size() * sum(k.numel() for k in kernels) + 4 * (
-            st.b.numel() + (0 if st.scale is None else 2 * st.scale.numel()))
+        moved += (1 if quant else x.element_size()) * st.w.numel() + 4 * (
+            st.b.numel() + (0 if st.scale is None else 2 * st.scale.numel())
+            + (0 if st.w_scale is None else st.w_scale.numel()))
+        if st.skip_w is not None:
+            moved += x.element_size() * st.skip_w.numel()
         dense += 2 * n * h * w * sum(k.numel() for k in kernels)
         needed += 2 * n * h * w * sum(int(torch.count_nonzero(k))
                                       for k in kernels)
@@ -220,19 +238,35 @@ def chain_features(stages):
             feats.add("skip_w")
         if st.pool:
             feats.add("pool")
+        if st.x_scale:
+            feats.add("int8")
     return sorted(feats)
 
 
-def check_chain(tag, call, chk: Checks, iters: int) -> dict:
+def check_chain(tag, call, chk: Checks, iters: int,
+                single: bool = False) -> dict:
+    """One chain call on K2 against ``chain_reference`` on the same inputs,
+    with times and bounds. Float chains: see below. int8 chains (every
+    stage quantized): without a ``skip_w`` stage every f32 step is the
+    reference's, so every output equal; with one, ``single`` (one stage, no
+    requantization between stages) within 1e-6 of max|ref| and labels
+    equal; longer chains with at most 1e-4 of their elements outside
+    ``int8_mismatch``'s tolerance (those downstream of a requantization
+    tie, counted), none of them off by more than the step one flipped input
+    integer makes (``int8_flip_step``), and labels >= 0.9999."""
     from robocupvision_tpu_torch.ops import cuda_packed as ckp
 
     x, stages, skips = call
     dt = x.dtype
+    quant = bool(stages[0].x_scale)
+    exact = quant and all(st.skip_w is None for st in stages)
+    steps = ckp.int8_output_steps(stages) if quant else None
     got = ckp.fused_conv_chain(x, stages, skips)
     ref = ckp.chain_reference(x, stages, skips)
     torch.cuda.synchronize()
     n, h, _ = chain_grid(x, stages)
-    res = {"phase": "k2_fused_conv_chain", "case": tag, "dtype": str(dt),
+    res = {"phase": "k2_int8" if quant else "k2_fused_conv_chain",
+           "case": tag, "dtype": str(dt),
            "input": list(x.shape), "stages": len(stages),
            "features": chain_features(stages),
            "band": ckp.choose_band(n, h, x.device)}
@@ -241,8 +275,31 @@ def check_chain(tag, call, chk: Checks, iters: int) -> dict:
         if g.dtype == torch.int32:
             agree = float((g == r).float().mean())
             res["label_agreement"] = agree
-            chk.expect(agree >= (0.999 if dt == torch.bfloat16 else 0.9999),
-                       f"K2 {tag}: label agreement {agree}")
+            want = (1.0 if single or exact else 0.9999) if quant else (
+                0.999 if dt == torch.bfloat16 else 0.9999)
+            chk.expect(agree >= want, f"K2 {tag}: label agreement {agree}")
+            continue
+        if quant:
+            d = (g.float() - r.float()).abs()
+            e, rmax = float(d.max()), float(r.float().abs().max())
+            err = max(err, e)
+            frac, worst = ckp.int8_mismatch(g, r, steps[i])
+            res.setdefault("outputs", []).append(
+                {"max_abs_err": e, "ref_max_abs": rmax,
+                 "rel_to_max": e / max(rmax, 1e-30),
+                 "outside_tolerance": frac,
+                 "outside_tolerance_n": round(frac * g.numel()),
+                 "flip_step": steps[i], "outlier_excess_in_steps": worst})
+            if exact:
+                ok = bool(torch.equal(g, r))
+            elif single:
+                ok = e <= 1e-6 * rmax
+            else:
+                ok = frac <= 1e-4 and worst <= 1.0
+            chk.expect(ok, f"K2 {tag}: int8 output {i} max abs err {e} "
+                           f"(max|ref| {rmax}), {frac} outside tolerance, "
+                           f"{worst} flip steps over it"
+                           + (" (must be equal)" if exact else ""))
             continue
         # f32: rtol = atol = 2e-4 and a relative L2 error under 1e-4 (which
         # still holds outputs that are small beside atol, as PB_FCN's deep
@@ -269,7 +326,7 @@ def check_chain(tag, call, chk: Checks, iters: int) -> dict:
     res["max_abs_err"] = err
     moved, dense, needed = chain_work(x, stages, skips, got)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    t_ops = needed / PEAK_FLOPS[dt] * 1e3
+    t_ops = needed / PEAK_FLOPS[torch.int8 if quant else dt] * 1e3
     res.update(kernel_ms=cuda_ms(lambda: ckp.fused_conv_chain(x, stages, skips),
                                  iters),
                plain_ms=cuda_ms(lambda: ckp.chain_reference(x, stages, skips),
@@ -471,6 +528,125 @@ def phase_k2_variants(variants, dev, chk: Checks) -> dict:
     return results
 
 
+def int8_single_cases(model, dt, dev):
+    """One int8 stage per feature at the serving grids, float stages to be
+    calibrated: a 3x3 (rbb affine) and a 1x1 conv on the VGA packed grid,
+    a dilated relu-only 3x3 on the deep 30x40 grid, the flagship's folded
+    stem on a raw VGA image, a 1x1 (LabelProp's classifier widths) and a
+    3x3 (the --v2 split concat's) ``skip_w`` stage, whose skips and skip
+    kernels are dyadic (k/8, k/64, |k| <= 8: their float conv sums exactly
+    in any order, so cuDNN's matches the kernel's bit for bit), --UNet's
+    first pool, and the argmax head. Returns {case: (x, stages, skips)}."""
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 20)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    def dyadic(denom, *shape):
+        k = torch.randint(-8, 9, shape, generator=g).float()
+        return (k / denom).to(device=dev, dtype=dt)
+
+    def conv(k, cin, cout, **kw):
+        return ckp.ChainStage(w=randn(k, k, cin, cout, scale=0.1).to(dt),
+                              b=randn(cout, scale=0.1),
+                              scale=1 + randn(cout, scale=0.1),
+                              shift=randn(cout, scale=0.1), **kw)
+
+    stem = packed.build_packed_infer(model, None, dt, pallas=True,
+                                     pallas_fold_stem=True, pallas_deep=True,
+                                     device=dev).chains["down"][0]
+    return {
+        "conv3x3": (randn(1, 120, 160, 64).to(dt), [conv(3, 64, 64)], []),
+        "conv1x1": (randn(1, 120, 160, 128).to(dt),
+                    [conv(1, 128, 64, rbb=False)], []),
+        "dil": (randn(1, 30, 40, 64).to(dt),
+                [ckp.ChainStage(w=randn(3, 3, 64, 64, scale=0.1).to(dt),
+                                b=randn(64, scale=0.1), relu_only=True,
+                                dil=2)], []),
+        "stem_f": (randn(1, *VGA, 3).to(dt), [stem], []),
+        "skip_w1": (randn(1, 120, 160, 16).to(dt),
+                    [ckp.ChainStage(w=randn(1, 1, 16, 80, scale=0.1).to(dt),
+                                    b=randn(80, scale=0.1), skip_idx=0,
+                                    skip_w=dyadic(64, 1, 1, 128, 80))],
+                    [dyadic(8, 1, 120, 160, 128)]),
+        "skip_w3": (randn(1, 120, 160, 64).to(dt),
+                    [conv(3, 64, 64, rbb=False, skip_idx=0,
+                          skip_w=dyadic(64, 3, 3, 64, 64))],
+                    [dyadic(8, 1, 120, 160, 64)]),
+        "pool": (randn(1, 120, 160, 128).to(dt),
+                 [packed._pool_chain_stage(4, 8, dt, dev)], []),
+        "argmax": (randn(1, 120, 160, 32).to(dt), ckp.with_argmax_head(
+            [ckp.ChainStage(w=randn(1, 1, 32, 80, scale=0.1).to(dt),
+                            b=randn(80, scale=0.1))], 16), []),
+    }
+
+
+def int8_graphs(flagship, variants, pb_model, lp_model, dt, dev):
+    """The five families' chain graphs as they are served, with the input
+    each is calibrated and checked on: the flagship full chain graph, the
+    --UNet and --v2 graphs (``variants``: tag -> (model, build flags)) and
+    PB_FCN with and without ``pallas_deep`` on a VGA camera frame, and
+    LabelProp on a random (2, 120, 160, 8) pair."""
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 21)
+    frame = raw_camera_preprocess(torch.randint(
+        0, 256, (1, *VGA, 3), generator=g, dtype=torch.uint8).to(dev))
+    graphs = {"flagship": packed.build_packed_infer(
+        flagship, None, dt, pallas=True, pallas_fold_stem=True,
+        pallas_deep=True, device=dev)}
+    for tag, (net, kw) in variants.items():
+        graphs[tag] = packed.build_packed_infer(net, None, dt, pallas=True,
+                                                device=dev, **kw)
+    for deep in (False, True):
+        graphs["pb_fcn_deep" if deep else "pb_fcn"] = \
+            packed.build_packed_pb_fcn(pb_model, None, dt, pallas=True,
+                                       pallas_deep=deep, device=dev)
+    out = {tag: (pi, frame) for tag, pi in graphs.items()}
+    out["label_prop"] = (lp_graph(lp_model, dt, dev),
+                         torch.randn((2, 120, 160, 8), generator=g).to(dev))
+    return out
+
+
+def phase_k2_int8(flagship, variants, pb_model, lp_model, dev,
+                  chk: Checks) -> dict:
+    """K2's int8 stages at VGA b1 (LabelProp: its pair), bf16 and f32: every
+    chain of the five families, each graph quantized by ``quantize_int8``
+    on the phase's input (calibrated through the kernel), its chains as
+    that input gives them (the up chain with and without the argmax head);
+    then one stage per feature (``int8_single_cases``), calibrated through
+    the kernel by ``chain_stats``. Each against the int8 ``chain_reference``
+    by ``check_chain``'s int8 rule."""
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    results = {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = "bf16" if dt == torch.bfloat16 else "f32"
+        for fam, (pi, x) in int8_graphs(flagship, variants, pb_model,
+                                        lp_model, dt, dev).items():
+            q = packed.quantize_int8(pi, x)
+            tags = []
+            calls = record_chain_calls(q, q.logits, x, tags)
+            calls.append(record_chain_calls(q, q.infer, x)[-1])
+            tags.append("up_argmax")
+            for tag, call in zip(tags, calls):
+                key = f"{fam}_{tag}_{name}"
+                results[key] = check_chain(key, call, chk, 5)
+        for case, (x, stages, skips) in int8_single_cases(flagship, dt,
+                                                          dev).items():
+            _, stats = ckp.chain_stats(x, stages, skips)
+            qst = ckp.quantize_chain_stages(stages, stats)
+            key = f"single_{case}_{name}"
+            results[key] = check_chain(key, (x, qst, skips), chk, 10,
+                                       single=True)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # serving: the main paths
 # ---------------------------------------------------------------------------
@@ -633,6 +809,82 @@ def phase_serving(model, dev, chk: Checks, frames, targets, ref, tag: str,
     return res
 
 
+def reference_chains(pi):
+    """``pi`` with its chains run by ``chain_reference`` (the plain
+    version) on the card instead of K2: the witness a served int8 graph is
+    held to. Delete the attribute to restore K2."""
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    pi._chain = lambda tag, x, stages, skips=(): ckp.chain_reference(
+        x.contiguous(), stages, [s.contiguous() for s in skips])
+    return pi
+
+
+def phase_serving_int8(model, dev, chk: Checks, frames) -> dict:
+    """The int8 main path: the flagship's bf16 full chain graph
+    (``pallas_fold_stem``, ``pallas_deep``) quantized by ``quantize_int8``
+    on the first camera frame (the calibration pass runs K2, 3 launches)
+    and then served for every frame through ``ServingPipeline``
+    (``infer_u8_packed``, 3 K2 launches a frame). The counters are set to 0
+    just before the calibration and again before serving, read after each;
+    ``chain_reference`` must not be called in either. The served labels are
+    held to the same int8 graph with its chains run by ``chain_reference``
+    (>= 0.999) and compared with the float chain graph's."""
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+    from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+
+    res = {"phase": "serving_int8", "graph": "chains3",
+           "frames": len(frames), "shape": [1, *VGA, 3], "dtype": "bfloat16"}
+    pi = packed.build_packed_infer(model, None, torch.bfloat16, pallas=True,
+                                   pallas_fold_stem=True, pallas_deep=True,
+                                   device=dev)
+    calib = raw_camera_preprocess(torch.from_numpy(frames[0]).to(dev))
+
+    # --- the main path: calibrate, then serve ---------------------------
+    ckp.fused_conv_chain.launches = 0
+    ckp.chain_reference.calls = 0
+    t0 = time.perf_counter()
+    q = packed.quantize_int8(pi, calib)
+    torch.cuda.synchronize()
+    res["quantize_s"] = time.perf_counter() - t0
+    res["quantize_chain_launches"] = ckp.fused_conv_chain.launches
+    device_fn, host_unpack = camera_packed(q)
+    ckp.fused_conv_chain.launches = 0
+    t0 = time.perf_counter()
+    served = serve(q, frames, device_fn, host_unpack)
+    wall = time.perf_counter() - t0
+    # nothing here is scored: K1 is not on this path
+    res["main_path_launches"] = {"fused_conv_chain": ckp.fused_conv_chain.launches}
+    res["chain_reference_calls"] = ckp.chain_reference.calls
+    res["pipeline_fps_b1_int8"] = len(frames) / wall
+    chk.expect(res["quantize_chain_launches"] == 3,
+               f"serving_int8: calibration ran {res['quantize_chain_launches']}"
+               " K2 launches, not 3")
+    chk.expect(ckp.fused_conv_chain.launches == 3 * len(frames),
+               f"serving_int8: {ckp.fused_conv_chain.launches} K2 launches, "
+               "not 3 a frame")
+    chk.expect(res["chain_reference_calls"] == 0,
+               f"serving_int8: chain_reference ran "
+               f"{res['chain_reference_calls']} times on the int8 path")
+
+    # the witnesses, outside the counted run
+    ref_fn, ref_unpack = camera_packed(reference_chains(q))
+    via_ref = serve(q, frames, ref_fn, ref_unpack)
+    del q._chain
+    fl_fn, fl_unpack = camera_packed(pi)
+    float_labels = serve(pi, frames, fl_fn, fl_unpack)
+    res["agreement_with_chain_reference"] = float((served == via_ref).mean())
+    res["agreement_with_float_chain_graph"] = float(
+        (served == float_labels).mean())
+    chk.expect(res["agreement_with_chain_reference"] >= 0.999,
+               f"serving_int8: labels agree "
+               f"{res['agreement_with_chain_reference']} with the int8 graph "
+               "through chain_reference")
+    emit(res)
+    return res
+
+
 def phase_device_fps(model, variants, dev, frames) -> dict:
     """Device frames/s of the bf16 serving function (CUDA events) at b1 and
     b8: the flagship's plain packed graph, its two-chain graph and the
@@ -744,8 +996,11 @@ def phase_tester(pb_model, dev, chk: Checks) -> dict:
                          "f32_agreement": agree,
                          "mismatch_max_top2_gap": max_gap,
                          "logit_max_abs_err_4_frames": err,
+                         "metric_line": metric_line(fin),
                          "pixel_acc": float(fin["pixel_acc"]),
                          "mean_iou": float(fin["mean_iou"])}
+            if key == "two_chain_pipeline1":
+                float_run = (served.copy(), runs[key])
             chk.expect(n == N_FRAMES, f"tester {key}: served {n} frames")
             chk.expect(k2 == per_frame * N_FRAMES,
                        f"tester {key}: K2 launches {k2} != {per_frame}/frame")
@@ -768,6 +1023,82 @@ def phase_tester(pb_model, dev, chk: Checks) -> dict:
                 runs[key]["scoring_equal_einsum"] = eq
                 chk.expect(eq, f"tester {key}: seg_batch_stats K1 != einsum")
     res["runs"] = runs
+    emit(res)
+    res["int8"] = phase_tester_int8(model, frames, targets, float_run, dev, chk)
+    return res
+
+
+def metric_line(fin) -> str:
+    """The CLIs' printed validation line."""
+    return ("Validation Pixel Acc: %.2f Mean Class Acc: %.2f Mean IoU: %.2f"
+            % (float(fin["pixel_acc"]), float(fin["mean_class_acc"]),
+               float(fin["mean_iou"])))
+
+
+def phase_tester_int8(model, frames, targets, float_run, dev,
+                      chk: Checks) -> dict:
+    """``tester.py --noScale --packed --pallas --int8`` as the tester
+    builds it (the two-chain f32 PB_FCN graph, quantized on the first
+    frame), its frames through ``serve_and_score`` at pipeline 1: the
+    counters set to 0 just before the calibration and again before the
+    loop; 2 K2 launches (calibration), then 2 K2 and 1 K1 launch a frame, no
+    ``chain_reference`` call. Labels held to the same int8 graph through
+    ``chain_reference`` on 4 frames (>= 0.999); the metric line beside the
+    float run's."""
+    from robocupvision_tpu_torch.cli import tester
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+    from robocupvision_tpu_torch.ops import metrics
+    from robocupvision_tpu_torch.ops.cuda_kernels import confusion_count
+
+    pi = packed.build_packed_pb_fcn(model, None, torch.float32, pallas=True,
+                                    device=dev)
+    served = np.zeros((len(frames), *VGA), np.int64)
+
+    def keep(i, labels):
+        served[i] = labels
+
+    # --- the main path: calibrate, then the tester's loop ----------------
+    ckp.fused_conv_chain.launches = 0
+    ckp.chain_reference.calls = 0
+    with torch.no_grad():
+        q = packed.quantize_int8(pi, frames[0][None])
+        cal = ckp.fused_conv_chain.launches
+        ckp.fused_conv_chain.launches = 0
+        confusion_count.launches = 0
+        acc, t_total, n = tester.serve_and_score(
+            q.infer, zip(frames, targets), 5, pipeline=1, on_mask=keep,
+            device=dev)
+    k2, k1 = ckp.fused_conv_chain.launches, confusion_count.launches
+    ref_calls = ckp.chain_reference.calls
+    with torch.no_grad():
+        via_ref = np.stack([reference_chains(q).infer(
+            torch.from_numpy(f[None]).to(dev)).cpu().numpy()[0]
+            for f in frames[:4]])
+    del q._chain
+    fin = metrics.seg_finalize(acc, 1.0 / (VGA[0] * VGA[1]))
+    float_served, float_res = float_run
+    res = {"phase": "tester_int8", "frames": n, "dtype": "float32",
+           "ms_per_frame": t_total / n * 1000,
+           "float_ms_per_frame": float_res["ms_per_frame"],
+           "calibration_launches": cal,
+           "main_path_launches": {"fused_conv_chain": k2,
+                                  "confusion_count": k1},
+           "chain_reference_calls": ref_calls,
+           "metric_line": metric_line(fin),
+           "float_metric_line": float_res["metric_line"],
+           "agreement_with_chain_reference_4_frames": float(
+               (served[:4] == via_ref).mean()),
+           "agreement_with_float": float((served == float_served).mean())}
+    chk.expect(n == len(frames), f"tester_int8: served {n} frames")
+    chk.expect(cal == 2 and k2 == 2 * n and k1 == n,
+               f"tester_int8: launches {cal} + {k2} K2, {k1} K1")
+    chk.expect(ref_calls == 0, f"tester_int8: chain_reference ran {ref_calls}"
+                               " times")
+    chk.expect(res["agreement_with_chain_reference_4_frames"] >= 0.999,
+               "tester_int8: labels agree "
+               f"{res['agreement_with_chain_reference_4_frames']} with "
+               "chain_reference")
     emit(res)
     return res
 
@@ -859,6 +1190,7 @@ def phase_valid_label_prop(lp_model, dev, chk: Checks) -> dict:
     res.update(images=n, ms_per_image=t_total / n * 1000,
                main_path_launches=launches, f32_agreement=agree,
                mismatch_max_top2_gap=max_gap, logit_max_abs_err_4_pairs=err,
+               metric_line=metric_line(fin),
                pixel_acc=float(fin["pixel_acc"]),
                mean_iou=float(fin["mean_iou"]))
     chk.expect(n == 2 * N_FRAMES, f"validLabelProp served {n} images")
@@ -889,6 +1221,72 @@ def phase_valid_label_prop(lp_model, dev, chk: Checks) -> dict:
             _, t, m = validLabelProp.serve_and_score(infer, pairs, 5,
                                                      device=dev)
         res[f"{tag}_ms_per_image"] = t / m * 1000
+    emit(res)
+    res["int8"] = phase_valid_label_prop_int8(model, pairs, served, res, dev,
+                                              chk)
+    return res
+
+
+def phase_valid_label_prop_int8(model, pairs, float_served, float_res, dev,
+                                chk: Checks) -> dict:
+    """``validLabelProp.py --packed --pallas --int8``: the f32 chain graph
+    quantized on the first pair, the pairs through ``serve_and_score``:
+    the counters set to 0 just before the calibration and again before the
+    loop; 3 K2 launches (calibration), then 3 K2 and 1 K1 launch a pair, no
+    ``chain_reference`` call. Labels held to the same int8 graph through
+    ``chain_reference`` on 4 pairs (>= 0.999); the metric line beside the
+    float run's."""
+    from robocupvision_tpu_torch.cli import validLabelProp
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+    from robocupvision_tpu_torch.ops import metrics
+    from robocupvision_tpu_torch.ops.cuda_kernels import confusion_count
+
+    pi = lp_graph(model, torch.float32, dev)
+    served = np.zeros(float_served.shape, np.int64)
+
+    def keep(i, labels):
+        served[i // 2, i % 2] = labels
+
+    # --- the main path: calibrate, then validLabelProp's loop ------------
+    ckp.fused_conv_chain.launches = 0
+    ckp.chain_reference.calls = 0
+    with torch.no_grad():
+        q = packed.quantize_int8(pi, pairs[0][0])
+        cal = ckp.fused_conv_chain.launches
+        ckp.fused_conv_chain.launches = 0
+        confusion_count.launches = 0
+        acc, t_total, n = validLabelProp.serve_and_score(
+            q.infer, pairs, 5, on_mask=keep, device=dev)
+    k2, k1 = ckp.fused_conv_chain.launches, confusion_count.launches
+    ref_calls = ckp.chain_reference.calls
+    with torch.no_grad():
+        via_ref = np.stack([reference_chains(q).infer(
+            torch.from_numpy(x).to(dev)).cpu().numpy() for x, _ in pairs[:4]])
+    del q._chain
+    h, w = float_served.shape[-2:]
+    fin = metrics.seg_finalize(acc, 1.0 / (h * w))
+    res = {"phase": "valid_label_prop_int8", "images": n, "dtype": "float32",
+           "ms_per_image": t_total / n * 1000,
+           "float_ms_per_image": float_res["ms_per_image"],
+           "calibration_launches": cal,
+           "main_path_launches": {"fused_conv_chain": k2,
+                                  "confusion_count": k1},
+           "chain_reference_calls": ref_calls,
+           "metric_line": metric_line(fin),
+           "float_metric_line": float_res["metric_line"],
+           "agreement_with_chain_reference_4_pairs": float(
+               (served[:4] == via_ref).mean()),
+           "agreement_with_float": float((served == float_served).mean())}
+    chk.expect(n == 2 * len(pairs), f"validLabelProp_int8: served {n} images")
+    chk.expect(cal == 3 and k2 == 3 * len(pairs) and k1 == len(pairs),
+               f"validLabelProp_int8: launches {cal} + {k2} K2, {k1} K1")
+    chk.expect(ref_calls == 0, "validLabelProp_int8: chain_reference ran "
+                               f"{ref_calls} times")
+    chk.expect(res["agreement_with_chain_reference_4_pairs"] >= 0.999,
+               "validLabelProp_int8: labels agree "
+               f"{res['agreement_with_chain_reference_4_pairs']} with "
+               "chain_reference")
     emit(res)
     return res
 
@@ -1079,6 +1477,7 @@ def main() -> int:
     k2lp = phase_k2_lp(lp_model, dev, chk)
     phase_k2_pool(dev, chk)
     k2v = phase_k2_variants(graphs, dev, chk)
+    k2q = phase_k2_int8(model, graphs, pb_model, lp_model, dev, chk)
 
     rng = np.random.default_rng(SEED + 3)
     frames = [rng.integers(0, 256, (1, *VGA, 3), dtype=np.uint8)
@@ -1096,6 +1495,7 @@ def main() -> int:
         variants[tag] = phase_serving(net, dev, chk, frames, targets, ref, tag,
                                       graph, per_frame)
         del ref
+    sq = phase_serving_int8(model, dev, chk, frames)
     phase_device_fps(model, graphs, dev, frames)
     ts = phase_tester(pb_model, dev, chk)
     vlp = phase_valid_label_prop(lp_model, dev, chk)
@@ -1108,16 +1508,19 @@ def main() -> int:
         r["launches"] for r in ts["runs"].values()] + [
         vlp["main_path_launches"]] + [
         v["main_path_launches"] for v in variants.values()] + [
-        r["launches"] for r in tc["runs"].values()]
+        r["launches"] for r in tc["runs"].values()] + [
+        sq["main_path_launches"], ts["int8"]["main_path_launches"],
+        vlp["int8"]["main_path_launches"]]
     k1m = k1[1]
     features = sorted({f for r in list(k2.values()) + list(k2f.values())
                        + list(k2lp.values()) + list(k2v.values())
+                       + list(k2q.values())
                        for f in r["features"]})
     kernels = [
         {"name": "confusion_count", "route": "cuda",
          "source": "robocupvision_tpu_torch/csrc/confusion.cu",
          "replaces": "robocupvision_tpu/ops/pallas_kernels.py:120",
-         "launches": sum(r["confusion_count"] for r in main_runs),
+         "launches": sum(r.get("confusion_count", 0) for r in main_runs),
          "max_abs_err": k1m["max_abs_err"], "ms": k1m["kernel_ms"],
          "plain_ms": k1m["plain_ms"], "bound_ms": k1m["bound_us"] / 1e3,
          "bound_by": "bytes", "library_ms": k1m["library_ms"]},

@@ -6,14 +6,15 @@ SSDataSet val split one frame at a time, writes colourized PNG masks to
 output/, and prints pixel accuracy, mean class accuracy, mean IoU, the
 normalized confusion matrix and the mean per-frame latency in ms.
 ``--packed`` serves the lane-packed graph in f32 (``--pallas``: its fused
-chains, kernel K2 on CUDA); scores go through ``seg_batch_stats`` (kernel
-K1 on CUDA).
+chains, kernel K2 on CUDA; ``--int8``: those chains quantized to int8,
+calibrated on the first val frame); scores go through ``seg_batch_stats``
+(kernel K1 on CUDA).
 
     python -m robocupvision_tpu_torch.cli.tester --noScale --packed --pallas
 
 runs on the CUDA card; ``main(argv, device="cpu")`` runs the plain PyTorch
-path on the CPU. ``--dump``, ``--aot`` and ``--int8`` need the export and
-int8 slices of the port and raise ``NotImplementedError``.
+path on the CPU. ``--dump`` and ``--aot`` need the export slice of the port
+and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -53,8 +54,10 @@ def build_parser() -> argparse.ArgumentParser:
                     ("--pallas", "with --packed: run the packed conv regions "
                      "as fused chain kernels (exact rewrite; framework "
                      "extension, ops/cuda_packed.py)"),
-                    ("--int8", "with --packed --pallas: static int8 serving "
-                     "(not ported yet)")]:
+                    ("--int8", "with --packed --pallas: static int8 PTQ "
+                     "serving, calibrating per-stage activation scales on "
+                     "the first val frame (approximate; framework "
+                     "extension, models/packed.quantize_int8)")]:
         p.add_argument(flag, help=h, action="store_true", default=False)
     p.add_argument("--root", type=str, default=os.environ.get("ROBOCUP_DATA", "./data"))
     p.add_argument("--pipeline", type=int, default=1, metavar="DEPTH",
@@ -186,9 +189,7 @@ def main(argv=None, device: DeviceLike = None) -> int:
             else packed_mod.build_packed_pb_fcn
         pi = build(model, None, torch.float32, device=dev, **pk)
         if opt.int8:
-            raise NotImplementedError(
-                "--int8 needs quantize_int8 and K2's int8 stages (ROADMAP.md "
-                "A.9 and B.2f), which are not ported yet")
+            pi = packed_mod.quantize_int8(pi, ds[0][0][None])
         infer = pi.infer
     else:
         def infer(x):

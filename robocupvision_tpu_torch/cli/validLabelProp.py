@@ -8,14 +8,14 @@ colourized predictions to output/LabelProp/{Real,Synthetic}/, and prints
 pixel accuracy, mean class accuracy, mean IoU, the normalized confusion
 matrix and the mean per-image latency in ms. ``--packed`` serves the
 lane-packed graph in f32 (``--pallas``: its three fused chains, kernel K2
-on CUDA); scores go through ``seg_batch_stats`` (kernel K1 on CUDA).
+on CUDA; ``--int8``: those chains quantized to int8, calibrated on the
+first val pair); scores go through ``seg_batch_stats`` (kernel K1 on CUDA).
 
     python -m robocupvision_tpu_torch.cli.validLabelProp --packed --pallas
 
 runs on the CUDA card; ``main(argv, device="cpu")`` runs the plain
 PyTorch path on the CPU. ``--optFlow``/``--jaxFlow`` (the optical-flow
-baseline) and ``--int8`` need later slices of the port and raise
-``NotImplementedError``.
+baseline) need a later slice of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -51,8 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="with --packed: run the packed conv regions as fused "
                    "chain kernels (exact rewrite; ops/cuda_packed.py)")
     p.add_argument("--int8", action="store_true", default=False,
-                   help="with --packed --pallas: static int8 serving (not "
-                   "ported yet)")
+                   help="with --packed --pallas: static int8 PTQ serving, "
+                   "calibrating per-stage activation scales on the first val "
+                   "pair (approximate; framework extension, "
+                   "models/packed.quantize_int8)")
     p.add_argument("--root", type=str,
                    default=os.environ.get("ROBOCUP_DATA", "./data"))
     return p
@@ -110,10 +112,6 @@ def main(argv=None, device: DeviceLike = None) -> int:
     if opt.int8 and not (opt.packed and opt.pallas):
         print("--int8 requires --packed --pallas")
         return -1
-    if opt.int8:
-        raise NotImplementedError(
-            "--int8 needs quantize_int8 and K2's int8 stages (ROADMAP.md A.9 "
-            "and B.2f), which are not ported yet")
     fine_str = "Finetuned" if opt.finetuned else ""
     prune_str = "Pruned" if opt.pruned else ""
     out_dir = os.path.join("output", "LabelProp",
@@ -141,6 +139,10 @@ def main(argv=None, device: DeviceLike = None) -> int:
             if opt.pallas else {}
         pi = packed_mod.build_packed_label_prop(model, None, torch.float32,
                                                 device=dev, **pk)
+        if opt.int8:
+            imgs0, labs0, _ = ds[0]
+            calib, _ = build_lp_pairs(imgs0[None], labs0[None], NUM_CLASSES)
+            pi = packed_mod.quantize_int8(pi, calib)
         infer = pi.infer
     else:
         def infer(x):

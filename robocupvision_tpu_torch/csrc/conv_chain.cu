@@ -6,8 +6,8 @@
 // conv, optionally dilated, bias, folded-BN affine in either order or a bare
 // ReLU, identity skip), its conv'd skip (`skip_w`), its folded
 // space-to-depth stem (`stem_f`), its packed 2x2 max pool (`pool`) and its
-// fused argmax head. The Python wrapper (ops/cuda_packed.py) rejects the
-// stage feature outside these (int8).
+// fused argmax head, and its int8 stages (`x_scale`/`w_scale`, static
+// post-training quantization).
 //
 // Stage k of a chain: y = conv(in) [+ conv(skip, skip_w)] + b; then rbb ?
 // relu(y)*scale + shift : relu(y*scale + shift) when the stage has an
@@ -36,6 +36,22 @@
 // because Mosaic has no minor-dim reshape). No bias, no epilogue, and the
 // values stay in the chain dtype, so the result is bit-identical to
 // packed_max_pool.
+// An int8 chain (every stage quantized, `quant` set; the wrapper quantizes
+// the chain input, the stem's raw image too, to s8 at stage 0's x_scale):
+// a conv stage reads s8 inputs and s8 per-output-channel weights and sums
+// the products in int32 (exact: 127^2 * Cin * taps passes 2^24 already at
+// 128 lanes, so f32 sums would not be); the dequant is (float)acc *
+// (w_scale[co] * x_scale), that product taken in f32 first; a `skip_w`
+// stage's float skip conv is summed apart from 0 and added after the
+// dequant; bias, epilogue and identity skip follow in f32 as for a float
+// stage. The strip the next stage reads is stored as s8, requantized
+// from the f32 y with round-half-even (rintf, never roundf) at the host's
+// f32(1 / next x_scale) and clipped to +-127; emitted outputs and the
+// argmax head's logits strip stay the chain dtype. A pool stage takes the
+// max of its four s8 lanes and dequantizes at its own x_scale. The f32
+// steps after the integer sum are written with __fmul_rn / __fadd_rn so
+// that no multiply-add is contracted: chain_reference rounds each of them
+// apart, and a one-ulp difference would move a requantization tie.
 //
 // Bound on the H100: bytes. At the flagship's VGA shapes the packed taps
 // are mostly structural zeros (each original weight lands in one output
@@ -59,9 +75,14 @@
 // group the first maximum (jnp.argmax / torch.argmax tie rule), so labels
 // equal argmax(logits) exactly. A thread computes PIX adjacent pixels x COB
 // adjacent output channels, so each loaded input value feeds COB
-// multiply-adds and each loaded weight PIX.
+// multiply-adds and each loaded weight PIX. Strips are stored at byte
+// offsets in the workspace: s8 in an int8 chain, the chain dtype
+// otherwise (and for the argmax head's logits).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 #define RCV_MAX_STAGES 16
 #define RCV_MAX_SKIPS 4
@@ -78,22 +99,28 @@ struct RcvStage {
   const int* pool_src; // pool stages: (4, cout) int32 source lanes, else null
   void* out;           // emitted (N, H, W, cout) chain dtype, (N, H, W, G)
                        // int32 for the argmax head, or null
-  long long ws_off;    // element offset of the strip in a block's workspace
+  long long ws_off;    // byte offset of the strip in a block's workspace,
+                       // or -1: no strip
   int kh, kw, cin, cout, rbb, skip_idx, argmax_groups, depth;
   int dil;             // tap spacing (1: a plain conv)
   int stem_f;          // stage 0 only: the folded stem's factor f, else 0
   int relu_only;       // no affine: y = relu(conv + b)
   int skip_k, skip_cin;  // the skip kernel's K and Cskip (skip_w only)
   int pool;            // a packed 2x2 max pool: out[l] = max_t in[pool_src[t][l]]
+  const float* w_scale;  // int8 conv stages: (cout,) f32 dequant row, else null
+                         // (w is then (kh, kw, cin, cout) s8)
+  float x_scale;       // int8 stages: the static input scale (> 0), else 0
+  float requant;       // int8 chains: f32(1 / next stage's x_scale), else 0
 };
 
 struct RcvChain {
-  const void* x;                     // (N, H, W, cin0) chain dtype
+  const void* x;                     // (N, H, W, cin0) chain dtype, s8 when
+                                     // `quant`
   const void* skips[RCV_MAX_SKIPS];  // (N, H, W, C): C is the consumer's
                                      // cout, or its skip_cin for skip_w
-  void* ws;                          // workspace, ws_per_block per block
-  long long ws_per_block;
-  int n, h, w, band, n_stages, bf16, pad0, pad1;
+  void* ws;                          // workspace, ws_per_block bytes per
+  long long ws_per_block;            // block
+  int n, h, w, band, n_stages, bf16, quant, pad;
   RcvStage st[RCV_MAX_STAGES];
 };
 
@@ -156,6 +183,93 @@ __device__ __forceinline__ void load_w(const __nv_bfloat16* __restrict__ p,
   }
 }
 
+// COB adjacent output channels' s8 weights, sign-extended to int. With COB
+// % 4 == 0 the loads are words of 4 (aligned as the float loads are).
+template <int COB>
+__device__ __forceinline__ void load_w8(const int8_t* __restrict__ p,
+                                        int (&wv)[COB]) {
+  if constexpr (COB % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < COB; q += 4) {
+      const unsigned v = *reinterpret_cast<const unsigned*>(p + q);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wv[q + j] = static_cast<int>(v << (24 - 8 * j)) >> 24;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < COB; ++q) wv[q] = p[q];
+  }
+}
+
+// y requantized for the next int8 stage: round half to even, clip to +-127.
+__device__ __forceinline__ int8_t requant(float y, float r) {
+  const float v = fminf(fmaxf(rintf(__fmul_rn(y, r)), -127.f), 127.f);
+  return static_cast<int8_t>(__float2int_rn(v));
+}
+
+// Work item `it` of a conv stage's strip: COB output channels from co0 at
+// kPix columns from col0 of strip row r, which is image row g.
+struct Item {
+  int co0, col0, r, g;
+  bool in_image;
+};
+template <int COB>
+__device__ __forceinline__ Item item_of(int it, int ncog, int npg, int row0,
+                                        int H) {
+  const int rest = it / ncog;
+  const int r = rest / npg;
+  return {(it % ncog) * COB, (rest % npg) * kPix, r, row0 + r,
+          row0 + r >= 0 && row0 + r < H};
+}
+
+// The columns the kPix outputs from col0 read at tap column dx (c + dil*dx
+// - px), and whether each read is inside the image (an output past W reads
+// nothing).
+__device__ __forceinline__ void tap_cols(int col0, int dil, int dx, int px,
+                                         int W, int (&col)[kPix],
+                                         bool (&ok)[kPix]) {
+#pragma unroll
+  for (int p = 0; p < kPix; ++p) {
+    col[p] = col0 + p + dil * dx - px;
+    ok[p] = col0 + p < W && col[p] >= 0 && col[p] < W;
+  }
+}
+
+// The float taps of one source into acc, for item m: the (kh, kw, scin,
+// cout) kernel `wsrc` over `src`, whose rows [srow0, srow0 + srows) exist,
+// each W * scin wide; tap (dy, dx) reads row sy*g + dil*dy - py - srow0 and
+// column c + dil*dx - px. A float stage's own conv and its skip_w conv, and
+// an int8 stage's skip_w conv, all run here.
+template <typename T, int COB>
+__device__ __forceinline__ void float_taps(
+    float (&acc)[kPix][COB], const Item& m, const T* src, int srow0,
+    int srows, int scin, const T* wsrc, int kh, int kw, int sy, int dil,
+    int py, int px, int cout, int W) {
+  for (int dy = 0; dy < kh; ++dy) {
+    const int lr = sy * m.g + dil * dy - py - srow0;
+    if (lr < 0 || lr >= srows) continue;
+    const T* in_row = src + (long long)lr * W * scin;
+    for (int dx = 0; dx < kw; ++dx) {
+      const T* wt = wsrc + (long long)(dy * kw + dx) * scin * cout + m.co0;
+      int col[kPix];
+      bool ok[kPix];
+      tap_cols(m.col0, dil, dx, px, W, col, ok);
+      for (int ci = 0; ci < scin; ++ci) {
+        float wv[COB];
+        load_w<COB>(wt + (long long)ci * cout, wv);
+#pragma unroll
+        for (int p = 0; p < kPix; ++p) {
+          const float xv =
+              ok[p] ? to_f(in_row[(long long)col[p] * scin + ci]) : 0.f;
+#pragma unroll
+          for (int q = 0; q < COB; ++q) acc[p][q] = fmaf(xv, wv[q], acc[p][q]);
+        }
+      }
+    }
+  }
+}
+
 // One stage over this block's strip. `in` holds rows [in_row0, in_row0 +
 // in_rows) of the stage input (the image itself for stage 0, the previous
 // strip otherwise), each W * cin wide; rows outside it read as zero.
@@ -165,16 +279,19 @@ __device__ void conv_stage(const RcvChain& c, const RcvStage& st, int img,
                            int in_rows, T* __restrict__ strip_out) {
   const int W = c.w, H = c.h, cin = st.cin, cout = st.cout;
   const int KH = st.kh, KW = st.kw, dil = st.dil;
-  // input row of tap dy for output row g: sy*g + dil*dy - py
+  // input row of tap dy for output row g: sy*g + dil*dy - py (a stem reads
+  // its raw image's rows at stride f, padding 1); column of tap dx: c +
+  // dil*dx - px. Each stage spells these three out: a helper returning
+  // them as a struct changed the float builds' code, and their short f32
+  // chains ran up to 7% slower on an H100.
   const int sy = st.stem_f ? st.stem_f : 1;
   const int py = st.stem_f ? 1 : dil * (KH / 2);
   const int px = dil * (KW / 2);
   const int d = st.depth;
-  const int strip = c.band + 2 * d;
   const int row0 = off - d;
   const int ncog = cout / COB;
   const int npg = (W + kPix - 1) / kPix;
-  const int items = strip * npg * ncog;
+  const int items = (c.band + 2 * d) * npg * ncog;
   // the identity skip added after the epilogue (a skip_w stage convolves
   // its skip instead)
   const T* skip = st.skip_idx >= 0 && st.skip_w == nullptr
@@ -184,14 +301,7 @@ __device__ void conv_stage(const RcvChain& c, const RcvStage& st, int img,
   const int n_src = st.skip_w != nullptr ? 2 : 1;
 
   for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int cog = it % ncog;
-    const int rest = it / ncog;
-    const int pg = rest % npg;
-    const int r = rest / npg;
-    const int co0 = cog * COB;
-    const int col0 = pg * kPix;
-    const int g = row0 + r;  // image row of this output
-    const bool in_image = g >= 0 && g < H;
+    const Item m = item_of<COB>(it, ncog, npg, row0, H);
 
     float acc[kPix][COB];
 #pragma unroll
@@ -201,11 +311,10 @@ __device__ void conv_stage(const RcvChain& c, const RcvStage& st, int img,
 
     // rows outside the image end as zero: skip their math. Source 0 is the
     // stage's own conv over its input; source 1, on a skip_w stage, the
-    // skip kernel's conv over the skip image (K x K, padding K/2), summed
-    // into the same accumulator. Tap (dy, dx) reads source row
-    // ssy*g + sdil*dy - spy (rows [srow0, srow0 + srows) exist) and column
-    // c + sdil*dx - spx.
-    for (int s = 0; in_image && s < n_src; ++s) {
+    // skip kernel's conv over the skip image (K x K, padding K/2, all H
+    // rows there), summed into the same accumulator (one loop over both
+    // sources keeps the float builds at 128 registers)
+    for (int s = 0; m.in_image && s < n_src; ++s) {
       const bool sk = s == 1;
       const int scin = sk ? st.skip_cin : cin;
       const int skh = sk ? st.skip_k : KH, skw = sk ? st.skip_k : KW;
@@ -216,45 +325,21 @@ __device__ void conv_stage(const RcvChain& c, const RcvStage& st, int img,
                               (long long)img * H * W * scin
                         : in;
       const T* wsrc = static_cast<const T*>(sk ? st.skip_w : st.w);
-      for (int dy = 0; dy < skh; ++dy) {
-        const int lr = ssy * g + sdil * dy - spy - srow0;
-        if (lr < 0 || lr >= srows) continue;
-        const T* in_row = src + (long long)lr * W * scin;
-        for (int dx = 0; dx < skw; ++dx) {
-          const T* wt = wsrc + (long long)(dy * skw + dx) * scin * cout + co0;
-          int col[kPix];
-          bool ok[kPix];
-#pragma unroll
-          for (int p = 0; p < kPix; ++p) {
-            col[p] = col0 + p + sdil * dx - spx;
-            ok[p] = col0 + p < W && col[p] >= 0 && col[p] < W;
-          }
-          for (int ci = 0; ci < scin; ++ci) {
-            float wv[COB];
-            load_w<COB>(wt + (long long)ci * cout, wv);
-#pragma unroll
-            for (int p = 0; p < kPix; ++p) {
-              const float xv =
-                  ok[p] ? to_f(in_row[(long long)col[p] * scin + ci]) : 0.f;
-#pragma unroll
-              for (int q = 0; q < COB; ++q)
-                acc[p][q] = fmaf(xv, wv[q], acc[p][q]);
-            }
-          }
-        }
-      }
+      float_taps<T, COB>(acc, m, src, srow0, srows, scin, wsrc, skh, skw, ssy,
+                         sdil, spy, spx, cout, W);
     }
 
+    const int r = m.r, g = m.g;
     const bool emit_row = out != nullptr && r >= d && r < d + c.band;
 #pragma unroll
     for (int p = 0; p < kPix; ++p) {
-      const int cc = col0 + p;
+      const int cc = m.col0 + p;
       if (cc >= W) continue;
 #pragma unroll
       for (int q = 0; q < COB; ++q) {
-        const int co = co0 + q;
+        const int co = m.co0 + q;
         float y = 0.f;
-        if (in_image) {
+        if (m.in_image) {
           y = acc[p][q] + st.b[co];
           if (st.scale != nullptr) {
             const float s = st.scale[co], sh = st.shift[co];
@@ -268,6 +353,122 @@ __device__ void conv_stage(const RcvChain& c, const RcvStage& st, int img,
         const T yt = from_f<T>(y);
         if (strip_out != nullptr)
           strip_out[((long long)r * W + cc) * cout + co] = yt;
+        if (emit_row) out[(((long long)img * H + g) * W + cc) * cout + co] = yt;
+      }
+    }
+  }
+}
+
+// One stage of an int8 chain over this block's strip: the s8 x s8 taps
+// summed in int32, the f32 dequant, then (SKW) the float skip conv summed
+// apart and added, bias, epilogue and identity skip, every f32 step
+// rounded on its own. The strip is written as s8 requantized for the next
+// stage, or, for the argmax head, as its logits in the chain dtype. `in`
+// as for conv_stage, in s8.
+template <typename T, int COB, bool SKW>
+__device__ void conv_stage_q(const RcvChain& c, const RcvStage& st, int img,
+                             int off, const int8_t* __restrict__ in,
+                             int in_row0, int in_rows, void* strip_out) {
+  const int W = c.w, H = c.h, cin = st.cin, cout = st.cout;
+  const int KH = st.kh, KW = st.kw, dil = st.dil;
+  // as in conv_stage
+  const int sy = st.stem_f ? st.stem_f : 1;
+  const int py = st.stem_f ? 1 : dil * (KH / 2);
+  const int px = dil * (KW / 2);
+  const int d = st.depth;
+  const int row0 = off - d;
+  const int ncog = cout / COB;
+  const int npg = (W + kPix - 1) / kPix;
+  const int items = (c.band + 2 * d) * npg * ncog;
+  const int8_t* __restrict__ w8 = static_cast<const int8_t*>(st.w);
+  const T* skip = st.skip_idx >= 0 && !SKW
+      ? static_cast<const T*>(c.skips[st.skip_idx]) : nullptr;
+  T* out = (st.out != nullptr && st.argmax_groups == 0)
+      ? static_cast<T*>(st.out) : nullptr;
+
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const Item m = item_of<COB>(it, ncog, npg, row0, H);
+
+    int acc[kPix][COB];
+#pragma unroll
+    for (int p = 0; p < kPix; ++p)
+#pragma unroll
+      for (int q = 0; q < COB; ++q) acc[p][q] = 0;
+    for (int dy = 0; m.in_image && dy < KH; ++dy) {
+      const int lr = sy * m.g + dil * dy - py - in_row0;
+      if (lr < 0 || lr >= in_rows) continue;
+      const int8_t* in_row = in + (long long)lr * W * cin;
+      for (int dx = 0; dx < KW; ++dx) {
+        const int8_t* wt = w8 + (long long)(dy * KW + dx) * cin * cout + m.co0;
+        int col[kPix];
+        bool ok[kPix];
+        tap_cols(m.col0, dil, dx, px, W, col, ok);
+        for (int ci = 0; ci < cin; ++ci) {
+          int wv[COB];
+          load_w8<COB>(wt + (long long)ci * cout, wv);
+#pragma unroll
+          for (int p = 0; p < kPix; ++p) {
+            const int xv = ok[p] ? (int)in_row[(long long)col[p] * cin + ci] : 0;
+#pragma unroll
+            for (int q = 0; q < COB; ++q) acc[p][q] += xv * wv[q];
+          }
+        }
+      }
+    }
+
+    // the skip kernel's conv (K x K, padding K/2) over the float skip
+    float sacc[kPix][SKW ? COB : 1];
+    if constexpr (SKW) {
+#pragma unroll
+      for (int p = 0; p < kPix; ++p)
+#pragma unroll
+        for (int q = 0; q < COB; ++q) sacc[p][q] = 0.f;
+      const int sk = st.skip_k, scin = st.skip_cin, sp = sk / 2;
+      if (m.in_image)
+        float_taps<T, COB>(sacc, m,
+                           static_cast<const T*>(c.skips[st.skip_idx]) +
+                               (long long)img * H * W * scin,
+                           0, H, scin, static_cast<const T*>(st.skip_w), sk,
+                           sk, 1, 1, sp, sp, cout, W);
+    }
+
+    // channel-outer: one channel's vectors are live at a time while the
+    // accumulators drain
+    const int r = m.r, g = m.g;
+    const bool emit_row = out != nullptr && r >= d && r < d + c.band;
+#pragma unroll
+    for (int q = 0; q < COB; ++q) {
+      const int co = m.co0 + q;
+      const float dq = __fmul_rn(st.w_scale[co], st.x_scale), bias = st.b[co];
+      const float s = st.scale != nullptr ? st.scale[co] : 0.f;
+      const float sh = st.scale != nullptr ? st.shift[co] : 0.f;
+#pragma unroll
+      for (int p = 0; p < kPix; ++p) {
+        const int cc = m.col0 + p;
+        if (cc >= W) continue;
+        float y = 0.f;
+        if (m.in_image) {
+          y = __fmul_rn((float)acc[p][q], dq);
+          if constexpr (SKW) y = __fadd_rn(y, sacc[p][q]);
+          y = __fadd_rn(y, bias);
+          if (st.scale != nullptr) {
+            y = st.rbb ? __fadd_rn(__fmul_rn(fmaxf(y, 0.f), s), sh)
+                       : fmaxf(__fadd_rn(__fmul_rn(y, s), sh), 0.f);
+          } else if (st.relu_only) {
+            y = fmaxf(y, 0.f);
+          }
+          if (skip != nullptr)
+            y = __fadd_rn(
+                y, to_f(skip[(((long long)img * H + g) * W + cc) * cout + co]));
+        }
+        const T yt = from_f<T>(y);
+        const long long si = ((long long)r * W + cc) * cout + co;
+        if (strip_out != nullptr) {
+          if (st.argmax_groups)
+            static_cast<T*>(strip_out)[si] = yt;
+          else
+            static_cast<int8_t*>(strip_out)[si] = requant(y, st.requant);
+        }
         if (emit_row) out[(((long long)img * H + g) * W + cc) * cout + co] = yt;
       }
     }
@@ -307,6 +508,39 @@ __device__ void pool_stage(const RcvChain& c, const RcvStage& st, int img,
   }
 }
 
+// A pool stage of an int8 chain: the max of the four s8 lanes, dequantized
+// at the stage's x_scale; the strip requantized for the next stage.
+template <typename T>
+__device__ void pool_stage_q(const RcvChain& c, const RcvStage& st, int img,
+                             int off, const int8_t* __restrict__ in,
+                             int in_row0, int8_t* __restrict__ strip_out) {
+  const int W = c.w, H = c.h, cin = st.cin, cout = st.cout;
+  const int d = st.depth;
+  const int row0 = off - d;
+  const int items = (c.band + 2 * d) * W * cout;
+  const int* __restrict__ src = st.pool_src;
+  T* out = static_cast<T*>(st.out);
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int co = it % cout;
+    const int rest = it / cout;
+    const int cc = rest % W;
+    const int r = rest / W;
+    const int g = row0 + r;  // image row of this output
+    float y = 0.f;           // rows outside the image are zero
+    if (g >= 0 && g < H) {
+      const int8_t* px = in + ((long long)(g - in_row0) * W + cc) * cin;
+      int m = px[src[co]];
+#pragma unroll
+      for (int t = 1; t < 4; ++t) m = max(m, (int)px[src[t * cout + co]]);
+      y = __fmul_rn((float)m, st.x_scale);
+    }
+    if (strip_out != nullptr)
+      strip_out[((long long)r * W + cc) * cout + co] = requant(y, st.requant);
+    if (out != nullptr && r >= d && r < d + c.band)
+      out[(((long long)img * H + g) * W + cc) * cout + co] = from_f<T>(y);
+  }
+}
+
 // Fused serving head: per output pixel and group, the index of the first
 // maximum over the group's cout/G adjacent (already rounded) logits.
 template <typename T>
@@ -336,47 +570,80 @@ __device__ void argmax_stage(const RcvChain& c, const RcvStage& st, int img,
   }
 }
 
-template <typename T>
+// Q: an int8 chain, whose stage inputs (the chain input and the strips the
+// next stage reads) are s8 and whose argmax head keeps its logits strip in
+// the chain dtype. A float chain runs the loop of the float-only kernel
+// unchanged.
+template <typename T, bool Q>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
     chain_kernel(const RcvChain c) {
+  using In = typename std::conditional<Q, int8_t, T>::type;
   const int band_i = blockIdx.x;
   const int img = blockIdx.y;
   const int off = band_i * c.band;
-  T* ws = static_cast<T*>(c.ws) +
-          ((long long)img * gridDim.x + band_i) * c.ws_per_block;
+  char* ws = static_cast<char*>(c.ws) +
+             ((long long)img * gridDim.x + band_i) * c.ws_per_block;
 
   for (int s = 0; s < c.n_stages; ++s) {
     const RcvStage& st = c.st[s];
-    const T* in;
+    const In* in;
     int in_row0, in_rows;
     if (s == 0) {
       // a stem reads the raw image: f*H rows of W groups of f*cin values
       in_rows = st.stem_f ? st.stem_f * c.h : c.h;
-      in = static_cast<const T*>(c.x) + (long long)img * in_rows * c.w * st.cin;
+      in = static_cast<const In*>(c.x) + (long long)img * in_rows * c.w * st.cin;
       in_row0 = 0;
     } else {
       const RcvStage& prev = c.st[s - 1];
-      in = ws + prev.ws_off;
+      in = reinterpret_cast<const In*>(ws + prev.ws_off);
       in_row0 = off - prev.depth;
       in_rows = c.band + 2 * prev.depth;
     }
-    T* strip_out = st.ws_off >= 0 ? ws + st.ws_off : nullptr;
-    if (st.pool)
-      pool_stage<T>(c, st, img, off, in, in_row0, strip_out);
-    else if (st.cout % 16 == 0)
-      conv_stage<T, 16>(c, st, img, off, in, in_row0, in_rows, strip_out);
-    else if (st.cout % 8 == 0)
-      conv_stage<T, 8>(c, st, img, off, in, in_row0, in_rows, strip_out);
-    else if (st.cout % 4 == 0)
-      conv_stage<T, 4>(c, st, img, off, in, in_row0, in_rows, strip_out);
-    else
-      conv_stage<T, 1>(c, st, img, off, in, in_row0, in_rows, strip_out);
+    char* strip = st.ws_off >= 0 ? ws + st.ws_off : nullptr;
+    if constexpr (Q) {
+      int8_t* strip8 = reinterpret_cast<int8_t*>(strip);
+      // at most 8 output channels a thread, 4 beside a skip_w stage's second
+      // accumulator: with 16 and 8 both int8 builds spilled at the
+      // 128-register cap (ptxas on an H100)
+      if (st.pool)
+        pool_stage_q<T>(c, st, img, off, in, in_row0, strip8);
+      else if (st.skip_w != nullptr && st.cout % 4 == 0)
+        conv_stage_q<T, 4, true>(c, st, img, off, in, in_row0, in_rows, strip);
+      else if (st.skip_w != nullptr)
+        conv_stage_q<T, 1, true>(c, st, img, off, in, in_row0, in_rows, strip);
+      else if (st.cout % 8 == 0)
+        conv_stage_q<T, 8, false>(c, st, img, off, in, in_row0, in_rows, strip);
+      else if (st.cout % 4 == 0)
+        conv_stage_q<T, 4, false>(c, st, img, off, in, in_row0, in_rows, strip);
+      else
+        conv_stage_q<T, 1, false>(c, st, img, off, in, in_row0, in_rows, strip);
+    } else {
+      T* strip_out = reinterpret_cast<T*>(strip);
+      if (st.pool)
+        pool_stage<T>(c, st, img, off, in, in_row0, strip_out);
+      else if (st.cout % 16 == 0)
+        conv_stage<T, 16>(c, st, img, off, in, in_row0, in_rows, strip_out);
+      else if (st.cout % 8 == 0)
+        conv_stage<T, 8>(c, st, img, off, in, in_row0, in_rows, strip_out);
+      else if (st.cout % 4 == 0)
+        conv_stage<T, 4>(c, st, img, off, in, in_row0, in_rows, strip_out);
+      else
+        conv_stage<T, 1>(c, st, img, off, in, in_row0, in_rows, strip_out);
+    }
     __syncthreads();
     if (st.argmax_groups) {
-      argmax_stage<T>(c, st, img, off, strip_out);
+      argmax_stage<T>(c, st, img, off, reinterpret_cast<const T*>(strip));
       __syncthreads();
     }
   }
+}
+
+template <typename T>
+void launch(const RcvChain& c, dim3 grid, cudaStream_t stream) {
+  if (c.quant)
+    chain_kernel<T, true><<<grid, kThreads, 0, stream>>>(c);
+  else
+    chain_kernel<T, false><<<grid, kThreads, 0, stream>>>(c);
 }
 
 }  // namespace
@@ -389,8 +656,8 @@ extern "C" int rcv_conv_chain(const RcvChain* chain, void* stream) {
     return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)(c.h / c.band), (unsigned)c.n);
   if (c.bf16)
-    chain_kernel<__nv_bfloat16><<<grid, kThreads, 0, (cudaStream_t)stream>>>(c);
+    launch<__nv_bfloat16>(c, grid, (cudaStream_t)stream);
   else
-    chain_kernel<float><<<grid, kThreads, 0, (cudaStream_t)stream>>>(c);
+    launch<float>(c, grid, (cudaStream_t)stream);
   return (int)cudaGetLastError();
 }

@@ -50,6 +50,11 @@ dilated belly [conv1, conv2, conv3] on the 1/8 grid (``pallas_mid``), and
 its up chain [upConv2 + skip, upConv3, classifier], whose classifier takes
 the channel-slice skip of ``top`` through a 1x1 ``skip_w`` kernel.
 
+``quantize_int8`` turns any chain graph into a static int8 one: one
+calibration pass through the chains (K2 on CUDA) collects each stage's
+activation statistic, and every chain is rebuilt with int8 stages
+(ops/cuda_packed.quantize_chain_stages).
+
 The packers work on numpy arrays in the JAX package's HWIO layout (their
 arithmetic is layout-bound); ``build_packed_infer`` takes the port's
 state_dict and carries it there with export/torch_io.to_jax_params.
@@ -378,11 +383,21 @@ class _PackedBase:
 
         return device_fn, host_unpack
 
-    def _chain(self, x, stages, skips=()):
+    def _chain(self, tag: str, x, stages, skips=()):
         """One fused-region call: K2 on CUDA tensors, the plain mirror on
-        CPU tensors (ops/cuda_packed.fused_conv_chain selects by device)."""
-        return ckp.fused_conv_chain(x.contiguous(), stages,
-                                    skips=[s.contiguous() for s in skips])
+        CPU tensors (ops/cuda_packed.fused_conv_chain selects by device).
+        When the chains dict carries a ``collect`` map (int8 calibration,
+        :func:`quantize_int8`) the same call also appends each stage's
+        statistic (max|input|, or its ``collect_pct``-th percentile) to
+        ``collect[tag]`` (ops/cuda_packed.chain_stats)."""
+        x, skips = x.contiguous(), [s.contiguous() for s in skips]
+        col = self.chains.get("collect")
+        if col is not None:
+            outs, stats = ckp.chain_stats(x, stages, skips,
+                                          pct=self.chains.get("collect_pct"))
+            col.setdefault(tag, []).extend(stats)
+            return outs
+        return ckp.fused_conv_chain(x, stages, skips)
 
     # -- block interpreter --------------------------------------------------
 
@@ -508,12 +523,12 @@ class PackedInfer(_PackedBase):
                 feats[lvl] = h
         elif ch["fold_stem"]:
             # stage 0 reads the raw image and emits feats0 itself
-            feats[0], feats[1], feats[2] = self._chain(h, ch["down"])
+            feats[0], feats[1], feats[2] = self._chain("down", h, ch["down"])
         else:
             for blk in plan.downs[0]:
                 h = self._blk(blk, h)     # stem (plain conv) and Level0
             feats[0] = h
-            feats[1], feats[2] = self._chain(h, ch["down"])
+            feats[1], feats[2] = self._chain("down", h, ch["down"])
         h = feats[2]
         D = len(plan.downs)
         deep = ch.get("deep")
@@ -522,7 +537,7 @@ class PackedInfer(_PackedBase):
             if deep is not None and lvl == D - 1:
                 # the strided Level(D-1).Conv0 stays plain; the rest of the
                 # level and the belly are one chain on the deepest grid
-                h = self._chain(self._blk(blks[0], h), deep)[-1]
+                h = self._chain("deep", self._blk(blks[0], h), deep)[-1]
                 break
             for blk in blks:
                 h = self._blk(blk, h)
@@ -534,7 +549,7 @@ class PackedInfer(_PackedBase):
             up = self._skip(self._blk(plan.ups[j], up), feats[D - 2 - j],
                             False)
         up_ch = ckp.with_argmax_head(ch["up"], 16) if argmax else ch["up"]
-        return self._chain(up, up_ch, skips=[feats[1], feats[0]])[-1]
+        return self._chain("up", up, up_ch, skips=[feats[1], feats[0]])[-1]
 
 
 def _pack_blocks(np_params: NpParams, blks, dtype, device) -> Params:
@@ -845,7 +860,7 @@ class PackedPBFCNInfer(_PackedBase):
             return nn.relu(L.bn(p, name + ".bn", y))
 
         if ch is not None:
-            outs = self._chain(h, ch["down"])
+            outs = self._chain("down", h, ch["down"])
             x0, x1, x2 = outs[:3]
         else:
             x0 = self._blk(blks["pconv:FCN.conv0"], h)
@@ -867,7 +882,7 @@ class PackedPBFCNInfer(_PackedBase):
                 y = L.conv_pool(p, "FCN.conv3", x3)
             else:
                 y = pool_tail("FCN.conv3", outs[3])
-            y = self._chain(y, dc)[-1]
+            y = self._chain("deep", y, dc)[-1]
             feats = [x0, x1, x2, x3, y] if cfg.no_scale else [x0, x1, x2, y]
         elif cfg.no_scale:
             x3 = L.conv_pool(p, "FCN.conv_ext", x2)
@@ -882,7 +897,7 @@ class PackedPBFCNInfer(_PackedBase):
                 up = self._blk(blks[f"ptconv:up{j + 1}"], up) \
                     + feats[n_up - 1 - j]
             up_ch = ckp.with_argmax_head(ch["up"], 16) if argmax else ch["up"]
-            return self._chain(up, up_ch, skips=[x1, x0])[-1]
+            return self._chain("up", up, up_ch, skips=[x1, x0])[-1]
         for j in range(n_up):
             up = self._blk(blks[f"ptconv:up{j + 1}"], up) + feats[n_up - 1 - j]
         return self._blk(blks["head:segmenter.classifier"], up)
@@ -982,25 +997,25 @@ class PackedLabelPropInfer(_PackedBase):
 
         if ch is not None and ch["fold_stem"]:
             # stage 0 reads the raw input and emits top itself
-            top, middle, bottom = self._chain(h, ch["down"])
+            top, middle, bottom = self._chain("down", h, ch["down"])
         else:
             top = self._blk(blks["pre"], h)
             if ch is not None:
-                middle, bottom = self._chain(top, ch["down"])
+                middle, bottom = self._chain("down", top, ch["down"])
             else:
                 middle = self._blk(blks["down1"], top)
                 bottom = self._blk(blks["down2"], middle)
         h = cps("down3", bottom, 2, 1, 1)
         if ch is not None and ch.get("mid") is not None:
             # the dilated belly as one chain on the 1/8 grid
-            h = self._chain(h, ch["mid"])[-1]
+            h = self._chain("mid", h, ch["mid"])[-1]
         else:
             h = cps("conv3", cps("conv2", cps("conv1", h, 1, 2, 2), 1, 2, 2),
                     1, 2, 2)
         h = bottom + L.up_tconv(p, "upConv1", h)
         if ch is not None:
             up_ch = ckp.with_argmax_head(ch["up"], 16) if argmax else ch["up"]
-            return self._chain(h, up_ch, skips=[middle, top])[-1]
+            return self._chain("up", h, up_ch, skips=[middle, top])[-1]
         h = middle + self._blk(blks["upConv2"], h)
         h = self._blk(blks["upConv3"], h)
         # the channel-slice skip h[..., :C_pre] += top (model.py:565), folded
@@ -1071,7 +1086,59 @@ def build_packed_label_prop(model: Model, params: Optional[Params] = None,
     return PackedLabelPropInfer(cfg, packed, plain, dtype, dev, chains)
 
 
-def quantize_int8(*args, **kwargs):
-    """int8 serving (the JAX package's ``quantize_int8``) needs K2's int8
-    stage slice, which is not ported yet."""
-    raise NotImplementedError("int8 serving is not ported yet (ROADMAP.md)")
+# Per-family calibration statistic of quantize_int8: the
+# percentile of |activation| (None: its max), from the JAX package's
+# trained-net sweeps (robocupvision_tpu/models/packed.py INT8_PCT_DEFAULTS,
+# tests/test_int8_families.py). Percentile clipping helps the deeper dilated
+# stacks, where one outlier stretches every quantization step of a stage.
+INT8_PCT_DEFAULTS = {
+    "robo_unet": 99.9,
+    "robo_unet_v2": 99.9,
+    "robo_unet_pool": None,
+    "pb_fcn": 99.9,
+    "label_prop": None,
+}
+
+_CHAIN_TAGS = ("down", "mid", "deep", "up")
+
+
+def _int8_family_key(infer) -> str:
+    if isinstance(infer, PackedLabelPropInfer):
+        return "label_prop"
+    if isinstance(infer, PackedPBFCNInfer):
+        return "pb_fcn"
+    cfg = infer.cfg
+    if getattr(cfg, "pool", False):
+        return "robo_unet_pool"
+    return "robo_unet_v2" if getattr(cfg, "v2", False) else "robo_unet"
+
+
+def quantize_int8(infer, calib_x):
+    """Static int8 post-training quantization of a chain graph (any
+    ``Packed*Infer`` built with ``pallas=True``), as the JAX package's
+    ``quantize_int8`` does it: one calibration pass over ``calib_x``
+    (representative inputs; stack frames along the batch axis for more)
+    collects each chain stage's statistic of |input| -- its max, or its
+    percentile as the family's :data:`INT8_PCT_DEFAULTS` entry says -- and
+    every chain is rebuilt with static
+    per-stage input scales and symmetric per-output-channel int8 weights
+    (ops/cuda_packed.quantize_chain_stages). The calibration pass runs the
+    chains through ``fused_conv_chain`` (K2 on the card) with every stage
+    emitted. Returns a new instance; ``infer`` is left as it was. Raises
+    ``ValueError`` for a graph without chains or one already quantized."""
+    ch = infer.chains
+    if ch is None:
+        raise ValueError("quantize_int8 needs a chain graph (pallas=True)")
+    if any(ch.get(tag) and ch[tag][0].x_scale for tag in _CHAIN_TAGS):
+        raise ValueError("the graph is already quantized")
+    collect: dict = {}
+    probe = dataclasses.replace(infer, chains={**ch, "collect": collect,
+                                               "collect_pct": INT8_PCT_DEFAULTS[
+                                                   _int8_family_key(infer)]})
+    with torch.no_grad():
+        probe._logits_packed(probe._input(calib_x))
+    q = dict(ch)
+    for tag in _CHAIN_TAGS:
+        if q.get(tag):
+            q[tag] = ckp.quantize_chain_stages(q[tag], collect[tag])
+    return dataclasses.replace(infer, chains=q)

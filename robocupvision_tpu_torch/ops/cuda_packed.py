@@ -26,12 +26,23 @@ grid is (H, W). Only ``emit`` stages (and always the last) are returned. The
 last stage may carry the fused serving argmax (``argmax_groups``): per-phase
 int32 labels instead of logits, first max winning ties.
 
+A chain may be int8 (static post-training quantization, the JAX
+package's ``x_scale``/``w_scale`` stages), every stage or none: stage 0
+quantizes its input to int8 at its ``x_scale`` (round half to even, clip to
++-127), a conv stage takes int8 weights with a per-output-channel
+``w_scale``, sums its integer products exactly and dequantizes with
+``acc * (w_scale * x_scale)`` before the float bias, epilogue and skips
+(which stay float, at the chain dtype); a pool stage takes the max of the
+integers times its ``x_scale``. Between stages the f32 result is
+requantized at the next stage's ``x_scale``; emitted outputs and the argmax
+head's logits are rounded to the chain dtype as in a float chain.
+:func:`chain_stats` takes the calibration statistics of a float chain and
+:func:`quantize_chain_stages` turns them into an int8 chain.
+
 ``fused_conv_chain`` launches the kernel for CUDA tensors and runs
 :func:`chain_reference` for CPU tensors; nothing else selects between them.
-``fused_conv_chain.launches`` counts kernel launches.
-
-The int8 stage feature of the JAX kernel (``x_scale``/``w_scale``) keeps
-its ChainStage fields but raises ``NotImplementedError`` in both paths.
+``fused_conv_chain.launches`` counts kernel launches and
+``chain_reference.calls`` the plain version's calls.
 """
 
 from __future__ import annotations
@@ -40,6 +51,7 @@ import ctypes
 import dataclasses
 from typing import Any, List, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -64,7 +76,9 @@ class ChainStage:
     lane-selection stack (and ``b`` an unused zero bias). pool_src: the
     pool's (4, Cout) int32 table of source lanes (:func:`pool_table` of
     ``w``), which the kernel reads; ``None`` derives it from ``w`` on each
-    call.
+    call. x_scale: an int8 stage's static input scale (> 0; 0 for a float
+    stage). w_scale: an int8 conv stage's (Cout,) f32 dequant row, its
+    ``w`` then int8 (pool stages keep their 0/1 selections and take none).
     """
 
     w: Any
@@ -149,6 +163,28 @@ def _check_pool(i: int, st: ChainStage) -> ChainStage:
     return st
 
 
+def _check_int8(i: int, st: ChainStage, quant: bool) -> None:
+    """The JAX kernel's asserts on int8 stages: every stage of a chain is
+    quantized or none is, and a stage has ``w_scale`` exactly when it is a
+    quantized conv stage; a quantized conv stage's ``w`` is int8 and its
+    ``w_scale`` (Cout,)."""
+    if st.x_scale < 0:
+        raise ValueError(f"stage {i}: x_scale must be > 0, got {st.x_scale}")
+    if bool(st.x_scale) != quant:
+        raise ValueError(f"stage {i}: int8 chains quantize every stage "
+                         "together (x_scale set on some stages only)")
+    if (st.w_scale is not None) != (quant and not st.pool):
+        raise ValueError(f"stage {i}: a stage has w_scale exactly when it is "
+                         "a quantized conv stage")
+    if quant and not st.pool:
+        if st.w.dtype != torch.int8:
+            raise ValueError(f"stage {i}: a quantized stage's w is int8, got "
+                             f"{st.w.dtype}")
+        if tuple(st.w_scale.shape) != (int(st.w.shape[-1]),):
+            raise ValueError(f"stage {i}: w_scale must be ({int(st.w.shape[-1])},"
+                             f"), got {tuple(st.w_scale.shape)}")
+
+
 def _prepare(stages: Sequence[ChainStage]) -> List[ChainStage]:
     """Validate a chain for this port and mark its last stage emitted."""
     stages = list(stages)
@@ -156,12 +192,9 @@ def _prepare(stages: Sequence[ChainStage]) -> List[ChainStage]:
         raise ValueError("a chain needs at least one stage")
     if not stages[-1].emit:
         stages[-1] = dataclasses.replace(stages[-1], emit=True)
+    quant = bool(stages[0].x_scale)
     for i, st in enumerate(stages):
-        if st.x_scale or st.w_scale is not None:
-            raise NotImplementedError(
-                f"stage {i}: int8 (x_scale, w_scale) not ported yet (plain, "
-                "dilated, relu-only, conv'd-skip, folded-stem and pool stages "
-                "and the argmax head only)")
+        _check_int8(i, st, quant)
         if st.pool:
             stages[i] = _check_pool(i, st)
             continue
@@ -203,55 +236,74 @@ def _prepare(stages: Sequence[ChainStage]) -> List[ChainStage]:
     return stages
 
 
+def _quantize(y: torch.Tensor, x_scale: float) -> torch.Tensor:
+    """f32 ``y`` as the int8 values (held in f32) of scale ``x_scale``:
+    ``clip(round(y * (1 / x_scale)), -127, 127)``, half to even, the
+    reciprocal rounded once to f32 as the JAX package's weak-typed scalar
+    is."""
+    return torch.clamp(torch.round(y.float() * (1.0 / x_scale)), -127., 127.)
+
+
 def chain_reference(x: torch.Tensor, stages: Sequence[ChainStage],
                     skips: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
     """Plain-PyTorch mirror of :func:`fused_conv_chain` at the same rounding
     points: f32 convs of the chain-dtype activations and kernels, f32
     epilogue, and rounding to the chain dtype between stages and at every
-    emitted output. The test oracle for the kernel, and its CPU path."""
+    emitted output. An int8 chain quantizes its input at stage 0, runs its
+    integer convs in f64 (exact: every sum stays below 2**53; CPU convs have
+    no int32 form) cast to f32, dequantizes, and requantizes the f32 result
+    for the next stage. The test oracle for the kernel, and its CPU path;
+    ``chain_reference.calls`` counts its calls."""
+    chain_reference.calls += 1
     stages = _prepare(stages)
     chain_dtype = x.dtype
-    h = x
+    h = _quantize(x, stages[0].x_scale) if stages[0].x_scale else x
     outs = []
     for k, st in enumerate(stages):
+        q = bool(st.x_scale)
         cout = int(st.w.shape[3])
         if st.pool:
             # the max over the four 0/1 selections (exact gathers, as the
-            # JAX package's chain_reference computes them), no epilogue
+            # JAX package's chain_reference computes them), no epilogue; an
+            # int8 pool dequantizes the integer max at its own scale
             sel = st.w[0].float()
             hf = h.float()
             y = torch.einsum("nhwc,cd->nhwd", hf, sel[0])
             for t in range(1, 4):
                 y = torch.maximum(y, torch.einsum("nhwc,cd->nhwd", hf, sel[t]))
-            if st.emit:
-                outs.append(y.to(chain_dtype))
-            h = y.to(chain_dtype)
-            continue
-        # (KH, KW, in, out) -> OIHW, at the chain dtype as the kernel reads it
-        w = st.w.to(chain_dtype).float().permute(3, 2, 0, 1)
-        if st.stem_f:
-            f = st.stem_f
-            n, hf, wf, cin = h.shape
-            xg = h.float().reshape(n, hf, wf // f, f * cin)
-            y = F.conv2d(xg.permute(0, 3, 1, 2), w, stride=(f, 1), padding=1)
+            if q:
+                y = y * st.x_scale
         else:
-            y = F.conv2d(h.float().permute(0, 3, 1, 2), w, padding=st.reach,
-                         dilation=st.dil)
-        if st.skip_w is not None:
-            # the skip's conv, its kernel at the chain dtype, summed in f32
-            # before the bias
-            sw = st.skip_w.to(chain_dtype).float().permute(3, 2, 0, 1)
-            y = y + F.conv2d(skips[st.skip_idx].float().permute(0, 3, 1, 2),
-                             sw, padding=int(sw.shape[2]) // 2)
-        y = y.permute(0, 2, 3, 1) + st.b.float()
-        if st.scale is not None:
-            s, sh = st.scale.float(), st.shift.float()
-            y = torch.clamp_min(y, 0.) * s + sh if st.rbb \
-                else torch.clamp_min(y * s + sh, 0.)
-        elif st.relu_only:
-            y = torch.clamp_min(y, 0.)
-        if st.skip_idx >= 0 and st.skip_w is None:
-            y = y + skips[st.skip_idx].float()
+            # (KH, KW, in, out) -> OIHW, at the chain dtype as the kernel
+            # reads it (int8 stages: the integers, in f64)
+            ct = torch.float64 if q else torch.float32
+            w = (st.w if q else st.w.to(chain_dtype)).to(ct).permute(3, 2, 0, 1)
+            if st.stem_f:
+                f = st.stem_f
+                n, hh, wf, cin = h.shape
+                xg = h.to(ct).reshape(n, hh, wf // f, f * cin)
+                y = F.conv2d(xg.permute(0, 3, 1, 2), w, stride=(f, 1), padding=1)
+            else:
+                y = F.conv2d(h.to(ct).permute(0, 3, 1, 2), w, padding=st.reach,
+                             dilation=st.dil)
+            y = y.float()
+            if q:
+                y = y * (st.w_scale.float() * st.x_scale).view(-1, 1, 1)
+            if st.skip_w is not None:
+                # the skip's conv, its kernel at the chain dtype, summed in f32
+                # before the bias
+                sw = st.skip_w.to(chain_dtype).float().permute(3, 2, 0, 1)
+                y = y + F.conv2d(skips[st.skip_idx].float().permute(0, 3, 1, 2),
+                                 sw, padding=int(sw.shape[2]) // 2)
+            y = y.permute(0, 2, 3, 1) + st.b.float()
+            if st.scale is not None:
+                s, sh = st.scale.float(), st.shift.float()
+                y = torch.clamp_min(y, 0.) * s + sh if st.rbb \
+                    else torch.clamp_min(y * s + sh, 0.)
+            elif st.relu_only:
+                y = torch.clamp_min(y, 0.)
+            if st.skip_idx >= 0 and st.skip_w is None:
+                y = y + skips[st.skip_idx].float()
         if st.argmax_groups:
             yr = y.to(chain_dtype).float()
             n, H, W, _ = yr.shape
@@ -261,8 +313,75 @@ def chain_reference(x: torch.Tensor, stages: Sequence[ChainStage],
             break
         if st.emit:
             outs.append(y.to(chain_dtype))
-        h = y.to(chain_dtype)
+        if k + 1 < len(stages):
+            nxt = stages[k + 1]
+            h = _quantize(y, nxt.x_scale) if nxt.x_scale else y.to(chain_dtype)
     return outs
+
+
+chain_reference.calls = 0
+
+
+def _abs_stat(t: torch.Tensor, pct) -> float:
+    """max|t| over the whole tensor, or with ``pct`` its pct-th percentile
+    as ``jnp.quantile`` computes it (linear interpolation between the sorted
+    values at ranks floor and ceil of q * (n - 1), all in f32).
+    ``torch.quantile`` is not used: it refuses inputs over 2**24 values."""
+    a = t.detach().float().abs().flatten()
+    if pct is None:
+        return float(a.max())
+    n = a.numel()
+    pos = np.float32(pct / 100.0) * (np.float32(n) - np.float32(1.0))
+    low, high = np.floor(pos), np.ceil(pos)
+    hw = pos - low
+    lw = np.float32(1.0) - hw
+    srt = torch.sort(a).values
+    lo = np.float32(srt[int(min(max(low, 0), n - 1))].item())
+    hi = np.float32(srt[int(min(max(high, 0), n - 1))].item())
+    return float(lo * lw + hi * hw)
+
+
+def chain_stats(x: torch.Tensor, stages: Sequence[ChainStage],
+                skips: Sequence[torch.Tensor] = (), pct=None):
+    """Calibrate a float chain: run it once (:func:`fused_conv_chain`, so K2
+    on CUDA tensors) with every stage emitted and return ``(outs, stats)``,
+    ``outs`` the outputs the chain emits as given and ``stats`` one value per
+    stage, the max of |stage input| (``pct``: its pct-th percentile), the
+    statistic :func:`quantize_chain_stages` takes. Stage 0's input is ``x``;
+    stage k + 1's is stage k's output at the chain dtype, which is what an
+    emitted output holds."""
+    stages = _prepare(stages)
+    if stages[0].x_scale:
+        raise ValueError("calibration runs the float chain")
+    outs = fused_conv_chain(x, [dataclasses.replace(st, emit=True)
+                                for st in stages], skips)
+    stats = [_abs_stat(t, pct) for t in [x] + outs[:-1]]
+    return [o for o, st in zip(outs, stages) if st.emit], stats
+
+
+def quantize_chain_stages(stages: Sequence[ChainStage],
+                          in_maxes: Sequence[float]) -> List[ChainStage]:
+    """Static int8 post-training quantization of a chain (the JAX package's
+    ``quantize_chain_stages``): per-stage input scales ``max(mx, 1e-6) /
+    127`` from the calibration statistics ``in_maxes`` (one per stage, as
+    :func:`chain_stats` returns them), symmetric per-output-channel int8
+    weights ``clip(round(w / ws), -127, 127)`` with ``ws = max(max|w|,
+    1e-12) / 127`` in f32. Pool stages keep their 0/1 selections (and
+    ``pool_src``) and take only the scale."""
+    if len(stages) != len(in_maxes):
+        raise ValueError(f"{len(stages)} stages but {len(in_maxes)} "
+                         "statistics")
+    out = []
+    for st, mx in zip(stages, in_maxes):
+        s = max(float(mx), 1e-6) / 127.0
+        if st.pool:
+            out.append(dataclasses.replace(st, x_scale=s))
+            continue
+        w = st.w.float()
+        ws = torch.clamp_min(w.abs().amax(dim=(0, 1, 2)), 1e-12) / 127.0
+        wq = torch.clamp(torch.round(w / ws), -127, 127).to(torch.int8)
+        out.append(dataclasses.replace(st, w=wq, w_scale=ws, x_scale=s))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +403,9 @@ class _Stage(ctypes.Structure):
                 ("argmax_groups", ctypes.c_int), ("depth", ctypes.c_int),
                 ("dil", ctypes.c_int), ("stem_f", ctypes.c_int),
                 ("relu_only", ctypes.c_int), ("skip_k", ctypes.c_int),
-                ("skip_cin", ctypes.c_int), ("pool", ctypes.c_int)]
+                ("skip_cin", ctypes.c_int), ("pool", ctypes.c_int),
+                ("w_scale", ctypes.c_void_p), ("x_scale", ctypes.c_float),
+                ("requant", ctypes.c_float)]
 
 
 class _Chain(ctypes.Structure):
@@ -292,8 +413,8 @@ class _Chain(ctypes.Structure):
                 ("ws", ctypes.c_void_p), ("ws_per_block", ctypes.c_longlong),
                 ("n", ctypes.c_int), ("h", ctypes.c_int), ("w", ctypes.c_int),
                 ("band", ctypes.c_int), ("n_stages", ctypes.c_int),
-                ("bf16", ctypes.c_int), ("pad0", ctypes.c_int),
-                ("pad1", ctypes.c_int),
+                ("bf16", ctypes.c_int), ("quant", ctypes.c_int),
+                ("pad", ctypes.c_int),
                 ("st", _Stage * _MAX_STAGES)]
 
 
@@ -331,6 +452,45 @@ def bf16_tolerance(ref: torch.Tensor) -> torch.Tensor:
     return 2 * ulp + r.max() * 2.0 ** -8
 
 
+def int8_flip_step(st: ChainStage) -> float:
+    """The most one output element of a quantized stage moves when one
+    integer of its input moves by one: the input step ``x_scale`` times the
+    largest dequantized weight (``127 * w_scale``) times ``|scale|`` of the
+    affine (the ReLU and an identity skip do not widen it). A pool stage's
+    max moves by at most one step, ``x_scale``."""
+    if st.pool:
+        return float(st.x_scale)
+    s = st.w_scale.float() * 127.0
+    if st.scale is not None:
+        s = s * st.scale.float().abs()
+    return float(s.max()) * st.x_scale
+
+
+def int8_output_steps(stages: Sequence[ChainStage]) -> List[float]:
+    """:func:`int8_flip_step` of each stage that emits an output, in the
+    order of the chain's outputs (the argmax head's labels last)."""
+    return [int8_flip_step(st) for st in _prepare(stages) if st.emit]
+
+
+def int8_mismatch(got: torch.Tensor, ref: torch.Tensor, step: float):
+    """``(share, worst)`` of an int8 chain output against its plain version:
+    the share of its elements outside the kernel's tolerance (rtol = atol =
+    1e-5 in f32, :func:`bf16_tolerance` in bf16), and the largest excess
+    over that tolerance among them in units of ``step``, the
+    :func:`int8_flip_step` of the stage that emitted the output. Integer
+    taps are exact on both sides, so an element falls outside only
+    downstream of a requantization tie (an f32 value one ulp from a
+    rounding boundary of its scale, sent to the neighbouring integer by the
+    float skip conv's summation order): then ``worst`` is at most 1."""
+    g, r = got.float(), ref.float()
+    tol = bf16_tolerance(r) if ref.dtype == torch.bfloat16 \
+        else 1e-5 + 1e-5 * r.abs()
+    excess = (g - r).abs() - tol
+    out = excess > 0
+    worst = float(excess[out].max()) / step if bool(out.any()) else 0.0
+    return float(out.float().mean()), worst
+
+
 def _param(t, device, dtype) -> torch.Tensor:
     """``t`` as a contiguous ``dtype`` tensor on ``device`` whose data is
     16-byte aligned (the kernel loads weights in vectors of 4)."""
@@ -345,7 +505,8 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
 
     x: (N, H, W, C0) in f32 or bf16, or the raw (N, f*H, f*W, cin) image
     when stage 0 is a ``stem_f = f`` stem. Kernels are read at x's dtype (as the
-    JAX kernel reads them); bias and affine in f32. Returns the emitted
+    JAX kernel reads them), int8 in an int8 chain, whose input the wrapper
+    quantizes at stage 0's scale; bias and affine in f32. Returns the emitted
     outputs in stage order (the last stage always). CUDA tensors launch the
     kernel (one launch per call); CPU tensors run :func:`chain_reference`."""
     stages = _prepare(stages)
@@ -377,13 +538,21 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
     depths = _halo_depths(stages)
 
     dev = x.device
+    quant = bool(stages[0].x_scale)
     keep = []  # parameter copies that must outlive the launch call
     outs = []
     desc = _Chain()
-    desc.x = x.data_ptr()
+    if quant:
+        # the chain input enters as int8 at stage 0's scale, quantized in f32
+        # as chain_reference does
+        xq = _quantize(x, stages[0].x_scale).to(torch.int8)
+        keep.append(xq)
+        desc.x = xq.data_ptr()
+    else:
+        desc.x = x.data_ptr()
     for i, s in enumerate(skips):
         desc.skips[i] = s.data_ptr()
-    ws_elems = 0
+    ws_bytes = 0
     cin = c0
     for i, st in enumerate(stages):
         kh, kw, wcin, cout = (int(v) for v in st.w.shape)
@@ -403,9 +572,18 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
             keep.append(table)
             d.pool, d.pool_src, kh, kw = 1, table.data_ptr(), 1, 1
         else:
-            w, b = _param(st.w, dev, x.dtype), _param(st.b, dev, torch.float32)
+            w = _param(st.w, dev, torch.int8 if quant else x.dtype)
+            b = _param(st.b, dev, torch.float32)
             keep += [w, b]
             d.w, d.b = w.data_ptr(), b.data_ptr()
+            if quant:
+                wsc = _param(st.w_scale, dev, torch.float32)
+                keep.append(wsc)
+                d.w_scale = wsc.data_ptr()
+        if quant:
+            d.x_scale = st.x_scale
+            if i + 1 < len(stages):
+                d.requant = 1.0 / stages[i + 1].x_scale
         if st.scale is not None:
             sc = _param(st.scale, dev, torch.float32)
             sh = _param(st.shift, dev, torch.float32)
@@ -427,21 +605,24 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
             outs.append(out)
             d.out = out.data_ptr()
         # a strip of (band + 2*depth) rows lives in the block's workspace for
-        # every stage the next stage reads, and for the argmax head's logits
+        # every stage the next stage reads (int8 in an int8 chain), and for
+        # the argmax head's logits (the chain dtype); 16-byte aligned
         if i + 1 < len(stages) or st.argmax_groups:
-            d.ws_off = ws_elems
-            ws_elems += (band + 2 * depths[i]) * W * cout
+            item = 1 if quant and not st.argmax_groups else x.element_size()
+            d.ws_off = ws_bytes
+            ws_bytes += -(-(band + 2 * depths[i]) * W * cout * item // 16) * 16
         else:
             d.ws_off = -1
         d.kh, d.kw, d.cin, d.cout, d.rbb = kh, kw, wcin, cout, int(st.rbb)
         d.skip_idx, d.argmax_groups, d.depth = st.skip_idx, st.argmax_groups, depths[i]
         d.dil, d.stem_f, d.relu_only = st.dil, st.stem_f, int(st.relu_only)
         cin = cout
-    ws = torch.empty((max(n * (H // band) * ws_elems, 1),), dtype=x.dtype,
+    ws = torch.empty((max(n * (H // band) * ws_bytes, 1),), dtype=torch.uint8,
                      device=dev)
-    desc.ws, desc.ws_per_block = ws.data_ptr(), ws_elems
+    desc.ws, desc.ws_per_block = ws.data_ptr(), ws_bytes
     desc.n, desc.h, desc.w, desc.band = n, H, W, band
     desc.n_stages, desc.bf16 = len(stages), int(x.dtype == torch.bfloat16)
+    desc.quant = int(quant)
 
     fn = _lib()
     with torch.cuda.device(dev):

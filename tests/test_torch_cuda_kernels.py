@@ -402,3 +402,166 @@ def test_chain_kernel_variants_match_reference(cuda_device, monkeypatch, dt,
     for a, b in zip(*outs):
         assert torch.equal(a, b)
     _assert_chain_close(outs[0], ckp.chain_reference(x, stages, skips), dt)
+
+
+# ---------------------------------------------------------------------------
+# int8 stages
+# ---------------------------------------------------------------------------
+
+
+def _dyadic(seed, shape, denom, dev, dtype):
+    """Values k / denom, |k| <= 8: exact in bf16, and every sum of their
+    products exact in f32 in any order (a skip conv then matches cuDNN's
+    bit for bit)."""
+    k = np.random.default_rng(seed).integers(-8, 9, shape).astype(np.float32)
+    return torch.from_numpy(k / denom).to(device=dev, dtype=dtype)
+
+
+def _int8_case(case, dt, dev):
+    """(x, float stages, skips) of one int8 test chain. Single stages, one
+    per feature: 3x3 (rbb affine), 1x1, dilated relu-only, the folded stem,
+    a 1x1 and a 3x3 skip_w (dyadic skips and skip kernels), a pool, the
+    argmax head; and chains: the 3-stage case of the JAX package's int8
+    test (identity skip, dilation, requantization between stages), the
+    --UNet down chain (two pools), the --v2 up chain with its head (3x3
+    skip_w) and LabelProp's up chain (1x1 skip_w)."""
+    tdtype = _DT[dt]
+
+    def w(seed, *shape):
+        return (_randn(seed, shape, torch.float32, dev) * 0.2).to(tdtype)
+
+    def v(seed, c):
+        return _randn(seed, (c,), torch.float32, dev) * 0.1
+
+    def conv(seed, k, cin, cout, **kw):
+        return ckp.ChainStage(w=w(seed, k, k, cin, cout), b=v(seed + 1, cout),
+                              scale=1 + v(seed + 2, cout),
+                              shift=v(seed + 3, cout), **kw)
+
+    x16 = _randn(90, (2, 30, 40, 16), tdtype, dev)
+    if case == "conv3x3":
+        return x16, [conv(100, 3, 16, 32)], []
+    if case == "conv1x1":
+        return x16, [conv(104, 1, 16, 24, rbb=False)], []
+    if case == "dil":
+        return x16, [ckp.ChainStage(w=w(108, 3, 3, 16, 16), b=v(109, 16),
+                                    relu_only=True, dil=2)], []
+    if case == "stem_f":
+        st = _feature_chain("flagship_stem", dt, dev)[1][0]
+        return _randn(91, (2, 120, 160, 3), tdtype, dev), [st], []
+    if case in ("skip_w1", "skip_w3"):
+        k = int(case[-1])
+        st = conv(110, k, 16, 16, skip_idx=0,
+                  skip_w=_dyadic(114, (k, k, 24, 16), 64, dev, tdtype))
+        return x16, [st], [_dyadic(115, (2, 30, 40, 24), 8, dev, tdtype)]
+    if case == "pool":
+        return (_randn(92, (2, 30, 40, 128), tdtype, dev),
+                [_pool_stage(4, 8, tdtype, dev)], [])
+    if case == "argmax":
+        return x16, ckp.with_argmax_head(
+            [ckp.ChainStage(w=w(116, 1, 1, 16, 80), b=v(117, 80))], 16), []
+    if case == "three_stage":
+        stages = [conv(120, 3, 16, 16, emit=True),
+                  ckp.ChainStage(w=w(124, 3, 3, 16, 16), b=v(125, 16),
+                                 relu_only=True, dil=2, skip_idx=0),
+                  ckp.ChainStage(w=w(126, 1, 1, 16, 16), b=v(127, 16))]
+        return x16, stages, [_randn(93, (2, 30, 40, 16), tdtype, dev)]
+    if case == "unet_down":
+        return _variant_chain("unet_down", dt, dev)
+    if case == "v2_up_head":
+        return _variant_chain("v2_up_head", dt, dev)
+    return _skip_w_chain("lp_up_head", dt, dev)
+
+
+_INT8_SINGLE = ["conv3x3", "conv1x1", "dil", "stem_f", "skip_w1", "skip_w3",
+                "pool", "argmax"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", _INT8_SINGLE + ["three_stage", "unet_down",
+                                                 "v2_up_head", "lp_up_head"])
+def test_int8_chain_kernel_matches_reference(cuda_device, monkeypatch, dt,
+                                             case):
+    """An int8 chain, calibrated through the kernel (chain_stats) and
+    quantized, against the int8 chain_reference: bands 1, 2 and 5
+    bit-identical; a chain without a skip_w stage equal (every f32 step is
+    the reference's); with one, a single stage (no requantization between
+    stages) within 1e-6 of max|ref|, labels equal, and a longer chain by
+    int8_mismatch: at most 1e-4 of the elements outside tolerance, none of
+    them more than one flipped input integer's step over it."""
+    x, stages, skips = _int8_case(case, dt, cuda_device)
+    _, stats = ckp.chain_stats(x, stages, skips)
+    qst = ckp.quantize_chain_stages(stages, stats)
+    outs = []
+    for band in (1, 2, 5):
+        monkeypatch.setattr(ckp, "choose_band", lambda n, h, dev: band)
+        before = ckp.fused_conv_chain.launches
+        outs.append(ckp.fused_conv_chain(x, qst, skips))
+        torch.cuda.synchronize()
+        assert ckp.fused_conv_chain.launches == before + 1
+    for other in outs[1:]:
+        for a, b in zip(outs[0], other):
+            assert torch.equal(a, b)
+    ref = ckp.chain_reference(x, qst, skips)
+    assert len(outs[0]) == len(ref)
+    exact = all(st.skip_w is None for st in qst)
+    for g, r, step in zip(outs[0], ref, ckp.int8_output_steps(qst)):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        if exact:
+            assert torch.equal(g, r)
+        elif g.dtype == torch.int32:
+            agree = (g == r).float().mean().item()
+            assert agree >= (1.0 if case in _INT8_SINGLE else 0.9999), agree
+        elif case in _INT8_SINGLE:
+            err = (g.float() - r.float()).abs().max().item()
+            assert err <= 1e-6 * r.float().abs().max().item(), err
+        else:
+            frac, worst = ckp.int8_mismatch(g, r, step)
+            assert frac <= 1e-4 and worst <= 1.0, (frac, worst)
+
+
+@pytest.mark.cuda
+def test_int8_chain_kernel_takes_unaligned_weight_views(cuda_device):
+    """int8 kernels and w_scale rows that are views at odd offsets are
+    copied before the launch."""
+    x, stages, _ = _int8_case("conv3x3", "f32", cuda_device)
+    _, stats = ckp.chain_stats(x, stages)
+    st = ckp.quantize_chain_stages(stages, stats)[0]
+    flat = torch.zeros(1 + st.w.numel(), dtype=torch.int8, device=cuda_device)
+    flat[1:] = st.w.flatten()
+    fs = torch.zeros(1 + st.w_scale.numel(), device=cuda_device)
+    fs[1:] = st.w_scale
+    odd = dataclasses.replace(st, w=flat[1:].view(st.w.shape), w_scale=fs[1:])
+    assert odd.w.data_ptr() % 16 != 0 and odd.w_scale.data_ptr() % 16 != 0
+    got = ckp.fused_conv_chain(x, [odd])[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, ckp.fused_conv_chain(x, [st])[0])
+    ref = ckp.chain_reference(x, [st])[0]
+    assert (got - ref).abs().max().item() <= 1e-6 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["three_stage", "unet_down", "lp_up_head"])
+@pytest.mark.parametrize("pct", [None, 99.9])
+def test_calibration_through_kernel_matches_reference(cuda_device, dt, case,
+                                                      pct):
+    """chain_stats through K2 (every stage emitted) against the same
+    statistics of chain_reference's outputs; the chain's own outputs come
+    back unchanged. The kernel's float outputs differ from the reference's
+    by f32 reassociation (two bf16 ulps in bf16), so the statistics agree
+    to that."""
+    x, stages, skips = _int8_case(case, dt, cuda_device)
+    before = ckp.chain_reference.calls
+    outs, stats = ckp.chain_stats(x, stages, skips, pct=pct)
+    assert ckp.chain_reference.calls == before
+    emitted = [dataclasses.replace(st, emit=True) for st in stages]
+    ref_outs = ckp.chain_reference(x, emitted, skips)
+    want = [ckp._abs_stat(t, pct) for t in [x] + ref_outs[:-1]]
+    np.testing.assert_allclose(stats, want,
+                               rtol=2e-4 if dt == "f32" else 2 ** -7)
+    direct = ckp.fused_conv_chain(x, stages, skips)
+    assert len(outs) == len(direct)
+    for a, b in zip(outs, direct):
+        assert torch.equal(a, b)

@@ -222,22 +222,47 @@ def test_halo_depths():
 _SEL = np.zeros((1, 4, 16, 4), np.float32)  # a valid f_in 2, c 4 stack
 for _t, _src in enumerate((0, 1, 2, 3)):
     _SEL[0, _t, 4 * _src:4 * _src + 4] = np.eye(4)
+_SEL_T = torch.from_numpy(_SEL)
 
 
-@pytest.mark.parametrize("field", [dict(w_scale=torch.ones(4)),
-                                   dict(w_scale=torch.ones(4), pool=True),
-                                   dict(x_scale=0.1, skip_w=torch.zeros(3, 3, 4, 4),
-                                        skip_idx=0),
-                                   dict(pool=True, x_scale=0.1),
-                                   dict(x_scale=0.1),
-                                   dict(x_scale=0.1, skip_w=torch.zeros(1, 1, 4, 4),
-                                        skip_idx=0)])
+_W8 = torch.zeros(3, 3, 4, 4, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("field", [
+    # w_scale on a float stage
+    dict(w_scale=torch.ones(4)),
+    # w_scale on a float pool stage
+    dict(w_scale=torch.ones(4), pool=True),
+    # a quantized conv stage without w_scale (with a conv'd skip)
+    dict(x_scale=0.1, w=_W8, skip_w=torch.zeros(3, 3, 4, 4), skip_idx=0),
+    # w_scale on a quantized pool stage
+    dict(pool=True, x_scale=0.1, w_scale=torch.ones(4)),
+    # a quantized conv stage with a float kernel
+    dict(x_scale=0.1, w_scale=torch.ones(4)),
+    # a w_scale that is not (Cout,), beside a 1x1 conv'd skip
+    dict(x_scale=0.1, w=_W8, w_scale=torch.ones(3),
+         skip_w=torch.zeros(1, 1, 4, 4), skip_idx=0)])
 def test_unported_stage_features_raise(field):
-    """int8 (x_scale, w_scale) is the one stage feature still to port, on
-    a pool stage too."""
-    st = tppk.ChainStage(w=torch.zeros(3, 3, 4, 4), b=torch.zeros(4), **field)
-    with pytest.raises(NotImplementedError):
-        tppk.fused_conv_chain(torch.zeros(1, 4, 4, 4), [st])
+    """Malformed int8 stages raise ValueError, on the CPU path as on the
+    card: the JAX kernel's asserts (w_scale exactly on quantized conv
+    stages) and the port's own (an int8 kernel, a (Cout,) w_scale)."""
+    field = dict(field)
+    w = _SEL_T if field.get("pool") else field.pop("w", torch.zeros(3, 3, 4, 4))
+    st = tppk.ChainStage(w=w, b=torch.zeros(4), **field)
+    x = torch.zeros(1, 4, 4, 16 if field.get("pool") else 4)
+    with pytest.raises(ValueError):
+        tppk.fused_conv_chain(x, [st], [torch.zeros(1, 4, 4, 4)])
+
+
+@pytest.mark.parametrize("scales", [(0.1, 0.0), (0.0, 0.1), (-0.1, -0.1)])
+def test_mixed_or_negative_int8_chain_raises(scales):
+    """Every stage of a chain is quantized or none is; a scale is > 0."""
+    stages = [tppk.ChainStage(w=_W8 if s else torch.zeros(3, 3, 4, 4),
+                              b=torch.zeros(4), x_scale=s,
+                              w_scale=torch.ones(4) if s else None)
+              for s in scales]
+    with pytest.raises(ValueError):
+        tppk.fused_conv_chain(torch.zeros(1, 4, 4, 4), stages)
 
 
 @pytest.mark.parametrize("w,field", [
@@ -403,6 +428,30 @@ def test_stage_cap_holds_the_longest_chain():
         longest = max([longest] + [len(v) for v in ch.values()
                                    if isinstance(v, list)])
     assert longest == 9 and cap >= longest
+
+
+@pytest.mark.parametrize("struct,mirror", [("RcvStage", "_Stage"),
+                                           ("RcvChain", "_Chain")])
+def test_descriptor_mirror_matches_the_kernel(struct, mirror):
+    """The ctypes mirror names the C struct's fields in the C order, and
+    the whole descriptor (the kernel's parameter block) stays well under
+    the 4 KB a kernel may take."""
+    import ctypes
+    import pathlib
+    import re
+
+    src = (pathlib.Path(tppk.__file__).parents[1] / "csrc" / "conv_chain.cu"
+           ).read_text()
+    body = re.search(r"struct %s \{(.*?)\n\};" % struct, src, re.S).group(1)
+    names = []
+    for line in body.split("\n"):
+        decl = line.split("//")[0].strip()
+        if decl:
+            decl = re.sub(r"\[[^]]*\]", "", decl.rstrip(";"))
+            names += [v.strip().split()[-1].lstrip("*")
+                      for v in decl.split(",")]
+    assert names == [f[0] for f in getattr(tppk, mirror)._fields_]
+    assert ctypes.sizeof(tppk._Chain) <= 2304
 
 
 @pytest.mark.parametrize("stages", [

@@ -178,8 +178,9 @@ def test_full_chain_graph_matches_jax(argmax_head):
 
 
 def test_full_chain_graph_launches_three_chains_a_frame():
-    """Each served frame of the full chain graph makes three chain calls:
-    the folded-stem down chain, the deep chain, the up chain with its head."""
+    """Each served frame of the full chain graph makes three chain calls,
+    tagged as the JAX package tags them: the folded-stem down chain, the
+    deep chain, the up chain with its head."""
     model = tzoo.make("robo_unet", no_scale=True, device="cpu")
     pi = tpacked.build_packed_infer(model, None, torch.float32, pallas=True,
                                     pallas_fold_stem=True, pallas_deep=True,
@@ -187,14 +188,15 @@ def test_full_chain_graph_launches_three_chains_a_frame():
     calls = []
     orig = pi._chain
 
-    def record(x, stages, skips=()):
-        calls.append([st.argmax_groups for st in stages])
-        return orig(x, stages, skips)
+    def record(tag, x, stages, skips=()):
+        calls.append((tag, [st.argmax_groups for st in stages]))
+        return orig(tag, x, stages, skips)
 
     pi._chain = record
     fn, _ = pi.infer_u8_packed()
     fn(np.zeros((1, 64, 64, 3), np.float32))
-    assert len(calls) == 3 and calls[-1][-1] == 16
+    assert [t for t, _ in calls] == ["down", "deep", "up"]
+    assert calls[-1][1][-1] == 16
 
 
 @pytest.mark.parametrize("pallas", [False, True])
@@ -261,8 +263,15 @@ def test_unported_build_options_raise():
     with pytest.raises(ValueError):  # the packed PB_FCN is its segment mode
         tpacked.build_packed_pb_fcn(tzoo.make("pb_fcn", classify=True,
                                               device="cpu"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tpacked.quantize_int8(None)
+    # int8: a graph with no chains, and one already quantized, are refused
+    plain = tpacked.build_packed_infer(model, None, torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="chain graph"):
+        tpacked.quantize_int8(plain, np.zeros((1, 64, 64, 3), np.float32))
+    chained = tpacked.build_packed_infer(model, None, torch.float32,
+                                         pallas=True, device="cpu")
+    q = tpacked.quantize_int8(chained, np.zeros((1, 64, 64, 3), np.float32))
+    with pytest.raises(ValueError, match="already quantized"):
+        tpacked.quantize_int8(q, np.zeros((1, 64, 64, 3), np.float32))
 
 
 # the --UNet and --v2 rows of train.py's hyperparameter table, and the

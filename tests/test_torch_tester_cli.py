@@ -2,8 +2,10 @@
 JAX package's, on a synthetic RoboCup-layout root (tests/synth_data.py) at
 48x64 with ``--noScale``: the printed validation metrics within 1e-3, the
 mask PNGs equal on all but 1e-4 of the pixels (argmax ties of the f32
-chain graph), ``--pipeline 3`` equal to serial, the checkpoint format
-shared both ways, and the dataset reader equal to the JAX package's."""
+chain graph), ``--pipeline 3`` equal to serial, ``--int8`` (PB_FCN and
+``--v2``) within 1e-3 of the JAX CLI's ``--int8`` run with masks equal on
+>= 0.999 of the pixels, the checkpoint format shared both ways, and the
+dataset reader equal to the JAX package's."""
 
 import os
 import re
@@ -159,9 +161,35 @@ def test_dataset_matches_jax(env, scale, camera):
         np.testing.assert_array_equal(lab, jlab)
 
 
+def _int8_run_matches_jax(env, capsys, v2):
+    """``--packed --pallas --int8`` (calibrated on the first val frame)
+    against the JAX CLI's own run: metrics within 1e-3, masks equal on
+    >= 0.999 of the pixels (a requantization tie may move a pixel)."""
+    flags = ["--root", env["root"], "--noScale", "--packed", "--pallas",
+             "--int8"] + (["--v2"] if v2 else [])
+    ref = _metrics(_run(jtester.main, flags, capsys))
+    ref_masks = _masks()
+    out = _run(tester.main, flags, capsys, device="cpu")
+    assert len(_metrics(out)) == 3
+    np.testing.assert_allclose(_metrics(out), ref, atol=1e-3)
+    for got, want in zip(_masks(), ref_masks):
+        assert np.mean(np.any(got != want, axis=-1)) <= 1e-3
+
+
 @pytest.mark.parametrize("flag", [["--dump"], ["--dump", "--aot"],
                                   ["--packed", "--pallas", "--int8"]])
 def test_unported_flags_raise(env, monkeypatch, capsys, flag):
+    """``--dump`` and ``--aot`` (the export slice) raise; ``--int8``, now
+    ported, runs and matches the JAX CLI's ``--int8`` run."""
     monkeypatch.chdir(env["work"])
+    if "--int8" in flag:
+        _int8_run_matches_jax(env, capsys, v2=False)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tester.main(["--root", env["root"], "--noScale"] + flag, device="cpu")
+
+
+def test_tester_int8_v2_matches_jax(env, monkeypatch, capsys):
+    """``--v2 --int8``: PB_FCN_2 through build_packed_infer, quantized."""
+    monkeypatch.chdir(env["work"])
+    _int8_run_matches_jax(env, capsys, v2=True)

@@ -4,8 +4,10 @@ against the JAX package's, on a synthetic LabelProp tree
 dataset items and the frame-pair inputs equal, the printed metrics within
 1e-3 (plain, ``--packed`` and ``--packed --pallas`` against the JAX plain
 run), the mask PNGs equal on all but 1e-4 of the pixels (argmax ties of the
-f32 packed graphs), the ``weightsLP/`` export byte-identical, and the flags
-of later slices raising ``NotImplementedError``."""
+f32 packed graphs), ``--packed --pallas --int8`` within 1e-3 of the JAX
+CLI's ``--int8`` run (masks equal on >= 0.999 of the pixels), the
+``weightsLP/`` export byte-identical, and the flags of later slices raising
+``NotImplementedError``."""
 
 import os
 import re
@@ -127,10 +129,27 @@ def test_serve_and_score_counts_every_image():
 
 @pytest.mark.parametrize("flag", [["--optFlow"], ["--optFlow", "--jaxFlow"],
                                   ["--packed", "--pallas", "--int8"]])
-def test_unported_flags_raise(env, monkeypatch, flag):
+def test_unported_flags_raise(env, monkeypatch, capsys, flag):
+    """``--optFlow``/``--jaxFlow`` (a later slice) raise; ``--int8``, now
+    ported, runs (calibrated on the first val pair) and matches the JAX
+    CLI's ``--int8`` run: metrics within 1e-3, masks equal on >= 0.999 of
+    the pixels, the same ``weightsLP`` export."""
     monkeypatch.chdir(env["work"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        validLabelProp.main(["--root", env["root"]] + flag, device="cpu")
+    flags = ["--root", env["root"]] + flag
+    if "--int8" not in flag:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            validLabelProp.main(flags, device="cpu")
+        return
+    assert jvalid.main(flags) == 0
+    ref = _metrics(capsys.readouterr().out)
+    ref_masks, ref_weights = _masks(8), _weights()
+    assert validLabelProp.main(flags, device="cpu") == 0
+    out = capsys.readouterr().out
+    assert len(_metrics(out)) == 3
+    np.testing.assert_allclose(_metrics(out), ref, atol=1e-3)
+    for got, want in zip(_masks(8), ref_masks):
+        assert np.mean(np.any(got != want, axis=-1)) <= 1e-3
+    assert _weights() == ref_weights
 
 
 def test_int8_needs_the_chain_graph(env, monkeypatch, capsys):
