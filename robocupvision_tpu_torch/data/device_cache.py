@@ -36,6 +36,13 @@ class DeviceCache:
                    int(images.shape[0]))
 
 
+def shuffle(gen: torch.Generator, n: int) -> torch.Tensor:
+    """An epoch's sample order: a permutation of range(n) drawn from
+    ``gen``, on the generator's device (training's shuffle; the JAX
+    package draws it from jax.random)."""
+    return torch.randperm(n, generator=gen, device=gen.device)
+
+
 def num_batches(n: int, batch_size: int) -> int:
     return -(-n // batch_size)
 
@@ -45,7 +52,7 @@ def epoch_batches(cache: DeviceCache, batch_size: int,
                   ) -> Iterator[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
     """Yield (imgs, labels, sample_mask) batches of ``batch_size`` for one
     epoch, on the cache's device. ``perm``: the sample order, a permutation
-    of range(n) drawn by the caller (training's shuffle), or None for the
+    of range(n) (training's shuffle, e.g. :func:`shuffle`), or None for the
     sequential order of evaluation. The last batch is filled up with copies
     of sample 0, which its mask marks 0."""
     n = cache.n

@@ -9,16 +9,23 @@ model config and the unused classification head left out precisely.
 from __future__ import annotations
 
 import os
+from typing import Dict, Optional
+
+import torch
 
 from robocupvision_tpu_torch.export import netcfg, weights_io
 from robocupvision_tpu_torch.models.zoo import Model
 
 
-def export_deployment(path: str, model: Model) -> str:
-    """Write net.cfg + weights.dat of ``model``'s state_dict for a
-    deployable family: PB_FCN (segmentation), LabelProp or ROBO-UNet."""
+def export_deployment(path: str, model: Model,
+                      params: Optional[Dict[str, torch.Tensor]] = None,
+                      fname: str = "weights.dat") -> str:
+    """Write net.cfg + ``fname`` for a deployable family: PB_FCN
+    (segmentation), LabelProp or ROBO-UNet, of ``params`` (the port's
+    state_dict; the model's own when None). The JAX tester's ``--dump``
+    writes ``weights2.dat`` unless ``--pruned``."""
     os.makedirs(path, exist_ok=True)
-    state = model.state_dict()
+    state = model.state_dict() if params is None else params
     fam, cfg = model.family, model.cfg
     if fam == "pb_fcn":
         if cfg.classify:
@@ -36,5 +43,6 @@ def export_deployment(path: str, model: Model) -> str:
         raise ValueError(f"no deployment graph emitter for family {fam}")
     secs = netcfg.apply_param_widths(secs, model.registry, state, skip)
     netcfg.write_cfg(os.path.join(path, "net.cfg"), secs)
-    weights_io.save_params(path, model.registry, state, skip_prefixes=skip)
+    weights_io.save_params(path, model.registry, state, fname=fname,
+                           skip_prefixes=skip)
     return path

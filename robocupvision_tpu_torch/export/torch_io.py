@@ -44,12 +44,13 @@ def from_jax_params(reg: Registry, params_np: Dict[str, "object"]
 
 def to_jax_params(reg: Registry, state: Dict[str, torch.Tensor]
                   ) -> Dict[str, np.ndarray]:
-    """The port's state_dict -> JAX-layout param dict (numpy f32)."""
+    """The port's state_dict (tensors or arrays, torch layouts) ->
+    JAX-layout param dict (numpy f32)."""
     out: Dict[str, np.ndarray] = {}
     for name, spec in reg.specs.items():
         if name not in state:
             raise KeyError(f"missing parameter: {name}")
-        a = state[name].detach().float().cpu().numpy()
+        a = torch.as_tensor(state[name]).detach().float().cpu().numpy()
         if spec.kind == "conv_w":
             a = np.transpose(a, (2, 3, 1, 0))
         elif spec.kind == "tconv_w":

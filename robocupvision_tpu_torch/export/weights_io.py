@@ -20,15 +20,24 @@ from robocupvision_tpu_torch.models.layers import Registry
 
 
 def save_params(path: str, reg: Registry, state: Dict[str, torch.Tensor],
+                fname: str = "weights.dat", skip_classifier: bool = False,
                 skip_prefixes: Tuple[str, ...] = ()) -> str:
-    """Write ``state`` (the port's state_dict) to ``path/weights.dat``;
-    ``skip_prefixes`` leaves out an unused head precisely (e.g.
-    ``("classifier.",)``)."""
+    """Write ``state`` (the port's state_dict) to ``path/fname``.
+    ``skip_classifier`` is the reference's substring test (paramSave.py:12:
+    it also matches PB_FCN's ``segmenter.classifier``), which the JAX
+    tester's ``--dump`` of ``--v2`` uses; ``skip_prefixes`` leaves out an
+    unused head precisely (e.g. ``("classifier.",)``)."""
     os.makedirs(path, exist_ok=True)
-    chunks = [state[name].detach().to("cpu", torch.float32).numpy().reshape(-1)
-              for name in reg.specs
-              if not any(name.startswith(p) for p in skip_prefixes)]
+    chunks = []
+    for name in reg.specs:
+        if skip_classifier and "classifier" in name:
+            print("Classifier module skipped")
+            continue
+        if any(name.startswith(p) for p in skip_prefixes):
+            continue
+        chunks.append(torch.as_tensor(state[name]).detach()
+                      .to("cpu", torch.float32).numpy().reshape(-1))
     flat = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
-    out = os.path.join(path, "weights.dat")
+    out = os.path.join(path, fname)
     flat.astype("<f4").tofile(out)
     return out

@@ -16,7 +16,12 @@ buffers) under exactly the registry names, so ``state_dict()`` keys and
 order are the registry's (and the reference's torch checkpoints').
 
 Block functions take a flat ``{name: tensor}`` dict and NHWC activations and
-reproduce the reference's op orders (its model.py:105-199, 256-267):
+reproduce the reference's op orders. They run in eval mode unless called
+inside :func:`train_mode`, where every BN normalizes by its batch
+statistics (leaving out the samples :func:`bn_stats_mask` marks padded)
+and writes its new running statistics into the dict ``train_mode`` yields
+(the JAX package threads that dict through as ``mut``). The op orders
+(its model.py:105-199, 256-267):
   conv_block:        conv -> ReLU -> BN        (BN after ReLU!)
   conv_pool_simple:  conv -> BN -> ReLU
   conv_pool:         dilated conv1 -> ReLU -> stride-2 pool conv -> BN -> ReLU
@@ -26,9 +31,11 @@ reproduce the reference's op orders (its model.py:105-199, 256-267):
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 from collections import OrderedDict
-from typing import Dict, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn as tnn
@@ -130,6 +137,13 @@ def is_weight(name: str) -> bool:
     return not (name.endswith(".running_mean") or name.endswith(".running_var"))
 
 
+def split_params(params: Params) -> Tuple[Params, Params]:
+    """(trainable, state): the BN running statistics are the state."""
+    train = {k: v for k, v in params.items() if is_weight(k)}
+    state = {k: v for k, v in params.items() if not is_weight(k)}
+    return train, state
+
+
 class RegistryModule(tnn.Module):
     """An ``nn.Module`` whose parameters (and BN-statistic buffers) sit at
     the registry's dotted names, built as nested submodules."""
@@ -157,7 +171,41 @@ class RegistryModule(tnn.Module):
         return {**dict(self.named_parameters()), **dict(self.named_buffers())}
 
 
-# ---- eval-mode block applications -------------------------------------------
+# ---- train mode ---------------------------------------------------------------
+
+# The dict a train-mode forward writes the new BN running statistics into,
+# and the (N,) mask of the batch's real samples; both ambient, so that no
+# block signature carries them.
+_BN_TRAIN_MUT: contextvars.ContextVar = contextvars.ContextVar(
+    "bn_train_mut", default=None)
+_BN_SAMPLE_MASK: contextvars.ContextVar = contextvars.ContextVar(
+    "bn_sample_mask", default=None)
+
+
+@contextlib.contextmanager
+def train_mode() -> Iterator[Params]:
+    """Run the blocks in train mode; yields the dict of new running
+    statistics (``mut``) that the forward fills."""
+    mut: Params = {}
+    token = _BN_TRAIN_MUT.set(mut)
+    try:
+        yield mut
+    finally:
+        _BN_TRAIN_MUT.reset(token)
+
+
+@contextlib.contextmanager
+def bn_stats_mask(mask: Optional[torch.Tensor]) -> Iterator[None]:
+    """Leave the samples where ``mask`` (N,) is 0 out of the BN batch
+    statistics of a train-mode forward."""
+    token = _BN_SAMPLE_MASK.set(mask)
+    try:
+        yield
+    finally:
+        _BN_SAMPLE_MASK.reset(token)
+
+
+# ---- block applications -------------------------------------------------------
 
 
 def conv(p: Params, name: str, x, stride=1, padding=0, dilation=1):
@@ -172,8 +220,17 @@ def tconv(p: Params, name: str, x, stride=2, padding=1, output_padding=1):
 
 
 def bn(p: Params, name: str, x):
-    return nn.batch_norm(x, p[name + ".weight"], p[name + ".bias"],
-                         p[name + ".running_mean"], p[name + ".running_var"])
+    mut = _BN_TRAIN_MUT.get()
+    if mut is None:
+        return nn.batch_norm(x, p[name + ".weight"], p[name + ".bias"],
+                             p[name + ".running_mean"],
+                             p[name + ".running_var"])
+    y, rm, rv = nn.batch_norm_train(
+        x, p[name + ".weight"], p[name + ".bias"], p[name + ".running_mean"],
+        p[name + ".running_var"], sample_mask=_BN_SAMPLE_MASK.get())
+    mut[name + ".running_mean"] = rm
+    mut[name + ".running_var"] = rv
+    return y
 
 
 # Reference block: Conv = conv -> ReLU -> BN (model.py:105-116)

@@ -1,4 +1,4 @@
-"""Model zoo, eval-mode: the ROBO-UNet family (reference model.py:461-536)
+"""Model zoo: the ROBO-UNet family (reference model.py:461-536)
 at QVGA and at VGA (``no_scale``), the flagship with additive skips, the
 ``--UNet`` variant (``pool``: max-pool downs) and the ``--v2`` variant
 (concat skips), with its analytic op count; PB_FCN over its DownSampler
@@ -8,7 +8,9 @@ in its segmentation and classification modes; and the LabelProp net
 
 ``make(family, ...)`` returns a :class:`Model`, an ``nn.Module`` whose
 ``state_dict`` carries the registry names; its ``forward`` takes NHWC input
-and returns NHWC logits, like the JAX package's ``Model.apply``.
+and returns NHWC logits with the module's own weights, and ``apply`` does
+the same with given params, in the ROBO-UNet's case also in train mode,
+like the JAX package's ``Model.apply``.
 """
 
 from __future__ import annotations
@@ -180,8 +182,15 @@ def robo_unet_registry(cfg: RoboUNetCfg) -> L.Registry:
     return r
 
 
-def robo_unet_apply(cfg: RoboUNetCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode forward: NHWC input -> NHWC logits."""
+def robo_unet_apply(cfg: RoboUNetCfg, p: Params, x: torch.Tensor, *,
+                    train: bool = False):
+    """NHWC input -> NHWC logits. ``train``: BN by batch statistics (padded
+    samples left out under ``layers.bn_stats_mask``), returning
+    (logits, mut) with ``mut`` the new running statistics, as the JAX
+    package's apply does. The ROBO-UNet has no dropout."""
+    if train:
+        with L.train_mode() as mut:
+            return robo_unet_apply(cfg, p, x), mut
     depth = cfg.eff_depth
     downs = [x]
     downs.append(L.level_down(p, "downPart.Level0", x, cfg.levels - 1, False,
@@ -431,6 +440,20 @@ class Model(L.RegistryModule):
     def forward(self, x) -> torch.Tensor:
         x = torch.as_tensor(x, device=self.device)
         return _FAMILIES[self.family][2](self.cfg, self.flat(), x)
+
+    def apply(self, params: Params, x: torch.Tensor, *, train: bool = False):
+        """The forward with the given flat params (the train step's
+        tensors, not the module's own): logits, or (logits, mut) with the
+        new BN running statistics when ``train``. Only the ROBO-UNet family
+        trains so far; the others' train modes come with their CLIs."""
+        fn = _FAMILIES[self.family][2]
+        if not train:
+            return fn(self.cfg, params, x)
+        if self.family != "robo_unet":
+            raise NotImplementedError(
+                f"train mode of the {self.family} family is not ported yet "
+                "(ROADMAP A.5)")
+        return fn(self.cfg, params, x, train=True)
 
 
 def make(family: str, *, device: DeviceLike = None,

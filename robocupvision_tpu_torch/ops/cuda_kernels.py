@@ -1,10 +1,12 @@
-"""K1 `confusion_count`: the CUDA replacement of the JAX package's
-``confusion_matrix_pallas`` (robocupvision_tpu/ops/pallas_kernels.py), and
-its plain PyTorch version.
+"""The CUDA replacements of the JAX package's ops/pallas_kernels.py, each
+with its plain PyTorch version:
 
-``confusion_count`` launches ``csrc/confusion.cu`` for CUDA tensors and runs
-``confusion_count_plain`` for CPU tensors; nothing else selects between
-them. ``confusion_count.launches`` counts kernel launches.
+- K1 ``confusion_count`` (``confusion_matrix_pallas``, ``csrc/confusion.cu``);
+- K3 ``fused_conv3x3_block`` (``fused_conv3x3_block``, ``csrc/conv_block.cu``).
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain version
+for CPU tensors; nothing else selects between them. ``<wrapper>.launches``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 _KERNEL_MAX_CLASSES = 16  # csrc/confusion.cu kMaxClasses
 
@@ -78,3 +81,115 @@ def confusion_count(pred: torch.Tensor, tgt: torch.Tensor,
 
 
 confusion_count.launches = 0
+
+
+# ---- K3: fused conv3x3 block ------------------------------------------------
+
+
+def _check_conv_block(x, w, b, scale, shift, tile):
+    if x.dim() != 4 or x.shape[0] != 1:
+        raise ValueError(f"x must be (1, H, W, C), got {tuple(x.shape)}")
+    _, h, _, c = x.shape
+    if tile < 1 or h % tile:
+        raise ValueError(f"tile={tile} must divide H={h}")
+    if w.dim() != 4 or tuple(w.shape[:3]) != (3, 3, c):
+        raise ValueError(f"w must be (3, 3, {c}, Co), got {tuple(w.shape)}")
+    co = int(w.shape[3])
+    for name, t in (("b", b), ("scale", scale), ("shift", shift)):
+        if tuple(t.shape) != (co,):
+            raise ValueError(f"{name} must be ({co},), got {tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    if w.device != x.device:
+        raise ValueError(f"w on {w.device}, x on {x.device}")
+
+
+def fused_conv3x3_block_plain(x: torch.Tensor, w: torch.Tensor,
+                              b: torch.Tensor, scale: torch.Tensor,
+                              shift: torch.Tensor,
+                              relu_before_bn: bool = True) -> torch.Tensor:
+    """The kernel's function in plain PyTorch: the weights rounded to x's
+    dtype, the nine taps (dy, dx in order) summed at f32 as nine einsums
+    over shifted views of the zero-padded input, then the f32 epilogue,
+    stored at x's dtype."""
+    _, h, wd, _ = x.shape
+    xp = F.pad(x[0].float(), (0, 0, 1, 1, 1, 1))
+    wf = w.to(x.dtype).float()
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            t = torch.einsum("hwc,co->hwo", xp[dy:dy + h, dx:dx + wd],
+                             wf[dy, dx])
+            acc = t if acc is None else acc + t
+    y = acc + b.float()
+    if relu_before_bn:
+        y = torch.clamp_min(y, 0.0) * scale.float() + shift.float()
+    else:
+        y = torch.clamp_min(y * scale.float() + shift.float(), 0.0)
+    return y.to(x.dtype)[None]
+
+
+def conv_block_bf16_tolerance(ref: torch.Tensor) -> torch.Tensor:
+    """Per-element tolerance of a bf16 K3 output against its plain version:
+    one bf16 ulp of ``|ref|`` (both sides round an f32 sum to bf16; sums in
+    another order can land on the other side of a rounding boundary) plus
+    ``2**-16 * max|ref|``, for outputs near zero, where the sums' order
+    moves the f32 value by more than their own ulp."""
+    r = ref.float().abs()
+    _, e = torch.frexp(r)
+    ulp = torch.where(r > 0, torch.ldexp(torch.ones_like(r), e - 8),
+                      torch.zeros_like(r))
+    return ulp + r.max() * 2.0 ** -16
+
+
+def _conv_block_lib():
+    from robocupvision_tpu_torch.csrc import build
+
+    fn = build.load("conv_block.cu").rcv_conv3x3_block
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_conv3x3_block(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                        scale: torch.Tensor, shift: torch.Tensor,
+                        relu_before_bn: bool = True,
+                        tile: int = 8) -> torch.Tensor:
+    """Fused conv3x3 (stride 1, pad 1) + bias + ReLU/BN affine, (1, H, W, C)
+    NHWC with an HWIO (3, 3, C, Co) kernel -> (1, H, W, Co) at x's dtype.
+    ``relu_before_bn``: relu(y) * scale + shift, else relu(y * scale +
+    shift). ``tile`` output rows a block; it must divide H, as the JAX
+    kernel asserts. CUDA tensors (f32 or bf16 x, contiguous) go through
+    ``csrc/conv_block.cu``; CPU tensors through
+    :func:`fused_conv3x3_block_plain`."""
+    _check_conv_block(x, w, b, scale, shift, tile)
+    if x.device.type == "cpu":
+        return fused_conv3x3_block_plain(x, w, b, scale, shift,
+                                         relu_before_bn)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_conv3x3_block runs on cuda or cpu, not "
+                         f"{x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous (NHWC)")
+    _, h, wd, c = x.shape
+    co = int(w.shape[3])
+    wk = w.to(x.dtype).contiguous()
+    vecs = [t.float().contiguous() for t in (b, scale, shift)]
+    out = torch.empty((1, h, wd, co), dtype=x.dtype, device=x.device)
+    fn = _conv_block_lib()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), wk.data_ptr(), *(v.data_ptr() for v in vecs),
+                 out.data_ptr(), h, wd, c, co, tile, int(relu_before_bn),
+                 int(x.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"fused_conv3x3_block launch failed: CUDA error "
+                           f"{err}")
+    fused_conv3x3_block.launches += 1
+    return out
+
+
+fused_conv3x3_block.launches = 0

@@ -244,6 +244,30 @@ def _quantize(y: torch.Tensor, x_scale: float) -> torch.Tensor:
     return torch.clamp(torch.round(y.float() * (1.0 / x_scale)), -127., 127.)
 
 
+def skip_conv_in_tap_order(skip: torch.Tensor,
+                           sw: torch.Tensor) -> torch.Tensor:
+    """The (K, K, Cskip, Cout) conv of NHWC ``skip`` (padding K/2) as the
+    kernel's ``float_taps`` sums it: taps (dy, dx) in order, input channels
+    inner, every product added to an f32 accumulator with one rounding (the
+    kernel's FMA; the product of two f32 values is exact in f64, so the f64
+    sum rounded to f32 is the FMA but for a double rounding, which needs a
+    tie at both widths at once). Returns (N, H, W, Cout) f32."""
+    n, h, w, scin = skip.shape
+    k = int(sw.shape[0])
+    p = k // 2
+    xp = F.pad(skip.double(), (0, 0, p, p, p, p))
+    w64 = sw.double()
+    acc = torch.zeros((n, h, w, int(sw.shape[3])), dtype=torch.float32,
+                      device=skip.device)
+    for dy in range(k):
+        for dx in range(k):
+            xs = xp[:, dy:dy + h, dx:dx + w, :]
+            for ci in range(scin):
+                acc = (acc.double() + xs[..., ci:ci + 1] * w64[dy, dx, ci]
+                       ).float()
+    return acc
+
+
 def chain_reference(x: torch.Tensor, stages: Sequence[ChainStage],
                     skips: Sequence[torch.Tensor] = ()) -> List[torch.Tensor]:
     """Plain-PyTorch mirror of :func:`fused_conv_chain` at the same rounding
@@ -251,8 +275,9 @@ def chain_reference(x: torch.Tensor, stages: Sequence[ChainStage],
     epilogue, and rounding to the chain dtype between stages and at every
     emitted output. An int8 chain quantizes its input at stage 0, runs its
     integer convs in f64 (exact: every sum stays below 2**53; CPU convs have
-    no int32 form) cast to f32, dequantizes, and requantizes the f32 result
-    for the next stage. The test oracle for the kernel, and its CPU path;
+    no int32 form) cast to f32, dequantizes, adds a ``skip_w`` stage's float
+    skip conv summed in the kernel's order (:func:`skip_conv_in_tap_order`),
+    and requantizes the f32 result for the next stage. The test oracle for the kernel, and its CPU path;
     ``chain_reference.calls`` counts its calls."""
     chain_reference.calls += 1
     stages = _prepare(stages)
@@ -289,7 +314,14 @@ def chain_reference(x: torch.Tensor, stages: Sequence[ChainStage],
             y = y.float()
             if q:
                 y = y * (st.w_scale.float() * st.x_scale).view(-1, 1, 1)
-            if st.skip_w is not None:
+            if st.skip_w is not None and q:
+                # an int8 stage's float skip conv, summed in the kernel's
+                # order: a requantization tie downstream turns on the last
+                # bit of the sum
+                y = y + skip_conv_in_tap_order(
+                    skips[st.skip_idx], st.skip_w.to(chain_dtype)
+                ).permute(0, 3, 1, 2)
+            elif st.skip_w is not None:
                 # the skip's conv, its kernel at the chain dtype, summed in f32
                 # before the bias
                 sw = st.skip_w.to(chain_dtype).float().permute(3, 2, 0, 1)

@@ -1,14 +1,15 @@
 """Losses with the reference's semantics (reference model.py:5-43, 76-82;
-the JAX package's ops/losses.py), forward only.
+the JAX package's ops/losses.py).
 
 They take NHWC logits and integer NHW targets, and an optional per-pixel
 validity mask so that the padded samples of a static-shape batch add
-nothing. Every loss is computed in f32.
+nothing. Every loss is computed in f32 and is differentiable (the train
+step takes its gradients by autograd).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Iterable, Mapping, Optional, Union
 
 import torch
 
@@ -66,6 +67,11 @@ def dice_loss(logits: torch.Tensor, targets: torch.Tensor,
     return 1.0 - torch.mean(2.0 * w * intersection / (cardinality + eps))
 
 
-def l1_regularization(params: Iterable[torch.Tensor]) -> torch.Tensor:
-    """Sum of absolute values over the given tensors (train.py:23-27)."""
+def l1_regularization(params: Union[Mapping[str, torch.Tensor],
+                                    Iterable[torch.Tensor]]) -> torch.Tensor:
+    """Sum of absolute values over the given tensors (train.py:23-27); a
+    dict (the train step's trainable params) is summed in its sorted-name
+    order, as the JAX package's tree of leaves is."""
+    if isinstance(params, Mapping):
+        params = [params[k] for k in sorted(params)]
     return sum(p.float().abs().sum() for p in params)

@@ -118,3 +118,20 @@ def seg_finalize(acc: SegAccum, out_size: float) -> dict:
         "mean_iou": mean_iou,
         "score": (mean_class_acc + mean_iou) / 2.0,
     }
+
+
+def seg_finalize_tensors(acc: SegAccum, out_size: float) -> dict:
+    """:func:`seg_finalize` as f32 tensor ops on the accumulator's device,
+    with no host copy (the train loop selects its best epoch on the card
+    and fetches the metrics once a chunk)."""
+    conf = acc.conf.float()
+    num_classes = conf.shape[0]
+    lab = torch.clamp_min(acc.lab_cnts.float(), 1e-12)
+    conf_norm = conf / (lab[None, :] / 100.0)
+    img_cnt = torch.clamp_min(acc.img_cnt.float(), 1.0)
+    mean_class_acc = torch.diagonal(conf_norm).sum() / num_classes
+    mean_iou = (acc.iou_sum.float() / img_cnt).sum() / num_classes * 100.0
+    pixel_acc = acc.correct.float() * out_size * 100.0 / img_cnt
+    return {"conf": conf_norm, "pixel_acc": pixel_acc,
+            "mean_class_acc": mean_class_acc, "mean_iou": mean_iou,
+            "score": (mean_class_acc + mean_iou) / 2.0}

@@ -5,8 +5,10 @@ torch-layout weights (what the port's modules store).
 - ``conv_transpose2d``  (x NHWC, w (in, out, kh, kw))   == ...conv_transpose2d.
                         Torch's kernel is unflipped; the JAX package stores
                         the same kernel pre-flipped HWIO (export/torch_io.py).
-- ``batch_norm``        eval mode only: the running statistics as one f32
+- ``batch_norm``        eval mode: the running statistics as one f32
                         affine, result in the input dtype.
+- ``batch_norm_train``  train mode: the batch statistics (padded samples
+                        masked out) and the new running statistics.
 - ``relu``, ``max_pool``.
 
 The NHWC <-> NCHW permutes are views: a contiguous NHWC tensor permuted to
@@ -55,11 +57,55 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
 def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                running_mean: torch.Tensor, running_var: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
-    """Eval-mode BatchNorm2d over the channel (last) axis, statistics in f32.
-    (The training form with ``sample_mask`` belongs to the training port.)"""
+    """Eval-mode BatchNorm2d over the channel (last) axis, statistics in f32."""
     inv = torch.rsqrt(running_var.float() + eps) * gamma.float()
     shift = beta.float() - running_mean.float() * inv
     return (x.float() * inv + shift).to(x.dtype)
+
+
+def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor,
+                     momentum: float = 0.1, eps: float = 1e-5,
+                     sample_mask: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Train-mode BatchNorm2d over the channel (last) axis, as the JAX
+    package's ``batch_norm(train=True)`` computes it: batch statistics in
+    f32, the variance as E[x^2] - E[x]^2 (biased) for the normalization and
+    its unbiased form for the running variance, torch's momentum.
+    ``sample_mask`` (N,) leaves padded samples out of the statistics, and an
+    all-padding batch leaves the running statistics as they were.
+
+    Returns (y at x's dtype, new running mean, new running var); the
+    running statistics carry no gradient."""
+    xf = x.float()
+    axes = tuple(range(x.dim() - 1))
+    if sample_mask is not None:
+        m = torch.as_tensor(sample_mask, device=x.device).float().reshape(
+            (-1,) + (1,) * (x.dim() - 1))
+        per_sample = 1
+        for a in axes[1:]:
+            per_sample *= x.shape[a]
+        n = torch.clamp_min(m.sum() * per_sample, 1.0)
+        mean = (xf * m).sum(dim=axes) / n
+        var = (xf.square() * m).sum(dim=axes) / n - mean.square()
+        unbiased = var * (n / torch.clamp_min(n - 1.0, 1.0))
+    else:
+        mean = xf.mean(dim=axes)
+        var = xf.square().mean(dim=axes) - mean.square()  # biased
+        n = 1
+        for a in axes:
+            n *= x.shape[a]
+        unbiased = var * (n / max(n - 1, 1))
+    with torch.no_grad():
+        new_rm = (1.0 - momentum) * running_mean + momentum * mean
+        new_rv = (1.0 - momentum) * running_var + momentum * unbiased
+        if sample_mask is not None:
+            valid = m.sum() > 0
+            new_rm = torch.where(valid, new_rm, running_mean)
+            new_rv = torch.where(valid, new_rv, running_var)
+    inv = torch.rsqrt(var + eps) * gamma.float()
+    shift = beta.float() - mean * inv
+    return (xf * inv + shift).to(x.dtype), new_rm, new_rv
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

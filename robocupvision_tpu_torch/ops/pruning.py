@@ -1,14 +1,24 @@
-"""Pruning statistics (the JAX package's ops/pruning.py), so far the
-near-zero count that the evaluation CLI test.py prints. The pruning
-strategies belong to a later slice of the port."""
+"""Pruning (the JAX package's ops/pruning.py): the near-zero count that the
+CLIs print, the reference's 1%-of-max threshold pruning that train.py's
+finetune phase runs, and the gradient masking that keeps pruned weights
+at zero. "Prunable" tensors are the trainable ones with more than one
+dimension, in registry order, as the reference's
+``for param in model.parameters(): if param.dim() > 1`` walks them.
+"""
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from robocupvision_tpu_torch.models.layers import is_weight
+
+
+def _np(p) -> np.ndarray:
+    return p.detach().float().cpu().numpy() if hasattr(p, "detach") \
+        else np.asarray(p)
 
 
 def count_zero_weights(params: Mapping, order: Sequence[str]) -> float:
@@ -21,10 +31,67 @@ def count_zero_weights(params: Mapping, order: Sequence[str]) -> float:
     for name in order:
         if not is_weight(name):
             continue
-        p = params[name]
-        p = np.abs(p.detach().float().cpu().numpy() if hasattr(p, "detach")
-                   else np.asarray(p))
+        p = np.abs(_np(params[name]))
         m = np.max(p) if p.size else 0.0
         near_zero += float(np.sum(p < m * 0.01))
         total += p.size
     return near_zero / max(total, 1)
+
+
+def near_zero_fraction(params: Mapping[str, torch.Tensor],
+                       order: Sequence[str]) -> torch.Tensor:
+    """:func:`count_zero_weights` as tensor ops on the params' device, a
+    0-d f32 tensor: no host copy of the weights (the train loop reports it
+    every epoch and fetches it with the epoch's other metrics)."""
+    near = None
+    total = 0
+    for name in order:
+        if not is_weight(name):
+            continue
+        p = params[name].detach().float().abs()
+        if p.numel() == 0:
+            continue
+        cnt = (p < p.max() * 0.01).sum(dtype=torch.float32)
+        near = cnt if near is None else near + cnt
+        total += p.numel()
+    if near is None:
+        return torch.zeros(())
+    return near / max(total, 1)
+
+
+def prunable_names(order: Sequence[str], params: Mapping) -> List[str]:
+    return [n for n in order if is_weight(n) and np.ndim(_np(params[n])) > 1]
+
+
+def prune_threshold(params: Mapping, order: Sequence[str],
+                    ratio: float = 0.01, verbose: bool = True
+                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Zero every prunable weight below ``ratio`` of its tensor's max |w|
+    (reference model.py:45-57). Returns (new params, masks), both CPU
+    tensors, the masks True at the pruned positions."""
+    new = {k: torch.as_tensor(_np(v)) for k, v in params.items()}
+    masks: Dict[str, torch.Tensor] = {}
+    for name in prunable_names(order, params):
+        p = _np(params[name]).copy()
+        thresh = float(np.max(np.abs(p))) * ratio
+        mask = np.abs(p) < thresh
+        if verbose:
+            print("Pruned %f%% of the weights" % (
+                float(mask.sum()) / max(float(np.sum(p != 0)), 1.0) * 100.0))
+        p[mask] = 0
+        new[name] = torch.from_numpy(p)
+        masks[name] = torch.from_numpy(mask)
+    return new, masks
+
+
+def mask_gradients(grads: Mapping[str, torch.Tensor],
+                   masks: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Zero the gradient entries at pruned positions (mask > 0)."""
+    out = dict(grads)
+    for name, mask in masks.items():
+        if name in out:
+            g = out[name]
+            out[name] = torch.where(mask.to(g.device) > 0,
+                                    torch.zeros((), dtype=g.dtype,
+                                                device=g.device), g)
+    return out

@@ -7,13 +7,19 @@ registry names, marked with ``MAGIC_KEY``. ``load_any`` reads such a file,
 or a torch pickle of a state_dict (the reference's own ``.pth``, already in
 the port's layout), and returns the port's state_dict, checked against the
 registry's names and shapes.
+
+``save_resume`` / ``load_resume`` keep a training run's crash-resume
+snapshot: params, optimizer state, the best score and params so far, the
+random generator's state and the next chunk, written atomically after
+every chunk, so that a restarted run continues as if never stopped. The
+snapshot is the port's own (torch layouts); only the port reads it.
 """
 
 from __future__ import annotations
 
 import os
 from collections import OrderedDict
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -77,3 +83,50 @@ def load_any(path: str, reg: Registry) -> "OrderedDict[str, torch.Tensor]":
             return _load_npz(path, reg)
     state = torch.load(path, map_location="cpu", weights_only=True)
     return _check_state(path, reg, state)
+
+
+def exists(path: str) -> bool:
+    return os.path.exists(path)
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) \
+        else np.asarray(t)
+
+
+def save_resume(path: str, params: Dict, opt_state: Dict, best_score: float,
+                best_params: Dict, rng_state, next_chunk: int,
+                meta: Dict) -> None:
+    """Atomically write a resume snapshot (a temporary file renamed over
+    ``path``: a crash during the write leaves the previous one intact)."""
+    import json
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    arrays = {f"p_{k}": _np(v) for k, v in params.items()}
+    arrays.update({f"b_{k}": _np(v) for k, v in best_params.items()})
+    arrays.update({f"o_{k}": _np(v) for k, v in opt_state.items()})
+    arrays["rng"] = _np(rng_state)
+    arrays["best_score"] = np.float64(best_score)
+    arrays["next_chunk"] = np.int64(next_chunk)
+    arrays["meta"] = np.frombuffer(json.dumps(meta).encode(),
+                                   dtype=np.uint8).copy()
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, **arrays)
+    os.replace(tmp, path)
+
+
+def load_resume(path: str) -> Tuple[Dict, Dict, float, Dict, torch.Tensor,
+                                    int, Dict]:
+    """-> (params, opt_state, best_score, best_params, rng_state,
+    next_chunk, meta), tensors on the CPU."""
+    import json
+
+    with np.load(path, allow_pickle=False) as z:
+        def part(prefix):
+            return {k[len(prefix):]: torch.from_numpy(z[k].copy())
+                    for k in z.files if k.startswith(prefix)}
+
+        return (part("p_"), part("o_"), float(z["best_score"]), part("b_"),
+                torch.from_numpy(z["rng"].copy()), int(z["next_chunk"]),
+                json.loads(bytes(z["meta"]).decode()))

@@ -1,5 +1,8 @@
 """Checkpoint file names of the reference (the JAX package's
-train/naming.py, the part the evaluation CLIs need): the legacy pipeline
+train/naming.py): train.py writes ``checkpoints/best{Finetune}{v2}{VGA}
+{UNet}{NoBall}{NoGoal}{NoRobot}{NoLine}{cam}{T<transfer>}{<pct>_<mflops>}
+.weights`` (train.py:180-201) and loads the un-finetuned one for
+``--finetune`` (train.py:256); the legacy pipeline
 writes ``pth/bestModel{Seg}{VGA}{v2}{NoBall}{NoGoal}{NoRobot}{NoLine}{cam}
 {Finetuned}{Pruned|Pruned2}.pth`` (reference trainer.py:149, 310;
 pruner.py:134, 291), and test.py evaluates the family
@@ -45,6 +48,32 @@ class Flags:
                 + ("UNet" if self.unet else "") + ("NoBall" if self.no_ball else "")
                 + ("NoGoal" if self.no_goal else "") + ("NoRobot" if self.no_robot else "")
                 + ("NoLine" if self.no_line else ""))
+
+
+def train_ckpt_name(f: Flags, transfer: int = 0, pruned: bool = False,
+                    prune_pct: int = 0, mflops: int = 0) -> str:
+    """train.py's checkpoints/<name>.weights (train.py:180-201)."""
+    name = "bestFinetune" if f.finetune else "best"
+    # reference order: v2, VGA, UNet, NoBall, NoGoal, NoRobot, NoLine, cam
+    name += ("v2" if f.v2 else "") + ("VGA" if f.no_scale else "")
+    name += ("UNet" if f.unet else "")
+    name += ("NoBall" if f.no_ball else "") + ("NoGoal" if f.no_goal else "")
+    name += ("NoRobot" if f.no_robot else "") + ("NoLine" if f.no_line else "")
+    name += f.camera_str if f.finetune else ""
+    if transfer != 0:
+        name += "T%d" % transfer
+    if pruned:
+        name += "%d_%d" % (prune_pct, mflops)
+    return "checkpoints/%s.weights" % name
+
+
+def train_load_name(f: Flags) -> str:
+    """The un-finetuned weights train.py loads for --finetune (train.py:256)."""
+    return "checkpoints/best%s%s%s%s%s%s%s%s.weights" % (
+        "v2" if f.v2 else "", "VGA" if f.no_scale else "",
+        "UNet" if f.unet else "", "NoBall" if f.no_ball else "",
+        "NoGoal" if f.no_goal else "", "NoRobot" if f.no_robot else "",
+        "NoLine" if f.no_line else "", f.camera_str if f.finetune else "")
 
 
 def test_ckpt_glob_base(f: Flags) -> str:

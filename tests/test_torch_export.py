@@ -103,3 +103,41 @@ def test_export_refuses_what_has_no_graph(tmp_path):
     with pytest.raises(ValueError):
         deploy.export_deployment(str(tmp_path),
                                  tzoo.make("pb_fcn_2", device="cpu"))
+
+
+@pytest.mark.parametrize("family,kw,skip_classifier",
+                         [("pb_fcn_2", dict(), True),
+                          ("pb_fcn_2", dict(), False),
+                          ("pb_fcn", dict(), True)])
+def test_save_params_knobs_match_jax(tmp_path, capsys, family, kw,
+                                     skip_classifier):
+    """The knobs the JAX tester's ``--dump`` uses: ``fname`` (weights2.dat
+    unless ``--pruned``) and ``skip_classifier``, the reference's substring
+    test, with which it dumps ``--v2`` (PB_FCN_2); the port's bytes equal
+    the JAX package's for carried params."""
+    from robocupvision_tpu.export import weights_io as jweights_io
+
+    jm, jp, model = _carried(family, kw, 9)
+    jout = jweights_io.save_params(str(tmp_path / "jax"), jm.registry, jp,
+                                   fname="weights2.dat",
+                                   skip_classifier=skip_classifier)
+    out = weights_io.save_params(str(tmp_path / "port"), model.registry,
+                                 model.state_dict(), fname="weights2.dat",
+                                 skip_classifier=skip_classifier)
+    assert out == str(tmp_path / "port" / "weights2.dat")
+    assert _read(out) == _read(jout)
+    printed = capsys.readouterr().out
+    assert ("Classifier module skipped" in printed) == skip_classifier
+
+
+@pytest.mark.parametrize("fname", ["weights.dat", "weights2.dat"])
+def test_export_deployment_params_and_fname_match_jax(tmp_path, fname):
+    """``export_deployment`` of given params (not the module's own) under
+    the tester's file names, byte for byte the JAX package's."""
+    jm, jp, model = _carried("pb_fcn", dict(no_scale=True), 6)
+    other = tzoo.make("pb_fcn", device="cpu", no_scale=True)  # other weights
+    jdeploy.export_deployment(str(tmp_path / "jax"), jm, jp, fname=fname)
+    deploy.export_deployment(str(tmp_path / "port"), other,
+                             model.state_dict(), fname=fname)
+    for name in ("net.cfg", fname):
+        assert _read(tmp_path / "port" / name) == _read(tmp_path / "jax" / name), name

@@ -333,3 +333,25 @@ def test_flip_step_bounds_one_flipped_input_integer(case):
     # one input pixel reaches at most 3 x 3 output pixels, every channel
     assert 0 < round(frac * ref.numel()) <= 9 * ref.shape[-1] and worst <= 1.0
     assert tppk.int8_mismatch(ref, ref, step) == (0.0, 0.0)
+
+
+def test_int8_skip_conv_follows_kernel_tap_order():
+    """A float skip conv summed in another order moves the int8 reference
+    on a constructed tie: 2**24 + 1 rounds to 2**24 (half to even), so the
+    kernel's order (channels 0, 1, 2) gives 0 where the reverse gives 1.
+    The reference takes the kernel's order."""
+    skip = torch.zeros((1, 2, 2, 3))
+    skip[0, 0, 0] = torch.tensor([2.0 ** 24, 1.0, -2.0 ** 24])
+    sw = torch.ones((1, 1, 3, 1))
+    ordered = tppk.skip_conv_in_tap_order(skip, sw)
+    assert float(ordered[0, 0, 0, 0]) == 0.0
+    acc = torch.zeros(())
+    for ci in (2, 1, 0):  # another order of the same terms
+        acc = acc + skip[0, 0, 0, ci] * sw[0, 0, ci, 0]
+    assert float(acc) == 1.0
+    st = tppk.ChainStage(w=torch.zeros((1, 1, 4, 1), dtype=torch.int8),
+                        b=torch.tensor([0.25]), x_scale=1.0,
+                        w_scale=torch.tensor([1.0]), skip_idx=0, skip_w=sw,
+                        emit=True)
+    (y,) = tppk.chain_reference(torch.ones((1, 2, 2, 4)), [st], [skip])
+    assert float(y[0, 0, 0, 0]) == 0.25
