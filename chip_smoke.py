@@ -38,9 +38,24 @@ the launch counters set to 0 just before it and read just after:
     validation scored by the confusion-count kernel every epoch.
 K2's int8 stages are held against the int8 ``chain_reference`` on every
 chain of the five families (VGA b1, bf16 and f32) and on one stage per
-feature. K3, the fused conv3x3 block, has no caller: it is held against
-its plain version alone, beside cuDNN, at the QVGA packed widths and at
-VGA.
+feature, and K2 against ``chain_reference`` on random chains with random
+zero blocks in bf16, f32 and int8 (``k2_fuzz``). K3, the fused conv3x3
+block, has no caller: it is held against its plain version alone, beside
+cuDNN, at the QVGA packed widths, at VGA and at widths that are no
+multiples of 16. One call of each K2 chain of a prepared graph and one
+K3 call must make no copy to the host (``no_host_copy``), and the device
+fps phase splits each graph's card time into K2 and the plain parts with
+``torch.profiler``.
+
+    python3 chip_smoke.py --dump-chains PATH [INPUTS]
+    python3 chip_smoke.py --compare-chains PATH_A PATH_B
+    python3 chip_smoke.py --time-chains
+
+save K2's outputs on every f32 chain of the five families (on the inputs
+of the dump INPUTS when given), and compare two such dumps bit for bit (a
+copy of this script beside an older tree's package dumps that tree's
+kernel); and print K2's card time alone (``torch.profiler``) on every
+chain and single-stage case.
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi reports them, and the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if
@@ -250,7 +265,7 @@ def chain_features(stages):
 
 
 def check_chain(tag, call, chk: Checks, iters: int,
-                single: bool = False) -> dict:
+                single: bool = False, timed: bool = True) -> dict:
     """One chain call on K2 against ``chain_reference`` on the same inputs,
     with times and bounds. Float chains: see below. int8 chains (every
     stage quantized): without a ``skip_w`` stage every f32 step is the
@@ -330,6 +345,8 @@ def check_chain(tag, call, chk: Checks, iters: int,
         chk.expect(ok, f"K2 {tag}: output {i} max abs err {e}, "
                        f"rel L2 {rel_l2}")
     res["max_abs_err"] = err
+    if not timed:
+        return res
     moved, dense, needed = chain_work(x, stages, skips, got)
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     t_ops = needed / PEAK_FLOPS[torch.int8 if quant else dt] * 1e3
@@ -340,6 +357,192 @@ def check_chain(tag, call, chk: Checks, iters: int,
                bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes, ops_ms=t_ops,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                bytes=moved, flops_needed=needed, flops_dense=dense)
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# K2 fuzz: random chains against chain_reference
+# ---------------------------------------------------------------------------
+
+FUZZ_SEEDS = 24
+
+
+def _zero_blocks(w, rng, share):
+    """``w`` (KH, KW, Cin, Cout) with about ``share`` of its (tap, 8-channel,
+    8-channel) blocks and a few whole (tap, channel) rows set to zero: lists
+    that skip more than the packers' structural zeros."""
+    kh, kw, cin, cout = w.shape
+    for tap in range(kh * kw):
+        for ci in range(0, cin, 8):
+            for co in range(0, cout, 8):
+                if rng.random() < share:
+                    w[tap // kw, tap % kw, ci:ci + 8, co:co + 8] = 0.0
+        if rng.random() < 0.2:
+            w[tap // kw, tap % kw, int(rng.integers(cin)), :] = 0.0
+    return w
+
+
+def fuzz_chain(seed: int, dev):
+    """A random f32 chain for K2 against ``chain_reference``: ``(x, stages,
+    skips, band)``. K in {1, 3} and dil in {1, 2}; every epilogue (rbb and
+    bn-relu affines, ``relu_only``, the bias-only head, with an argmax on
+    some); identity and ``skip_w`` skips (K 1 and 3); a ``stem_f`` stage 0,
+    ``pool`` stages and emits; widths that are and are not multiples of 8
+    and 16; random zero blocks in every kernel; and the band (rows a block)
+    any divisor of H, so multi-band grids recompute halos. Weights are
+    scaled by 1/sqrt(fan-in) so values stay near 1 over the stages."""
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    rng = np.random.default_rng(1000 + seed)
+    n = int(rng.integers(1, 3))
+    h = int(rng.choice([6, 8, 12, 16]))
+    w = int(rng.choice([5, 12, 20, 33, 40]))
+    widths = [8, 12, 16, 20, 24, 32, 40, 48, 64, 80]
+
+    def arr(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def conv_w(k_h, k_w, cin, cout):
+        fan = k_h * k_w * cin
+        return t(_zero_blocks(arr(k_h, k_w, cin, cout, scale=fan ** -0.5),
+                              rng, float(rng.choice([0.0, 0.5, 0.8]))))
+
+    stages, skips = [], []
+    f = int(rng.choice([0, 0, 2, 4]))
+    cin0 = 3 if f else int(rng.choice(widths))
+    x = t(arr(n, h * (f or 1), w * (f or 1), cin0))
+    cin = f * cin0 if f else cin0
+    n_stages = int(rng.integers(1, 5))
+    argmax = bool(rng.random() < 0.4)
+    for i in range(n_stages):
+        last = i == n_stages - 1
+        if (i > 0 and not last and cin % 4 == 0 and rng.random() < 0.2):
+            st = packed._pool_chain_stage(2, cin // 4, torch.float32, dev)
+            stages.append(dataclasses.replace(st, emit=bool(rng.random() < 0.5)))
+            cin //= 4
+            continue
+        if i == 0 and f:
+            k_h, k_w, dil = f + 2, 3, 1
+        else:
+            k = int(rng.choice([1, 3]))
+            k_h = k_w = k
+            dil = int(rng.choice([1, 2])) if k == 3 else 1
+        if last and argmax:
+            groups = int(rng.choice([1, 2, 4]))
+            cout = groups * int(rng.choice([3, 5]))
+        else:
+            cout = int(rng.choice(widths))
+        kw = dict(w=conv_w(k_h, k_w, cin, cout), b=t(arr(cout, scale=0.1)),
+                  stem_f=f if i == 0 else 0, dil=dil,
+                  emit=bool(rng.random() < 0.4))
+        epi = "head" if last and argmax else str(rng.choice(
+            ["rbb", "bn_relu", "relu_only", "head"]))
+        if epi in ("rbb", "bn_relu"):
+            kw.update(scale=t(rng.uniform(0.5, 1.2, cout).astype(np.float32)),
+                      shift=t(arr(cout, scale=0.1)), rbb=epi == "rbb")
+        elif epi == "relu_only":
+            kw["relu_only"] = True
+        skip = str(rng.choice(["none", "none", "identity", "skip_w"]))
+        if epi != "head" and skip != "none" and len(skips) < 4:
+            if skip == "identity":
+                skips.append(t(arr(n, h, w, cout, scale=0.5)))
+            else:
+                sk = int(rng.choice([1, 3]))
+                sc = int(rng.choice([8, 12, 16, 24]))
+                skips.append(t(arr(n, h, w, sc, scale=0.5)))
+                kw["skip_w"] = conv_w(sk, sk, sc, cout)
+            kw["skip_idx"] = len(skips) - 1
+        stages.append(ckp.ChainStage(**kw))
+        cin = cout
+    if argmax:
+        groups = int(rng.choice([g for g in (1, 2, 4)
+                                 if int(stages[-1].w.shape[3]) % g == 0
+                                 and stages[-1].scale is None
+                                 and not stages[-1].relu_only] or [0]))
+        if groups:
+            stages = ckp.with_argmax_head(stages, groups)
+    bands = [b for b in range(1, h + 1) if h % b == 0]
+    return x, stages, skips, int(rng.choice(bands))
+
+
+def fuzz_cases(seed: int, dev):
+    """The chain of ``fuzz_chain(seed)`` in three forms: {"bf16", "f32",
+    "int8"} -> (x, stages, skips), kernels and inputs at the chain dtype
+    with their tap lists attached as the packers attach them; the int8
+    chain quantized (f32 on even seeds, bf16 on odd ones) from statistics
+    of the float chain (``chain_reference``); plus the band."""
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    x, stages, skips, band = fuzz_chain(seed, dev)
+
+    def at(dt):
+        out = []
+        for st in stages:
+            if st.pool:
+                out.append(dataclasses.replace(st, w=st.w.to(dt)))
+                continue
+            w = st.w.to(dt)
+            sw = None if st.skip_w is None else st.skip_w.to(dt)
+            out.append(dataclasses.replace(st, w=w, skip_w=sw,
+                                           taps=ckp.tap_blocks(w, sw)))
+        return x.to(dt), out, [s.to(dt) for s in skips]
+
+    cases = {"bf16": at(torch.bfloat16), "f32": at(torch.float32)}
+    qx, qst, qsk = cases["f32" if seed % 2 == 0 else "bf16"]
+    emitted = [dataclasses.replace(st, emit=True, argmax_groups=0)
+               for st in qst]
+    outs = ckp.chain_reference(qx, emitted, qsk)
+    stats = [ckp._abs_stat(o, None) for o in [qx] + outs[:-1]]
+    cases["int8"] = (qx, ckp.quantize_chain_stages(qst, stats), qsk)
+    return cases, band
+
+
+def phase_k2_fuzz(dev, chk: Checks) -> dict:
+    """K2 on FUZZ_SEEDS random chains (``fuzz_cases``) in bf16, f32 and
+    int8, each against ``chain_reference`` by ``check_chain``'s gates (bf16
+    per element within ``bf16_tolerance``, f32 within rtol = atol = 2e-4
+    and relative L2 under 1e-4, int8 equal without a ``skip_w`` stage and
+    within the int8 gate with one), at the chain's band. An argmax head's
+    labels must equal the first maximum of the kernel's own logits (the
+    same chain without the head), which are held to the reference."""
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    res = {"phase": "k2_fuzz", "seeds": FUZZ_SEEDS, "cases": 0, "failed": [],
+           "features": set()}
+    choose = ckp.choose_band
+    try:
+        for seed in range(FUZZ_SEEDS):
+            cases, band = fuzz_cases(seed, dev)
+            ckp.choose_band = lambda n, h, d, band=band: band
+            for dt, (x, stages, skips) in cases.items():
+                tag = f"fuzz{seed}_{dt}"
+                before = len(chk.failed)
+                head = stages[-1].argmax_groups
+                logits = [dataclasses.replace(st, argmax_groups=0)
+                          for st in stages]
+                r = check_chain(tag, (x, logits, skips), chk, 0, timed=False)
+                if head:
+                    labels = ckp.fused_conv_chain(x, stages, skips)[-1]
+                    lg = ckp.fused_conv_chain(x, logits, skips)[-1].float()
+                    n_, h_, w_, c_ = lg.shape
+                    want = torch.argmax(lg.reshape(n_, h_, w_, head,
+                                                   c_ // head), dim=-1)
+                    chk.expect(bool(torch.equal(labels, want.to(torch.int32))),
+                               f"K2 {tag}: argmax labels are not the first "
+                               "maximum of the kernel's logits")
+                res["cases"] += 1
+                res["features"] |= set(r["features"]) | (
+                    {"argmax_head"} if head else set())
+                if len(chk.failed) > before:
+                    res["failed"].append(tag)
+    finally:
+        ckp.choose_band = choose
+    res["features"] = sorted(res["features"])
     emit(res)
     return res
 
@@ -657,17 +860,20 @@ def phase_k2_int8(flagship, variants, pb_model, lp_model, dev,
 # K3: the fused conv3x3 block (no path calls it: held alone)
 # ---------------------------------------------------------------------------
 
-K3_SHAPES = [(120, 160, 64, 64), (120, 160, 128, 128), (480, 640, 64, 64)]
+# the TPU record's QVGA widths, VGA, and widths that are no multiples of 16
+K3_SHAPES = [(120, 160, 64, 64), (120, 160, 128, 128), (480, 640, 64, 64),
+             (120, 160, 24, 40)]
 
 
 def phase_k3(dev, chk: Checks) -> dict:
     """K3 against its plain version at the QVGA packed widths the TPU
     record used and at VGA, bf16 and f32, both epilogue orders: f32 within
     rtol = atol = 1e-5, bf16 within ``conv_block_bf16_tolerance`` (one bf16
-    ulp). Times from CUDA events: the kernel, the plain version, and the
-    library yardstick, cuDNN's conv (NCHW views of the same tensors, its
-    kernel laid out OIHW beforehand) plus the same epilogue, used nowhere
-    in the port. The bound: 2 * 9 * C * Co * H * W FLOP over the dtype's
+    ulp). Times from CUDA events: the kernel (its weights at x's dtype
+    beforehand, as cuDNN's are), the plain version, and the library
+    yardstick, cuDNN's conv (NCHW views of the same tensors, its kernel
+    laid out OIHW beforehand) plus the same epilogue, used nowhere in the
+    port. The bound: 2 * 9 * C * Co * H * W FLOP over the dtype's
     peak, or x, the kernel at x's dtype, three f32 vectors and the output
     over the memory rate, whichever is longer."""
     import torch.nn.functional as F
@@ -686,13 +892,14 @@ def phase_k3(dev, chk: Checks) -> dict:
         sc = (torch.rand(co, generator=g) + 0.5).to(dev)
         for dt in (torch.bfloat16, torch.float32):
             x = x32.to(dt)
-            w_oihw = wk.to(dt).permute(3, 2, 0, 1).contiguous()
+            wk_dt = wk.to(dt)
+            w_oihw = wk_dt.permute(3, 2, 0, 1).contiguous()
             b_dt = b.to(dt)
             for rbb in (True, False):
                 tag = (f"{h}x{w}_{c}to{co}_{'bf16' if dt == torch.bfloat16 else 'f32'}"
                        f"_{'relu_bn' if rbb else 'bn_relu'}")
-                got = fused_conv3x3_block(x, wk, b, sc, sh, rbb)
-                ref = fused_conv3x3_block_plain(x, wk, b, sc, sh, rbb)
+                got = fused_conv3x3_block(x, wk_dt, b, sc, sh, rbb)
+                ref = fused_conv3x3_block_plain(x, wk_dt, b, sc, sh, rbb)
 
                 def library():
                     y = F.conv2d(x.permute(0, 3, 1, 2), w_oihw, b_dt,
@@ -725,17 +932,64 @@ def phase_k3(dev, chk: Checks) -> dict:
                        "library_max_abs_err_vs_plain": float(
                            (lib.float() - ref.float()).abs().max()),
                        "kernel_ms": cuda_ms(lambda: fused_conv3x3_block(
-                           x, wk, b, sc, sh, rbb), 10 if big else 50),
+                           x, wk_dt, b, sc, sh, rbb), 10 if big else 50),
                        "plain_ms": cuda_ms(lambda: fused_conv3x3_block_plain(
-                           x, wk, b, sc, sh, rbb), 5 if big else 20),
+                           x, wk_dt, b, sc, sh, rbb), 5 if big else 20),
                        "library_ms": cuda_ms(library, 10 if big else 50),
                        "bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes,
                        "ops_ms": t_ops,
                        "bound_by": "bytes" if t_bytes >= t_ops
                        else "operations", "flops": flops, "bytes": moved}
+                res["kernel_over_library"] = res["kernel_ms"] / res["library_ms"]
                 emit(res)
                 results[tag] = res
     return results
+
+
+def phase_no_host_copy(model, dev, chk: Checks) -> dict:
+    """One K2 call for each chain of the flagship's bf16 full chain graph
+    and of its int8 form, and one K3 call, on prepared inputs (the graphs'
+    stages carry their tap lists), under
+    ``torch.cuda.set_sync_debug_mode("error")``: any copy to the host or
+    other synchronising call in them raises."""
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+    from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+    from robocupvision_tpu_torch.ops.cuda_kernels import fused_conv3x3_block
+
+    g = torch.Generator(device="cpu").manual_seed(SEED + 30)
+    frame = raw_camera_preprocess(torch.randint(
+        0, 256, (1, *VGA, 3), generator=g, dtype=torch.uint8).to(dev))
+    pi = packed.build_packed_infer(model, None, torch.bfloat16, pallas=True,
+                                   pallas_fold_stem=True, pallas_deep=True,
+                                   device=dev)
+    q = packed.quantize_int8(pi, frame)
+    calls = record_chain_calls(pi, pi.logits, frame) \
+        + record_chain_calls(q, q.logits, frame)
+    k3 = (torch.randn((1, 120, 160, 64), generator=g).to(dev, torch.bfloat16),
+          torch.randn((3, 3, 64, 64), generator=g).to(dev, torch.bfloat16),
+          *(torch.randn(64, generator=g).to(dev) for _ in range(3)))
+
+    def run():
+        for x, stages, skips in calls:
+            ckp.fused_conv_chain(x, stages, skips)
+        fused_conv3x3_block(*k3)
+
+    run()  # builds and loads the libraries first
+    torch.cuda.synchronize()
+    res = {"phase": "no_host_copy", "k2_calls": len(calls), "k3_calls": 1}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+        res["ok"] = True
+    except RuntimeError as e:
+        res["ok"], res["error"] = False, str(e)[:300]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    chk.expect(res["ok"], f"no_host_copy: {res.get('error')}")
+    emit(res)
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -976,12 +1230,49 @@ def phase_serving_int8(model, dev, chk: Checks, frames) -> dict:
     return res
 
 
+def device_split(fn, calls: int) -> dict:
+    """The card's time a call of ``fn`` from ``torch.profiler``, split into
+    K2 (the ``chain_kernel`` launches) and everything else (the graph's
+    plain parts: cuDNN convs, the preprocessing, pads and adds), with the
+    kernel counts a call. None where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    k2 = [e for e in kern if "chain_kernel" in e.key]
+    other = [e for e in kern if "chain_kernel" not in e.key]
+
+    def ms(evs):
+        return sum(e.self_device_time_total for e in evs) / 1e3 / calls
+
+    if not kern:
+        return {"k2_ms": None, "plain_parts_ms": None, "device_ms": None}
+    return {"k2_ms": ms(k2), "plain_parts_ms": ms(other),
+            "device_ms": ms(kern),
+            "k2_kernels": sum(e.count for e in k2) / calls,
+            "plain_parts_kernels": sum(e.count for e in other) / calls,
+            "plain_parts_top": [[e.key[:60], e.self_device_time_total / 1e3
+                                 / calls] for e in sorted(
+                                     other, key=lambda e:
+                                     -e.self_device_time_total)[:4]]}
+
+
 def phase_device_fps(model, variants, dev, frames) -> dict:
     """Device frames/s of the bf16 serving function (CUDA events) at b1 and
     b8: the flagship's plain packed graph, its two-chain graph and the
     full chain graph (folded stem + deep chain), and the --UNet and --v2
     chain graphs the serving phases run (``variants``: tag -> (model,
-    build flags))."""
+    build flags)); at b1 each graph's card time split into K2 and the plain
+    parts by ``torch.profiler`` (``device_split``)."""
     from robocupvision_tpu_torch.models import packed
 
     fps = {}
@@ -992,6 +1283,7 @@ def phase_device_fps(model, variants, dev, frames) -> dict:
                          pallas_deep=True)))]
     graphs += [(tag, net, dict(pallas=True, **kw))
                for tag, (net, kw) in variants.items()]
+    split = {}
     for tag, net, kw in graphs:
         pib = packed.build_packed_infer(net, None, torch.bfloat16,
                                         device=dev, **kw)
@@ -1000,7 +1292,9 @@ def phase_device_fps(model, variants, dev, frames) -> dict:
             xb = torch.from_numpy(np.concatenate(frames[:b])).to(dev)
             ms = cuda_ms(lambda: fnb(xb), 10 if b == 1 else 5)
             fps[f"{tag}_b{b}"] = b / ms * 1e3
-    res = {"phase": "device_fps_bf16", "fps": fps}
+            if b == 1:
+                split[tag] = device_split(lambda: fnb(xb), 10)
+    res = {"phase": "device_fps_bf16", "fps": fps, "device_split_b1": split}
     emit(res)
     return res
 
@@ -1767,13 +2061,170 @@ def k2_entry(cases, launches, features) -> dict:
             "library_ms": None, "features": features}
 
 
+def port_models(dev) -> dict:
+    """The nets every phase drives, full width, weights from seeds: the
+    flagship, PB_FCN, LabelProp, and the --UNet and --v2 ROBO-UNets."""
+    from robocupvision_tpu_torch.cli.train import model_hyper
+    from robocupvision_tpu_torch.models import zoo
+
+    return {
+        "flagship": zoo.make("robo_unet", no_scale=True, device=dev,
+                             generator=torch.Generator().manual_seed(SEED)),
+        "pb_fcn": zoo.make("pb_fcn", planes=32, num_classes=5, kernel_size=1,
+                           no_scale=True, device=dev,
+                           generator=torch.Generator().manual_seed(SEED + 4)),
+        "label_prop": zoo.make("label_prop", planes=32, num_classes=5,
+                               device=dev, generator=torch.Generator()
+                               .manual_seed(SEED + 9)),
+        # the --UNet and --v2 nets at VGA (model_hyper sets neither flag)
+        "unet": zoo.make("robo_unet", no_scale=True, pool=True, device=dev,
+                         generator=torch.Generator().manual_seed(SEED + 13),
+                         **model_hyper(True, False)),
+        "v2": zoo.make("robo_unet", no_scale=True, v2=True, device=dev,
+                       generator=torch.Generator().manual_seed(SEED + 14),
+                       **model_hyper(False, True)),
+    }
+
+
+def dump_chain_outputs(path: str, inputs: str = None) -> int:
+    """``--dump-chains PATH [INPUTS]``: K2's outputs on every f32 chain of
+    the five families' float graphs (``int8_graphs``' inputs), with the
+    chains' inputs and skips, saved to PATH; with INPUTS (an earlier dump)
+    every chain runs on that dump's inputs and skips instead, so that two
+    versions of the kernel are held to each other bit for bit on the same
+    inputs (``--compare-chains``; the graphs' plain parts between chains,
+    cuDNN convs, need not repeat their last bit from one process to the
+    next). Uses only what every version of the port has, so a copy of this
+    script next to an older tree's package dumps that tree's kernel."""
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    m = port_models(dev)
+    variants = {"unet": (m["unet"], dict(pallas_fold_stem=True)),
+                "v2": (m["v2"], dict(pallas_fold_stem=True,
+                                     pallas_deep=True))}
+    given = torch.load(inputs) if inputs else {}
+    out = {}
+    for fam, (pi, x) in int8_graphs(m["flagship"], variants, m["pb_fcn"],
+                                    m["label_prop"], torch.float32,
+                                    dev).items():
+        calls = record_chain_calls(pi, pi.logits, x)
+        calls.append(record_chain_calls(pi, pi.infer, x)[-1])
+        for i, (cx, stages, skips) in enumerate(calls):
+            key = f"{fam}_{i}"
+            if key in given:
+                cx = given[key]["x"].to(dev)
+                skips = [t.to(dev) for t in given[key]["skips"]]
+            outs = ckp.fused_conv_chain(cx, stages, skips)
+            out[key] = {"x": cx.cpu(), "skips": [t.cpu() for t in skips],
+                        "outs": [o.cpu() for o in outs]}
+    torch.save(out, path)
+    emit({"phase": "dump_chains", "path": path, "chains": len(out),
+          "inputs_from": inputs})
+    return 0
+
+
+def chain_device_ms(call, calls: int) -> float:
+    """The card time of one K2 launch on ``call`` = (x, stages, skips):
+    torch.profiler's ``chain_kernel`` rows over ``calls`` launches, so the
+    wrapper's host time (which CUDA events around a short chain measure)
+    counts for nothing. None where the trace holds no device time."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    x, stages, skips = call
+    ckp.fused_conv_chain(x, stages, skips)
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ckp.fused_conv_chain(x, stages, skips)
+        torch.cuda.synchronize()
+    t = sum(e.self_device_time_total for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "chain_kernel" in e.key)
+    return t / 1e3 / calls if t > 0 else None
+
+
+def time_chain_kernels() -> int:
+    """``--time-chains``: K2's card time alone (``chain_device_ms``) on
+    every chain of the five families' float and int8 graphs at VGA b1
+    (LabelProp: its pair), f32 and bf16, and on the single-stage cases of
+    ``int8_single_cases``, float and int8, printed as one JSON line. Uses
+    only what every version of the port has (see ``--dump-chains``)."""
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    m = port_models(dev)
+    variants = {"unet": (m["unet"], dict(pallas_fold_stem=True)),
+                "v2": (m["v2"], dict(pallas_fold_stem=True,
+                                     pallas_deep=True))}
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = "f32" if dt == torch.float32 else "bf16"
+        for fam, (pi, x) in int8_graphs(m["flagship"], variants, m["pb_fcn"],
+                                        m["label_prop"], dt, dev).items():
+            for kind, g in (("float", pi),
+                            ("int8", packed.quantize_int8(pi, x))):
+                tags = []
+                calls = record_chain_calls(g, g.logits, x, tags)
+                calls.append(record_chain_calls(g, g.infer, x)[-1])
+                tags.append("up_argmax")
+                for tag, call in zip(tags, calls):
+                    out[f"{fam}_{tag}_{kind}_{name}"] = chain_device_ms(call,
+                                                                        10)
+        for case, (x, stages, skips) in int8_single_cases(m["flagship"], dt,
+                                                          dev).items():
+            _, stats = ckp.chain_stats(x, stages, skips)
+            out[f"single_{case}_float_{name}"] = chain_device_ms(
+                (x, stages, skips), 20)
+            out[f"single_{case}_int8_{name}"] = chain_device_ms(
+                (x, ckp.quantize_chain_stages(stages, stats), skips), 20)
+    emit({"phase": "time_chains", "device_ms": out})
+    return 0
+
+
+def compare_chain_outputs(a: str, b: str) -> int:
+    """``--compare-chains A B``: whether every chain output in dump A
+    equals dump B's (``torch.equal``), and whether they ran on the same
+    inputs; exits 1 on any difference."""
+    da, db = torch.load(a), torch.load(b)
+    res = {"phase": "compare_chains", "chains": len(da), "outputs": 0,
+           "differ": [],
+           "same_inputs": all(torch.equal(da[k]["x"], db[k]["x"])
+                              for k in da if k in db)}
+    for key, entry in da.items():
+        outs = entry["outs"]
+        for i, (x, y) in enumerate(zip(outs, db.get(key, {}).get("outs",
+                                                                  []))):
+            res["outputs"] += 1
+            if not torch.equal(x, y):
+                res["differ"].append([key, i, float(
+                    (x.float() - y.float()).abs().max())])
+        if key not in db or len(db[key]["outs"]) != len(outs):
+            res["differ"].append([key, "missing"])
+    res["equal"] = (not res["differ"] and set(da) == set(db)
+                    and res["same_inputs"])
+    emit(res)
+    return 0 if res["equal"] else 1
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    from robocupvision_tpu_torch.cli.train import model_hyper
+    if sys.argv[1:2] == ["--dump-chains"]:
+        return dump_chain_outputs(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--time-chains"]:
+        return time_chain_kernels()
+    if sys.argv[1:2] == ["--compare-chains"]:
+        return compare_chain_outputs(sys.argv[2], sys.argv[3])
     from robocupvision_tpu_torch.csrc import build
-    from robocupvision_tpu_torch.models import zoo
     from robocupvision_tpu_torch.ops.cuda_kernels import fused_conv3x3_block
 
     torch.backends.cudnn.allow_tf32 = False
@@ -1793,20 +2244,10 @@ def main() -> int:
                     if p.with_suffix(".log").exists()}})
 
     chk = Checks()
-    model = zoo.make("robo_unet", no_scale=True, device=dev,
-                     generator=torch.Generator().manual_seed(SEED))
-    pb_model = zoo.make("pb_fcn", planes=32, num_classes=5, kernel_size=1,
-                        no_scale=True, device=dev,
-                        generator=torch.Generator().manual_seed(SEED + 4))
-    lp_model = zoo.make("label_prop", planes=32, num_classes=5, device=dev,
-                        generator=torch.Generator().manual_seed(SEED + 9))
-    # the --UNet and --v2 nets at VGA (model_hyper sets neither flag)
-    unet = zoo.make("robo_unet", no_scale=True, pool=True, device=dev,
-                    generator=torch.Generator().manual_seed(SEED + 13),
-                    **model_hyper(True, False))
-    v2 = zoo.make("robo_unet", no_scale=True, v2=True, device=dev,
-                  generator=torch.Generator().manual_seed(SEED + 14),
-                  **model_hyper(False, True))
+    nets = port_models(dev)
+    model, pb_model, lp_model = (nets[k] for k in ("flagship", "pb_fcn",
+                                                    "label_prop"))
+    unet, v2 = nets["unet"], nets["v2"]
     graphs = {"unet": (unet, dict(pallas_fold_stem=True)),
               "v2": (v2, dict(pallas_fold_stem=True, pallas_deep=True))}
     k1 = phase_k1(dev, chk)
@@ -1816,7 +2257,9 @@ def main() -> int:
     phase_k2_pool(dev, chk)
     k2v = phase_k2_variants(graphs, dev, chk)
     k2q = phase_k2_int8(model, graphs, pb_model, lp_model, dev, chk)
+    k2z = phase_k2_fuzz(dev, chk)
     k3 = phase_k3(dev, chk)
+    phase_no_host_copy(model, dev, chk)
     fused_conv3x3_block.launches = 0  # no main path below calls K3
 
     rng = np.random.default_rng(SEED + 3)
@@ -1859,7 +2302,7 @@ def main() -> int:
     k3m = k3["120x160_64to64_bf16_relu_bn"]
     features = sorted({f for r in list(k2.values()) + list(k2f.values())
                        + list(k2lp.values()) + list(k2v.values())
-                       + list(k2q.values())
+                       + list(k2q.values()) + [k2z]
                        for f in r["features"]})
     kernels = [
         {"name": "confusion_count", "route": "cuda",

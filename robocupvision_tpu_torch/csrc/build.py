@@ -7,8 +7,9 @@ compiled on its own by ``nvcc`` into a shared library under ``build/``
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -Xptxas -v -o build/lib<name>_<hash>.so <name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. ``build_all``
+The file name carries a hash of the source, of every header (``*.cuh``)
+beside it and of the flags, so an edited source or header is rebuilt and a
+stale library is never loaded. ``build_all``
 starts one ``nvcc`` per source at once and waits for all of them; the
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
 each library as ``.log``.
@@ -47,9 +48,13 @@ def nvcc_path() -> str:
 
 
 def lib_path(source: str) -> Path:
-    text = (SRC_DIR / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
-    digest = hashlib.sha256(text).hexdigest()[:16]
-    return BUILD_DIR / f"lib{Path(source).stem}_{digest}.so"
+    """The library of ``source``: its name hashes the source, every
+    ``*.cuh`` header in SRC_DIR (name and text) and the flags."""
+    h = hashlib.sha256((SRC_DIR / source).read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(sources: Iterable[str] = SOURCES) -> Dict[str, Path]:

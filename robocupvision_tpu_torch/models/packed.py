@@ -613,24 +613,26 @@ def _packed_stage(packed: Params, prefix: str, split: bool = False,
     """ChainStage from a packed block: its kernel back from OIHW to
     (KH, KW, Cin, Cout) at ``dtype`` (the stem's is (f+2, 3, f*cin, Cout)),
     its vectors as f32 copies of the ``dtype`` values, no affine for the
-    head and ``pconv_nr`` blocks. ``split``: a split2 block, its ``.w0``
-    half as the stage's kernel and its ``.w1`` half as the ``skip_w``
-    kernel of the concat's second part."""
+    head and ``pconv_nr`` blocks, and the lists of its kernels' non-zero
+    blocks (``taps``: the packing leaves most of them zero). ``split``: a
+    split2 block, its ``.w0`` half as the stage's kernel and its ``.w1``
+    half as the ``skip_w`` kernel of the concat's second part."""
     scale = packed.get(prefix + ".scale")
     if split:
         kw["skip_w"] = _hwio(packed[prefix + ".w1"])
+    w = _hwio(packed[prefix + (".w0" if split else ".w")])
     return ckp.ChainStage(
-        w=_hwio(packed[prefix + (".w0" if split else ".w")]),
-        b=packed[prefix + ".b"].float(),
+        w=w, b=packed[prefix + ".b"].float(),
         scale=None if scale is None else scale.float(),
         shift=None if scale is None else packed[prefix + ".shift"].float(),
-        **kw)
+        taps=ckp.tap_blocks(w, kw.get("skip_w")), **kw)
 
 
 def _plain_stage(np_params: NpParams, name: str, dtype, device, rbb: bool,
                  **kw) -> ckp.ChainStage:
     """ChainStage for a plain (f == 1) conv(+BN) block: the kernel in
-    ``dtype``, bias and folded BN in f32 (as the JAX package builds it)."""
+    ``dtype``, bias and folded BN in f32 (as the JAX package builds it),
+    with its tap lists."""
     w = torch.as_tensor(np_params[name + ".conv.weight"]).to(
         device=device, dtype=dtype).contiguous()
     b = np_params.get(name + ".conv.bias")
@@ -642,7 +644,8 @@ def _plain_stage(np_params: NpParams, name: str, dtype, device, rbb: bool,
         return torch.as_tensor(a).to(device=device, dtype=torch.float32)
 
     return ckp.ChainStage(w=w, b=f32(b), scale=f32(scale),
-                          shift=f32(shift), rbb=rbb, **kw)
+                          shift=f32(shift), rbb=rbb,
+                          taps=ckp.tap_blocks(w, kw.get("skip_w")), **kw)
 
 
 def _pool_chain_stage(f_in: int, c: int, dtype, device,
@@ -947,7 +950,7 @@ def build_packed_pb_fcn(model: Model, params: Optional[Params] = None,
             down[-1] = dataclasses.replace(down[-1], emit=True)  # x2
             down.append(ckp.ChainStage(
                 w=w, b=torch.zeros(w.shape[-1], device=dev), relu_only=True,
-                dil=2))
+                dil=2, taps=ckp.tap_blocks(w)))
             chains["deep"] = [
                 _plain_stage(np_params, f"FCN.conv{i}", dtype, dev, rbb=False,
                              dil=2) for i in range(4, 9)]

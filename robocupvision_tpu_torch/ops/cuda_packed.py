@@ -39,6 +39,10 @@ head's logits are rounded to the chain dtype as in a float chain.
 :func:`chain_stats` takes the calibration statistics of a float chain and
 :func:`quantize_chain_stages` turns them into an int8 chain.
 
+The kernel's tap loops walk only the weight blocks that are not all zero
+(the packed kernels are mostly structural zeros): :func:`tap_blocks` lists
+them once, where a graph builds its stages (``ChainStage.taps``).
+
 ``fused_conv_chain`` launches the kernel for CUDA tensors and runs
 :func:`chain_reference` for CPU tensors; nothing else selects between them.
 ``fused_conv_chain.launches`` counts kernel launches and
@@ -79,6 +83,12 @@ class ChainStage:
     call. x_scale: an int8 stage's static input scale (> 0; 0 for a float
     stage). w_scale: an int8 conv stage's (Cout,) f32 dequant row, its
     ``w`` then int8 (pool stages keep their 0/1 selections and take none).
+    taps: a conv stage's :class:`TapBlocks` (:func:`tap_blocks` of ``w``
+    and ``skip_w``), the lists of weight blocks that are not all zero, which
+    the kernel's tap loops walk; built once where a graph builds the stage
+    (a call then copies nothing to the host); ``None``, or lists read from
+    other tensors than the stage holds, derive them from ``w`` on each
+    call.
     """
 
     w: Any
@@ -97,6 +107,7 @@ class ChainStage:
     pool_src: Any = None
     x_scale: float = 0.0
     w_scale: Any = None
+    taps: Any = None
 
     @property
     def k(self) -> int:
@@ -106,6 +117,119 @@ class ChainStage:
     def reach(self) -> int:
         """Rows/cols of input context beyond the center this stage reads."""
         return self.dil * (self.k // 2)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class TapBlocks:
+    """The lists of a conv stage's weight blocks that are not all zero, as
+    the kernel reads them (csrc/conv_chain.cu, "tap table"): ``table`` is
+    one int32 tensor on the kernel's device, ``host`` the same on the host.
+
+    Two granularities, each per output-channel tile and per source (0: the
+    stage's kernel ``w``, 1: its ``skip_w``), entries ``(tap << 16) | k``
+    in (tap, k) order, tap = dy * KW + dx:
+    - MMA (bf16 float chains): k a 16-input-channel chunk, tiles of
+      ``mma_nt`` (16, or 8 when Cout is no multiple of 16) output channels;
+    - CUDA cores (f32 and int8 chains): k an input channel, groups of
+      ``cob`` output channels (the kernel's COB for this stage,
+      :func:`kernel_cob`); ``dense`` when they hold every row of every
+      group (a chain of dense stages runs the kernel that walks every
+      tap).
+    ``w`` and ``skip_w`` are the tensors the lists were read from."""
+
+    table: torch.Tensor
+    host: np.ndarray
+    w: Any
+    skip_w: Any
+    mma_nt: int
+    cob: int
+
+    @property
+    def dense(self) -> bool:
+        return bool(self.host[3])
+
+    def lists(self, kind: str) -> dict:
+        """{(tile or group, source): [(tap, k), ...]} of the ``"mma"`` or
+        ``"cc"`` lists."""
+        h = self.host
+        if kind == "mma":
+            start, n = 4, -(-int(self.w.shape[3]) // self.mma_nt)
+        else:
+            start, n = int(h[2]), int(self.w.shape[3]) // self.cob
+        off = h[start:start + 2 * n + 1]
+        return {(t, s): [(int(e) >> 16, int(e) & 0xFFFF)
+                         for e in h[off[2 * t + s]:off[2 * t + s + 1]]]
+                for t in range(n) for s in range(2)}
+
+
+def kernel_cob(cout: int, quant: bool, skip_w: bool) -> int:
+    """The output channels a thread of the kernel's CUDA-core loops takes
+    (its COB dispatch in csrc/conv_chain.cu chain_kernel): float stages 16,
+    8, 4 or 1, int8 stages 8, 4 or 1, and 4 or 1 beside a skip_w conv."""
+    if quant and skip_w:
+        options = (4,)
+    elif quant:
+        options = (8, 4)
+    else:
+        options = (16, 8, 4)
+    return next((c for c in options if cout % c == 0), 1)
+
+
+def _block_mask(nz: np.ndarray, kgran: int, ngran: int) -> np.ndarray:
+    """(taps, Cin / kgran, Cout / ngran) bool, rounded up: whether each
+    (tap, kgran-channel chunk, ngran-channel tile) block of the (KH, KW,
+    Cin, Cout) non-zero mask ``nz`` holds a non-zero."""
+    kh, kw, cin, cout = nz.shape
+    kc, nt = -(-cin // kgran), -(-cout // ngran)
+    full = np.zeros((kh * kw, kc * kgran, nt * ngran), bool)
+    full[:, :cin, :cout] = nz.reshape(kh * kw, cin, cout)
+    return full.reshape(kh * kw, kc, kgran, nt, ngran).any(axis=(2, 4))
+
+
+def _append_lists(table: list, masks: Sequence[np.ndarray]) -> None:
+    """Append the offsets and entries of per-(tile, source) lists, each
+    mask (taps, k, tiles) one source, to ``table`` (offsets absolute)."""
+    n = masks[0].shape[2]
+    base = len(table) + 2 * n + 1
+    offs, ents = [], []
+    for t in range(n):
+        for s in range(2):
+            offs.append(base + len(ents))
+            if s < len(masks):
+                taps, ks = np.nonzero(masks[s][:, :, t])
+                ents.extend(((taps << 16) | ks).tolist())
+    offs.append(base + len(ents))
+    table += offs + ents
+
+
+def tap_blocks(w: torch.Tensor, skip_w: torch.Tensor = None) -> TapBlocks:
+    """The :class:`TapBlocks` of a conv stage's (KH, KW, Cin, Cout) kernel
+    ``w`` (int8 for an int8 stage) and its ``skip_w``, read from the tensors
+    themselves (one copy to the host), the table on ``w``'s device."""
+    srcs = [w] + ([] if skip_w is None else [skip_w])
+    nzs = [(k.detach() != 0).cpu().numpy() for k in srcs]
+    cout = int(w.shape[3])
+    mma_nt = 16 if cout % 16 == 0 else 8
+    cob = kernel_cob(cout, w.dtype == torch.int8, skip_w is not None)
+    cc = [_block_mask(nz, 1, cob) for nz in nzs]
+    table = [mma_nt, cob, 0, int(all(m.all() for m in cc))]
+    _append_lists(table, [_block_mask(nz, 16, mma_nt) for nz in nzs])
+    table[2] = len(table)
+    _append_lists(table, cc)
+    host = np.asarray(table, np.int32)
+    return TapBlocks(table=torch.from_numpy(host).to(w.device), host=host,
+                     w=w, skip_w=skip_w, mma_nt=mma_nt, cob=cob)
+
+
+def _taps_of(st: ChainStage) -> TapBlocks:
+    """The stage's tap lists: its own when they were read from the very
+    tensors it holds, else (none given, or a stage whose ``w`` or
+    ``skip_w`` was replaced after its lists were built) read from them
+    now."""
+    t = st.taps
+    if t is not None and t.w is st.w and t.skip_w is st.skip_w:
+        return t
+    return tap_blocks(st.w, st.skip_w)
 
 
 def _halo_depths(stages: Sequence[ChainStage]) -> List[int]:
@@ -398,8 +522,9 @@ def quantize_chain_stages(stages: Sequence[ChainStage],
     127`` from the calibration statistics ``in_maxes`` (one per stage, as
     :func:`chain_stats` returns them), symmetric per-output-channel int8
     weights ``clip(round(w / ws), -127, 127)`` with ``ws = max(max|w|,
-    1e-12) / 127`` in f32. Pool stages keep their 0/1 selections (and
-    ``pool_src``) and take only the scale."""
+    1e-12) / 127`` in f32, with tap lists read from those int8 weights.
+    Pool stages keep their 0/1 selections (and ``pool_src``) and take only
+    the scale."""
     if len(stages) != len(in_maxes):
         raise ValueError(f"{len(stages)} stages but {len(in_maxes)} "
                          "statistics")
@@ -412,7 +537,8 @@ def quantize_chain_stages(stages: Sequence[ChainStage],
         w = st.w.float()
         ws = torch.clamp_min(w.abs().amax(dim=(0, 1, 2)), 1e-12) / 127.0
         wq = torch.clamp(torch.round(w / ws), -127, 127).to(torch.int8)
-        out.append(dataclasses.replace(st, w=wq, w_scale=ws, x_scale=s))
+        out.append(dataclasses.replace(st, w=wq, w_scale=ws, x_scale=s,
+                                       taps=tap_blocks(wq, st.skip_w)))
     return out
 
 
@@ -427,7 +553,7 @@ _MAX_SKIPS = 4    # csrc/conv_chain.cu RCV_MAX_SKIPS
 class _Stage(ctypes.Structure):
     _fields_ = [("w", ctypes.c_void_p), ("b", ctypes.c_void_p),
                 ("scale", ctypes.c_void_p), ("shift", ctypes.c_void_p),
-                ("skip_w", ctypes.c_void_p), ("pool_src", ctypes.c_void_p),
+                ("skip_w", ctypes.c_void_p), ("table", ctypes.c_void_p),
                 ("out", ctypes.c_void_p), ("ws_off", ctypes.c_longlong),
                 ("kh", ctypes.c_int), ("kw", ctypes.c_int),
                 ("cin", ctypes.c_int), ("cout", ctypes.c_int),
@@ -446,7 +572,7 @@ class _Chain(ctypes.Structure):
                 ("n", ctypes.c_int), ("h", ctypes.c_int), ("w", ctypes.c_int),
                 ("band", ctypes.c_int), ("n_stages", ctypes.c_int),
                 ("bf16", ctypes.c_int), ("quant", ctypes.c_int),
-                ("pad", ctypes.c_int),
+                ("listed", ctypes.c_int),
                 ("st", _Stage * _MAX_STAGES)]
 
 
@@ -525,7 +651,8 @@ def int8_mismatch(got: torch.Tensor, ref: torch.Tensor, step: float):
 
 def _param(t, device, dtype) -> torch.Tensor:
     """``t`` as a contiguous ``dtype`` tensor on ``device`` whose data is
-    16-byte aligned (the kernel loads weights in vectors of 4)."""
+    16-byte aligned (the kernel loads weights in vectors of 4, and its MMA
+    loop copies inputs, skips and weights in 16-byte pieces)."""
     t = torch.as_tensor(t).to(device=device, dtype=dtype).contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -581,11 +708,16 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
         keep.append(xq)
         desc.x = xq.data_ptr()
     else:
+        # the tap loops copy 16-byte pieces of the input and the skips
+        x = _param(x, dev, x.dtype)
         desc.x = x.data_ptr()
+    skips = [_param(s, dev, s.dtype) for s in skips]
+    keep += [x] + skips
     for i, s in enumerate(skips):
         desc.skips[i] = s.data_ptr()
     ws_bytes = 0
     cin = c0
+    listed = False  # some stage's CUDA-core lists skip rows
     for i, st in enumerate(stages):
         kh, kw, wcin, cout = (int(v) for v in st.w.shape)
         if wcin != cin:
@@ -602,12 +734,18 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
             # the table of source lanes instead
             table = _param(st.pool_src, dev, torch.int32)
             keep.append(table)
-            d.pool, d.pool_src, kh, kw = 1, table.data_ptr(), 1, 1
+            d.pool, d.table, kh, kw = 1, table.data_ptr(), 1, 1
         else:
             w = _param(st.w, dev, torch.int8 if quant else x.dtype)
             b = _param(st.b, dev, torch.float32)
-            keep += [w, b]
-            d.w, d.b = w.data_ptr(), b.data_ptr()
+            taps = _taps_of(st)
+            if taps.cob != kernel_cob(cout, quant, st.skip_w is not None):
+                raise ValueError(f"stage {i}: tap lists for {taps.cob}-wide "
+                                 "groups, not the kernel's")
+            listed = listed or not taps.dense
+            table = _param(taps.table, dev, torch.int32)
+            keep += [w, b, table]
+            d.w, d.b, d.table = w.data_ptr(), b.data_ptr(), table.data_ptr()
             if quant:
                 wsc = _param(st.w_scale, dev, torch.float32)
                 keep.append(wsc)
@@ -654,7 +792,7 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
     desc.ws, desc.ws_per_block = ws.data_ptr(), ws_bytes
     desc.n, desc.h, desc.w, desc.band = n, H, W, band
     desc.n_stages, desc.bf16 = len(stages), int(x.dtype == torch.bfloat16)
-    desc.quant = int(quant)
+    desc.quant, desc.listed = int(quant), int(listed)
 
     fn = _lib()
     with torch.cuda.device(dev):

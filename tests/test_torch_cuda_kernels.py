@@ -572,13 +572,17 @@ def test_calibration_through_kernel_matches_reference(cuda_device, dt, case,
 @pytest.mark.parametrize("relu_before_bn", [True, False])
 @pytest.mark.parametrize("shape,tile", [((24, 40, 16, 48), 8),
                                         ((16, 33, 20, 40), 16),
-                                        ((12, 70, 3, 5), 4)])
+                                        ((12, 70, 3, 5), 4),
+                                        ((20, 48, 24, 40), 4),
+                                        ((40, 64, 16, 32), 10)])
 def test_conv_block_kernel_matches_plain(cuda_device, dt, relu_before_bn,
                                          shape, tile):
     """K3 against its plain version: f32 within rtol = atol = 1e-5, bf16
     within ``conv_block_bf16_tolerance`` (one bf16 ulp); widths that are
     not multiples of the kernel's 32 columns, 32 output channels or 16
-    input channels, and row tiles of 4, 8 and 16."""
+    input channels (24 -> 40: not of 16 either; 3 -> 5 and 20 -> 40: not
+    of 8, so the bf16 kernel stages them without 16-byte copies), and row
+    tiles of 4, 8, 10 (a partial pass of its eight rows) and 16."""
     from robocupvision_tpu_torch.ops.cuda_kernels import (
         conv_block_bf16_tolerance, fused_conv3x3_block,
         fused_conv3x3_block_plain)
@@ -614,3 +618,49 @@ def test_conv_block_kernel_rejects_what_it_does_not_take(cuda_device):
         fused_conv3x3_block(x.transpose(1, 2), w, v, v, v)
     with pytest.raises(ValueError):
         fused_conv3x3_block(x, w.cpu(), v, v, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(24))  # chip_smoke.FUZZ_SEEDS
+def test_chain_kernel_fuzz_matches_reference(cuda_device, monkeypatch, seed):
+    """K2 on a random chain (chip_smoke.fuzz_chain: K in {1, 3}, dil in {1,
+    2}, every epilogue, identity and skip_w skips, stem_f, pool and emits,
+    random zero blocks in every kernel, a random band) in bf16, f32 and
+    int8 against chain_reference: bf16 per element within
+    ``bf16_tolerance``, f32 within rtol = atol = 2e-4, int8 equal without
+    a skip_w stage and within rtol = atol = 1e-5 (``bf16_tolerance`` in
+    bf16) with one, labels the first maximum of the kernel's own logits
+    (themselves held to the reference). The same cases run as
+    chip_smoke.py's k2_fuzz phase."""
+    import chip_smoke
+
+    cases, band = chip_smoke.fuzz_cases(seed, cuda_device)
+    monkeypatch.setattr(ckp, "choose_band", lambda n, h, d: band)
+    for dt, (x, stages, skips) in cases.items():
+        head = stages[-1].argmax_groups
+        logits = [dataclasses.replace(st, argmax_groups=0) for st in stages]
+        got = ckp.fused_conv_chain(x, logits, skips)
+        ref = ckp.chain_reference(x, logits, skips)
+        torch.cuda.synchronize()
+        quant = bool(stages[0].x_scale)
+        exact = quant and all(st.skip_w is None for st in stages)
+        for g, r in zip(got, ref):
+            g, r = g.float(), r.float()
+            d = (g - r).abs()
+            if exact:
+                assert torch.equal(g, r), (dt, float(d.max()))
+            elif x.dtype == torch.bfloat16:
+                assert bool((d <= ckp.bf16_tolerance(r)).all()), \
+                    (dt, float(d.max()))
+            elif quant:
+                assert bool((d <= 1e-5 + 1e-5 * r.abs()).all()), \
+                    (dt, float(d.max()))
+            else:
+                torch.testing.assert_close(g, r, rtol=2e-4, atol=2e-4)
+        if head:
+            labels = ckp.fused_conv_chain(x, stages, skips)[-1]
+            lg = got[-1].float()
+            n, h, w, c = lg.shape
+            want = torch.argmax(lg.reshape(n, h, w, head, c // head), dim=-1)
+            assert torch.equal(labels, want.to(torch.int32))
+
