@@ -50,12 +50,17 @@ fps phase splits each graph's card time into K2 and the plain parts with
     python3 chip_smoke.py --dump-chains PATH [INPUTS]
     python3 chip_smoke.py --compare-chains PATH_A PATH_B
     python3 chip_smoke.py --time-chains
+    python3 chip_smoke.py --time-k1
 
 save K2's outputs on every f32 chain of the five families (on the inputs
 of the dump INPUTS when given), and compare two such dumps bit for bit (a
 copy of this script beside an older tree's package dumps that tree's
-kernel); and print K2's card time alone (``torch.profiler``) on every
-chain and single-stage case.
+kernel); print K2's card time alone (``torch.profiler``) on every
+chain and single-stage case; and print K1's costs on the maps the main
+paths give it (``K1_PATH_CASES``, recorded by ``K1Recorder`` in every
+path's counted run) at two label distributions: its card time alone, its
+device launches a call, its CUDA-event time, its bytes bound and the
+``torch.bincount`` yardstick (the same lines ``phase_k1`` prints).
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi reports them, and the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if
@@ -129,49 +134,309 @@ class Checks:
 # ---------------------------------------------------------------------------
 
 
-def phase_k1(dev, chk: Checks) -> dict:
-    """K1 against its plain count at B=8 (the issue's check) and at B=1 (the
-    serving path scores one frame per call); returns the results by B."""
+# (case, (B, H, W), pred dtype, tgt dtype): the maps K1 is given on the
+# main paths, as the path phases record them (``K1Recorder``); "b8_vga" is
+# a batch of eight served frames, which no path scores at once
+K1_PATH_CASES = [
+    ("serving", (1, *VGA), torch.uint8, torch.int32),
+    ("tester", (1, *VGA), torch.int32, torch.int32),
+    ("valid_label_prop", (2, 120, 160), torch.int32, torch.int32),
+    ("test_cli", (16, 240, 320), torch.int64, torch.int32),
+    ("train_val", (64, 120, 160), torch.int64, torch.int32),
+    ("b8_vga", (8, *VGA), torch.int32, torch.int32),
+]
+K1_DISTRIBUTIONS = ("random", "frame")
+K1_CLASSES = 5
+L2_FLUSH_BYTES = 96 << 20  # more than the H100's 50 MB L2
+
+
+def l2_flusher(dev):
+    """A call that reads L2_FLUSH_BYTES of another buffer, so that what a
+    kernel reads next comes from device memory (a read, so that no dirty
+    line is left for the next kernel to write back)."""
+    buf = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    return lambda: buf.max()
+
+
+def k1_maps(kind: str, shape, num_classes: int, pred_dtype, tgt_dtype,
+            seed: int, dev):
+    """A (pred, tgt) pair of label maps on ``dev``, from a
+    ``torch.Generator`` seed. ``random``: both uniform in [-1, C + 2), the
+    worst case for a histogram (out-of-range labels on both maps; -1 reads
+    255 in uint8). ``frame``: like a served frame, ~80% of target pixels
+    class 0 and the rest blobs of 16x16 pixels of the other classes, pred
+    equal to tgt on ~95% of pixels and uniform in [0, C) elsewhere."""
+    g = torch.Generator().manual_seed(seed)
+    b, h, w = shape
+    if kind == "random":
+        pred = torch.randint(-1, num_classes + 2, shape, generator=g)
+        tgt = torch.randint(-1, num_classes + 2, shape, generator=g)
+    elif kind == "frame":
+        hc, wc = -(-h // 16), -(-w // 16)
+        cls = torch.randint(1, max(num_classes, 2), (b, hc, wc), generator=g)
+        blob = torch.rand((b, hc, wc), generator=g) < 0.2
+        cls = torch.where(blob, cls, 0) if num_classes > 1 else cls * 0
+        tgt = cls[:, torch.arange(h) // 16][:, :, torch.arange(w) // 16]
+        flip = torch.rand(shape, generator=g) < 0.05
+        pred = torch.where(flip, torch.randint(0, num_classes, shape,
+                                               generator=g), tgt)
+    else:
+        raise ValueError(f"unknown label distribution {kind!r}")
+    return (pred.to(pred_dtype).contiguous().to(dev),
+            tgt.to(tgt_dtype).contiguous().to(dev))
+
+
+def widen_labels(t: torch.Tensor, seed: int) -> torch.Tensor:
+    """An int64 map with labels beyond the int32 range on ~1/3 of its
+    pixels: multiples of 2**32 added (the low 32 bits, which count, kept)
+    or 2**31 + 3 (negative as int32: skipped)."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand(t.shape, generator=g).to(t.device)
+    t = t.to(torch.int64)
+    t = torch.where(u < 0.2, t + 2**32 * (1 + (u * 100).long() % 3), t)
+    return torch.where((u >= 0.2) & (u < 0.3), t.new_tensor(2**31 + 3), t)
+
+
+def profile_calls(fn, calls: int, before=None, tries: int = 3):
+    """torch.profiler over ``calls`` calls of ``fn``, ``before()`` run
+    ahead of each: per call, every device row as (name, events, ms). The
+    trace is kept only from a second profiler step on (the first, a few
+    calls, warms the tracer up: the first kernels after it starts can go
+    unrecorded). The tracer can still drop events: a trace that comes back
+    without device time, or with a row whose events are no whole number a
+    call, is taken again, up to ``tries`` times in all (then the last one
+    is returned, or None if it holds no device time)."""
+    from torch.profiler import ProfilerActivity, schedule
+    from torch.profiler import profile as tprofile
+
+    for _ in range(tries):
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA],
+                      schedule=schedule(wait=0, warmup=1, active=1,
+                                        repeat=1)) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(calls):
+                if before is not None:
+                    before()
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
+        rows = [(e.key, e.count / calls,
+                 e.self_device_time_total / 1e3 / calls) for e in events]
+        if (sum(r[2] for r in rows) > 0
+                and all(e.count % calls == 0 for e in events)):
+            return rows
+    return rows if sum(r[2] for r in rows) > 0 else None
+
+
+def k1_card_ms(rows, name="confusion_kernel"):
+    got = sum(ms for key, _, ms in rows or () if name in key)
+    return got if got > 0 else None
+
+
+def k1_device_launches(rows, name="confusion_kernel"):
+    """Device launches a ``confusion_count`` call, from ``profile_calls``
+    rows: all device events over the ``confusion_kernel`` events (one a
+    call), so that events the tracer drops from every row alike leave the
+    ratio as it is; None when the trace holds no ``confusion_kernel``."""
+    kernel = sum(n for key, n, _ in rows or () if name in key)
+    return sum(n for _, n, _ in rows) / kernel if kernel > 0 else None
+
+
+def k1_time_case(count, plain, pred, tgt, num_classes: int, flush_l2,
+                 calls: int = 50) -> dict:
+    """K1's costs on one map pair: its card time alone with L2 flushed
+    before each call (``card_ms``, the profiler's ``confusion_kernel``
+    rows) and warm (back to back), the device events a call and their
+    time (warm, and cold without the flush's own rows: an older wrapper's
+    casts read the cold maps, its kernel their warm copies), the CUDA-event
+    time a call (the wrapper's host work included),
+    the plain count's time, the ``torch.bincount`` yardstick's card time
+    (every device row of the call) and CUDA-event time (that call syncs on
+    the host), and the bytes bound at the maps' own dtypes. Where a map is
+    int64, also ``card_ms_i32``: the kernel's card time with L2 flushed on
+    the same maps cast to int32 ahead of the call (for an older wrapper,
+    which casts int64 maps itself, its kernel on cold int32 maps)."""
+    b = pred.shape[0]
+    nc2 = num_classes * num_classes
+    call = lambda: count(pred, tgt, num_classes)  # noqa: E731
+    warm = profile_calls(call, calls)
+    cold = profile_calls(call, calls, before=flush_l2)
+    flush_rows = {key for key, _, _ in profile_calls(flush_l2, 3) or ()}
+    valid = ((pred >= 0) & (pred < num_classes)
+             & (tgt >= 0) & (tgt < num_classes))
+    bidx = torch.arange(b, device=pred.device).view(b, 1, 1).expand_as(pred)
+    flat = (bidx * nc2 + pred.long() * num_classes + tgt.long())[valid]
+    lib = lambda: torch.bincount(flat, minlength=b * nc2)  # noqa: E731
+    lib_rows = profile_calls(lib, calls)
+    moved = nbytes(pred) + nbytes(tgt) + b * nc2 * 4
+    bound_ms = moved / HBM_BYTES_PER_S * 1e3
+    card = k1_card_ms(cold)
+    res = {"shape": list(pred.shape), "pred": str(pred.dtype)[6:],
+           "tgt": str(tgt.dtype)[6:], "classes": num_classes,
+           "card_ms": card, "card_ms_warm": k1_card_ms(warm),
+           "device_ms_per_call_cold": (sum(
+               ms for key, _, ms in cold if key not in flush_rows) if cold
+               else None),
+           "launches_per_call": k1_device_launches(warm),
+           "device_ms_per_call": (sum(ms for _, _, ms in warm) if warm
+                                  else None),
+           "device_rows": ([[k[:60], n, ms] for k, n, ms in warm] if warm
+                           else None),
+           "event_ms": cuda_ms(call, 200),
+           "plain_ms": cuda_ms(lambda: plain(pred, tgt, num_classes), 10),
+           "bincount_card_ms": (sum(ms for _, _, ms in lib_rows) if lib_rows
+                                else None),
+           "bincount_event_ms": cuda_ms(lib, 50),
+           "bound_ms": bound_ms, "bound_by": "bytes", "bytes": moved,
+           "bound_share": bound_ms / card if card else None}
+    if torch.int64 in (pred.dtype, tgt.dtype):
+        p32, t32 = pred.to(torch.int32), tgt.to(torch.int32)
+        res["card_ms_i32"] = k1_card_ms(profile_calls(
+            lambda: count(p32, t32, num_classes), calls, before=flush_l2))
+    lib_counts = torch.bincount(flat, minlength=b * nc2).view(b, num_classes,
+                                                              num_classes)
+    res["bincount_equal"] = bool(torch.equal(lib_counts.float(),
+                                             plain(pred, tgt, num_classes)))
+    return res
+
+
+def k1_timings(dev, chk: Checks) -> dict:
+    """``k1_time_case`` at every main-path case and both distributions,
+    each held to the plain count first; then the card time at C = 16 at
+    B = 8 VGA (the kernel's per-warp histograms), off the main paths. Uses
+    only what every version of the port has, so a copy of this script next
+    to an older tree's package times that tree's K1. Returns the results
+    by (case, distribution)."""
     from robocupvision_tpu_torch.ops.cuda_kernels import (confusion_count,
                                                           confusion_count_plain)
 
-    C = 5
-    g = torch.Generator(device="cpu").manual_seed(SEED + 1)
-    results = {}
-    for B in (8, 1):
-        # labels in [-1, C + 2): out-of-range values on both maps
-        pred = torch.randint(-1, C + 2, (B, *VGA), generator=g,
-                             dtype=torch.int32).to(dev)
-        tgt = torch.randint(-1, C + 2, (B, *VGA), generator=g,
-                            dtype=torch.int32).to(dev)
-        got = confusion_count(pred, tgt, C)
-        ref = confusion_count_plain(pred, tgt, C)
-        torch.cuda.synchronize()
-        exact = bool(torch.equal(got, ref))
-        chk.expect(exact, f"K1 B={B}: counts differ from the plain count")
-        # the library yardstick: one bincount over b*C*C + pred*C + tgt (the
-        # flat index, with out-of-range labels dropped, is built outside the
-        # timed call); used nowhere in the port
-        valid = (pred >= 0) & (pred < C) & (tgt >= 0) & (tgt < C)
-        bidx = torch.arange(B, device=dev).view(B, 1, 1).expand_as(pred)
-        flat = (bidx * C * C + pred * C + tgt)[valid].long()
-        lib = torch.bincount(flat, minlength=B * C * C).view(B, C, C).float()
-        chk.expect(bool(torch.equal(lib, ref)),
-                   f"K1 B={B}: bincount yardstick disagrees")
-        ms = cuda_ms(lambda: confusion_count(pred, tgt, C), 200)
-        plain_ms = cuda_ms(lambda: confusion_count_plain(pred, tgt, C), 20)
-        lib_ms = cuda_ms(lambda: torch.bincount(flat, minlength=B * C * C), 200)
-        moved = nbytes(pred) + nbytes(tgt) + B * C * C * 4
-        bound_ms = moved / HBM_BYTES_PER_S * 1e3
-        res = {"phase": "k1_confusion_count", "shape": [B, *VGA],
-               "classes": C, "exact": exact,
-               "max_abs_err": float((got - ref).abs().max()),
-               "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "bound_us": bound_ms * 1e3, "bound_by": "bytes",
-               "bytes": moved}
-        emit(res)
-        results[B] = res
-    return results
+    flush_l2 = l2_flusher(dev)
+    out = {}
+    for i, (case, shape, pdt, tdt) in enumerate(K1_PATH_CASES):
+        for j, kind in enumerate(K1_DISTRIBUTIONS):
+            pred, tgt = k1_maps(kind, shape, K1_CLASSES, pdt, tdt,
+                                SEED + 100 + 10 * i + j, dev)
+            got = confusion_count(pred, tgt, K1_CLASSES)
+            ref = confusion_count_plain(pred, tgt, K1_CLASSES)
+            exact = bool(torch.equal(got, ref))
+            chk.expect(exact, f"K1 {case} {kind}: counts differ from plain")
+            res = {"phase": "k1_time", "case": case, "dist": kind,
+                   "exact": exact,
+                   "max_abs_err": float((got - ref).abs().max()),
+                   **k1_time_case(confusion_count, confusion_count_plain,
+                                  pred, tgt, K1_CLASSES, flush_l2)}
+            chk.expect(res["bincount_equal"],
+                       f"K1 {case} {kind}: bincount yardstick disagrees")
+            emit(res)
+            out[case, kind] = res
+    for j, kind in enumerate(K1_DISTRIBUTIONS):
+        pred, tgt = k1_maps(kind, (8, *VGA), 16, torch.int32, torch.int32,
+                            SEED + 190 + j, dev)
+        fn = lambda: confusion_count(pred, tgt, 16)  # noqa: E731
+        chk.expect(bool(torch.equal(fn(), confusion_count_plain(pred, tgt,
+                                                                16))),
+                   f"K1 C=16 {kind}: != plain")
+        emit({"phase": "k1_time", "case": "b8_vga_c16", "dist": kind,
+              "card_ms": k1_card_ms(profile_calls(fn, 30, before=flush_l2))})
+    return out
+
+
+def phase_k1(dev, chk: Checks) -> dict:
+    """K1 on the maps the main paths give it (``K1_PATH_CASES``), at both
+    label distributions: held to its plain count, timed (``k1_timings``),
+    and one device launch a call (the profiler). Then held alone on what
+    the paths do not give it: odd and tiny sizes, offset views that leave
+    the maps unaligned, int64 labels beyond the int32 range, C = 1 and 16.
+    Returns the timings by (case, distribution)."""
+    from robocupvision_tpu_torch.ops.cuda_kernels import (confusion_count,
+                                                          confusion_count_plain)
+
+    out = k1_timings(dev, chk)
+    for (case, kind), res in out.items():
+        chk.expect(res["launches_per_call"] == 1,
+                   f"K1 {case} {kind}: {res['launches_per_call']} device "
+                   "launches a call, not 1")
+
+    def held(tag, pred, tgt, c):
+        ok = bool(torch.equal(confusion_count(pred, tgt, c),
+                              confusion_count_plain(pred, tgt, c)))
+        chk.expect(ok, f"K1 {tag}: counts differ from the plain count")
+        return ok
+
+    edge = {}
+    for i, (tag, shape, pdt, tdt, c, kind) in enumerate([
+            ("odd_i64_u8", (3, 121, 161), torch.int64, torch.uint8, 5,
+             "random"),
+            ("tiny_1x1", (3, 1, 1), torch.uint8, torch.int64, 2, "random"),
+            ("tiny_3x5", (1, 3, 5), torch.int32, torch.uint8, 5, "frame"),
+            ("c1_vga", (1, *VGA), torch.uint8, torch.uint8, 1, "frame"),
+            ("c16_vga", (1, *VGA), torch.int64, torch.int64, 16, "frame"),
+            ("c16_random", (2, 121, 161), torch.int32, torch.int64, 16,
+             "random")]):
+        pred, tgt = k1_maps(kind, shape, c, pdt, tdt, SEED + 200 + i, dev)
+        if pdt == torch.int64:
+            pred = widen_labels(pred, SEED + 250 + i)
+        if tdt == torch.int64:
+            tgt = widen_labels(tgt, SEED + 260 + i)
+        edge[tag] = held(tag, pred, tgt, c)
+    # offset views: the maps start one element into a larger tensor, so
+    # their bases (and, at odd hw, their per-image offsets) lose the
+    # 16-byte alignment, each map by another amount
+    # (the last pair has no pixel at which both are aligned)
+    for i, (pdt, tdt) in enumerate([(torch.uint8, torch.int32),
+                                    (torch.int64, torch.uint8),
+                                    (torch.int32, torch.int32),
+                                    (torch.uint8, torch.uint8)]):
+        shape = (3, 121, 161)
+        base_p, base_t = k1_maps("random", (4, 121, 161), 5, pdt, tdt,
+                                 SEED + 270 + i, dev)
+        pred = base_p.flatten()[1:1 + 3 * 121 * 161].view(shape)
+        tgt = base_t[1:] if i < 3 else base_t[:3]
+        edge[f"offset_{i}"] = held(f"offset view {i}", pred, tgt, 5)
+    emit({"phase": "k1_confusion_count_edges", "exact": edge})
+    return out
+
+
+class K1Recorder:
+    """Stands in for ``ops.metrics.confusion_count`` (``install``) and
+    passes every call on to the wrapper; while ``active`` (a main path's
+    counted run) it records each call's (shape, pred dtype, tgt dtype, C)."""
+
+    def __init__(self) -> None:
+        self.fn, self.active, self.seen = None, False, {}
+
+    def install(self) -> None:
+        from robocupvision_tpu_torch.ops import metrics
+
+        self.fn = metrics.confusion_count
+        metrics.confusion_count = self
+
+    def __call__(self, pred, tgt, num_classes, *args, **kw):
+        if self.active:
+            key = (tuple(pred.shape), pred.dtype, tgt.dtype, num_classes)
+            self.seen[key] = self.seen.get(key, 0) + 1
+        return self.fn(pred, tgt, num_classes, *args, **kw)
+
+    def check(self, chk: Checks) -> None:
+        """Every recorded call is one of ``K1_PATH_CASES`` at C = 5."""
+        known = {(shape, pdt, tdt, K1_CLASSES)
+                 for _, shape, pdt, tdt in K1_PATH_CASES}
+        emit({"phase": "k1_path_calls", "calls": [
+            [list(k[0]), str(k[1])[6:], str(k[2])[6:], k[3], n]
+            for k, n in self.seen.items()]})
+        chk.expect(bool(self.seen) and set(self.seen) <= known,
+                   f"K1 main-path calls {sorted(map(str, self.seen))} not "
+                   "all in K1_PATH_CASES")
+
+
+K1_REC = K1Recorder()
 
 
 # ---------------------------------------------------------------------------
@@ -1069,6 +1334,7 @@ def phase_serving(model, dev, chk: Checks, frames, targets, ref, tag: str,
     # --- the main path: serve through the pipeline, score every frame ----
     fused_conv_chain.launches = 0
     confusion_count.launches = 0
+    K1_REC.active = True
     t0 = time.perf_counter()
     served = serve(pi, frames, device_fn, host_unpack)
     acc = metrics.SegAccum.zero(5)
@@ -1077,6 +1343,7 @@ def phase_serving(model, dev, chk: Checks, frames, targets, ref, tag: str,
                                                      device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    K1_REC.active = False
     launches = {"fused_conv_chain": fused_conv_chain.launches,
                 "confusion_count": confusion_count.launches}
     res["main_path_launches"] = launches
@@ -1365,10 +1632,12 @@ def phase_tester(pb_model, dev, chk: Checks) -> dict:
             # --- a main path: the tester's loop, counters around it -------
             fused_conv_chain.launches = 0
             confusion_count.launches = 0
+            K1_REC.active = True
             with torch.no_grad():
                 acc, t_total, n = tester.serve_and_score(
                     pi.infer, zip(frames, targets), 5, pipeline=depth,
                     on_mask=keep, device=dev)
+            K1_REC.active = False
             k2, k1 = fused_conv_chain.launches, confusion_count.launches
             key = f"{'deep' if deep else 'two_chain'}_pipeline{depth}"
             mism = served != ref_labels
@@ -1451,9 +1720,11 @@ def phase_tester_int8(model, frames, targets, float_run, dev,
         cal = ckp.fused_conv_chain.launches
         ckp.fused_conv_chain.launches = 0
         confusion_count.launches = 0
+        K1_REC.active = True
         acc, t_total, n = tester.serve_and_score(
             q.infer, zip(frames, targets), 5, pipeline=1, on_mask=keep,
             device=dev)
+    K1_REC.active = False
     k2, k1 = ckp.fused_conv_chain.launches, confusion_count.launches
     ref_calls = ckp.chain_reference.calls
     with torch.no_grad():
@@ -1563,9 +1834,11 @@ def phase_valid_label_prop(lp_model, dev, chk: Checks) -> dict:
     # --- the main path: validLabelProp's loop, counters around it ----------
     fused_conv_chain.launches = 0
     confusion_count.launches = 0
+    K1_REC.active = True
     with torch.no_grad():
         acc, t_total, n = validLabelProp.serve_and_score(
             pi.infer, pairs, 5, on_mask=keep, device=dev)
+    K1_REC.active = False
     k2, k1 = fused_conv_chain.launches, confusion_count.launches
     launches = {"fused_conv_chain": k2, "confusion_count": k1}
     mism = served != ref_labels
@@ -1641,8 +1914,10 @@ def phase_valid_label_prop_int8(model, pairs, float_served, float_res, dev,
         cal = ckp.fused_conv_chain.launches
         ckp.fused_conv_chain.launches = 0
         confusion_count.launches = 0
+        K1_REC.active = True
         acc, t_total, n = validLabelProp.serve_and_score(
             q.infer, pairs, 5, on_mask=keep, device=dev)
+    K1_REC.active = False
     k2, k1 = ckp.fused_conv_chain.launches, confusion_count.launches
     ref_calls = ckp.chain_reference.calls
     with torch.no_grad():
@@ -1744,11 +2019,13 @@ def phase_test_cli(models: dict, dev, chk: Checks) -> dict:
         cache = DeviceCache.from_numpy(imgs, labs, device=dev)
         # --- a main path: test.py's loop, the counters around it ----------
         confusion_count.launches = fused_conv_chain.launches = 0
+        K1_REC.active = True
         t0 = time.perf_counter()
         card = test.evaluate(model, epoch_batches(cache, batch), cfg,
                              test.THRESHOLDS, d_thresholds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        K1_REC.active = False
         launches = {"confusion_count": confusion_count.launches,
                     "fused_conv_chain": fused_conv_chain.launches}
         # K1 against its plain count on every batch of that loop
@@ -1879,6 +2156,7 @@ def phase_train(dev, chk: Checks) -> dict:
             try:
                 # --- a main path: train.py's combo, the counters around it
                 confusion_count.launches = fused_conv_chain.launches = 0
+                K1_REC.active = True
                 fused_conv3x3_block.launches = 0
                 t0 = time.perf_counter()
                 best = train.train_combo(setup, train_cache, val_cache, 0,
@@ -1886,6 +2164,7 @@ def phase_train(dev, chk: Checks) -> dict:
                                          after_chunk=after_chunk)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+                K1_REC.active = False
                 launches = {"confusion_count": confusion_count.launches,
                             "fused_conv_chain": fused_conv_chain.launches,
                             "fused_conv3x3_block": fused_conv3x3_block.launches}
@@ -2189,6 +2468,24 @@ def time_chain_kernels() -> int:
     return 0
 
 
+def time_k1() -> int:
+    """``--time-k1``: ``k1_timings`` alone (every main-path case of K1 at
+    both label distributions, and C = 16), one JSON line a case, then a
+    summary line. Uses only what every version of the port has, so a copy
+    of this script beside an older tree's package times that tree's K1.
+    Exits 1 if a count differs from the plain one."""
+    chk = Checks()
+    out = k1_timings(torch.device("cuda"), chk)
+    emit({"phase": "time_k1", "nvidia_smi": smi_line(),
+          **{key: {f"{c}_{d}": r[key] for (c, d), r in out.items()}
+             for key in ("card_ms", "launches_per_call", "event_ms",
+                         "bound_share")},
+          "card_ms_i32": {f"{c}_{d}": r["card_ms_i32"]
+                          for (c, d), r in out.items() if "card_ms_i32" in r},
+          "failed": chk.failed})
+    return 1 if chk.failed else 0
+
+
 def compare_chain_outputs(a: str, b: str) -> int:
     """``--compare-chains A B``: whether every chain output in dump A
     equals dump B's (``torch.equal``), and whether they ran on the same
@@ -2222,6 +2519,8 @@ def main() -> int:
         return dump_chain_outputs(*sys.argv[2:4])
     if sys.argv[1:2] == ["--time-chains"]:
         return time_chain_kernels()
+    if sys.argv[1:2] == ["--time-k1"]:
+        return time_k1()
     if sys.argv[1:2] == ["--compare-chains"]:
         return compare_chain_outputs(sys.argv[2], sys.argv[3])
     from robocupvision_tpu_torch.csrc import build
@@ -2262,6 +2561,7 @@ def main() -> int:
     phase_no_host_copy(model, dev, chk)
     fused_conv3x3_block.launches = 0  # no main path below calls K3
 
+    K1_REC.install()  # records K1's maps in every main path's counted run
     rng = np.random.default_rng(SEED + 3)
     frames = [rng.integers(0, 256, (1, *VGA, 3), dtype=np.uint8)
               for _ in range(N_FRAMES)]
@@ -2285,6 +2585,7 @@ def main() -> int:
     tc = phase_test_cli({"unet": unet, "v2": v2}, dev, chk)
     k3_launches = fused_conv3x3_block.launches
     tr = phase_train(dev, chk)
+    K1_REC.check(chk)
 
     # the main paths' launches; K1's shapes: one (1, 480, 640) map pair
     # scored per frame; K2's: the bf16 VGA b1 chains of one frame of the
@@ -2297,7 +2598,8 @@ def main() -> int:
         sq["main_path_launches"], ts["int8"]["main_path_launches"],
         vlp["int8"]["main_path_launches"]] + [
         r["launches"] for r in tr["runs"].values()]
-    k1m = k1[1]
+    # K1's entry: the tester's map pair, the case of earlier PRs' entries
+    k1m = k1["tester", "random"]
     # K3 has no caller: its entry is the QVGA 64->64 bf16 Conv-block case
     k3m = k3["120x160_64to64_bf16_relu_bn"]
     features = sorted({f for r in list(k2.values()) + list(k2f.values())
@@ -2309,9 +2611,13 @@ def main() -> int:
          "source": "robocupvision_tpu_torch/csrc/confusion.cu",
          "replaces": "robocupvision_tpu/ops/pallas_kernels.py:120",
          "launches": sum(r.get("confusion_count", 0) for r in main_runs),
-         "max_abs_err": k1m["max_abs_err"], "ms": k1m["kernel_ms"],
-         "plain_ms": k1m["plain_ms"], "bound_ms": k1m["bound_us"] / 1e3,
-         "bound_by": "bytes", "library_ms": k1m["library_ms"]},
+         "max_abs_err": k1m["max_abs_err"], "ms": k1m["event_ms"],
+         "plain_ms": k1m["plain_ms"], "bound_ms": k1m["bound_ms"],
+         "bound_by": "bytes", "library_ms": k1m["bincount_event_ms"],
+         "card_ms": k1m["card_ms"],
+         "launches_per_call": k1m["launches_per_call"],
+         "library_card_ms": k1m["bincount_card_ms"],
+         "case": [k1m["shape"], k1m["pred"], k1m["tgt"], "random"]},
         k2_entry([k2f["stem_down_b1_bf16"], k2f["deep_b1_bf16"],
                   k2["up_argmax_b1_bf16"]],
                  sum(r["fused_conv_chain"] for r in main_runs), features),

@@ -17,38 +17,72 @@ import torch
 import torch.nn.functional as F
 
 _KERNEL_MAX_CLASSES = 16  # csrc/confusion.cu kMaxClasses
+# label types the kernel reads as they are, by element size (csrc/confusion.cu)
+_KERNEL_LABEL_SIZE = {torch.uint8: 1, torch.int32: 4, torch.int64: 8}
 
 
 def confusion_count_plain(pred: torch.Tensor, tgt: torch.Tensor,
                           num_classes: int) -> torch.Tensor:
     """(B, H, W) int maps -> (B, C, C) f32 counts conf[b, pred, tgt], by the
     one-hot einsum of the JAX package's ``seg_batch_stats(impl="einsum")``.
-    Labels outside [0, C) get an all-zero one-hot, i.e. are not counted."""
-    classes = torch.arange(num_classes, device=pred.device)
-    oh_pred = (pred.long()[..., None] == classes).float()
-    oh_tgt = (tgt.long()[..., None] == classes).float()
+    A label counts by its value cast to int32, as the JAX package's
+    ``astype(jnp.int32)`` casts (an int64 label by its low 32 bits, taken as
+    a signed int32); labels outside [0, C) get an all-zero one-hot, i.e. are
+    not counted."""
+    classes = torch.arange(num_classes, dtype=torch.int32, device=pred.device)
+    oh_pred = (pred.to(torch.int32)[..., None] == classes).float()
+    oh_tgt = (tgt.to(torch.int32)[..., None] == classes).float()
     return torch.einsum("bhwp,bhwl->bpl", oh_pred, oh_tgt)
 
 
 def _lib():
-    from robocupvision_tpu_torch.csrc import build
+    """The kernel's C entry, built and loaded at first use, its argument
+    types set once."""
+    fn = _lib.fn
+    if fn is None:
+        from robocupvision_tpu_torch.csrc import build
 
-    lib = build.load("confusion.cu")
-    fn = lib.rcv_confusion_count
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+        fn = build.load("confusion.cu").rcv_confusion_count
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [ptr, i32, ptr, i32, ptr, ptr, i64, i64, i32, i32, ptr]
+        fn.restype = ctypes.c_int
+        _lib.fn = fn
     return fn
+
+
+_lib.fn = None
+# one zeroed workspace of 64-bit words per (device, stream), grown, never
+# shrunk
+_WORKSPACES = {}
+
+
+def _workspace(device: torch.device, stream, need: int) -> torch.Tensor:
+    key = (device.index, stream.cuda_stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < need:
+        size = max(need, 4096, 0 if ws is None else 2 * ws.numel())
+        ws = _WORKSPACES[key] = torch.zeros(size, dtype=torch.int64,
+                                            device=device)
+    return ws
 
 
 def confusion_count(pred: torch.Tensor, tgt: torch.Tensor,
                     num_classes: int) -> torch.Tensor:
     """(B, H, W) int maps -> (B, C, C) f32 counts conf[b, pred, tgt].
 
-    CUDA tensors go through the kernel (int64 maps, e.g. from
-    ``torch.argmax``, are cast to int32 first, as the JAX kernel casts);
-    CPU tensors through :func:`confusion_count_plain`."""
+    CUDA tensors go through the kernel, one launch a call: uint8, int32 and
+    int64 maps are read as they are, in any pairing (an int64 label counts
+    by its low 32 bits as a signed int32, as the JAX kernel's cast to int32
+    counts it); other integer types (int8, int16, ...), which lie off the
+    main paths, are cast to int32 first, and maps that are not contiguous
+    are made so. The kernel writes the f32 counts itself. CPU tensors go
+    through :func:`confusion_count_plain`.
+
+    The kernel sums its blocks' counts in a workspace of 64-bit words that
+    is zero between launches (the last block to add to a bin zeroes it);
+    there is one per (device, stream), allocated on the stream's first call
+    (and grown when a batch needs more), so launches on one stream are
+    ordered and two streams never share one."""
     if pred.shape != tgt.shape or pred.dim() != 3:
         raise ValueError(f"pred {tuple(pred.shape)} and tgt {tuple(tgt.shape)} "
                          "must both be (B, H, W)")
@@ -64,20 +98,23 @@ def confusion_count(pred: torch.Tensor, tgt: torch.Tensor,
     if not 1 <= num_classes <= _KERNEL_MAX_CLASSES:
         raise ValueError(f"num_classes={num_classes} outside the kernel's "
                          f"1..{_KERNEL_MAX_CLASSES}")
-    p32 = pred.to(torch.int32).contiguous()
-    t32 = tgt.to(torch.int32).contiguous()
-    b, h, w = p32.shape
-    out = torch.zeros((b, num_classes, num_classes), dtype=torch.int32,
-                      device=pred.device)
-    fn = _lib()
-    with torch.cuda.device(pred.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(p32.data_ptr(), t32.data_ptr(), out.data_ptr(), b, h * w,
-                 num_classes, stream)
+    p, t = ((m if m.dtype in _KERNEL_LABEL_SIZE else m.to(torch.int32))
+            .contiguous() for m in (pred, tgt))
+    b, h, w = p.shape
+    dev = p.device
+    out = torch.empty((b, num_classes, num_classes), dtype=torch.float32,
+                      device=dev)
+    stream = torch.cuda.current_stream(dev)
+    ws = _workspace(dev, stream, b * num_classes * num_classes)
+    err = _lib()(p.data_ptr(), _KERNEL_LABEL_SIZE[p.dtype], t.data_ptr(),
+                 _KERNEL_LABEL_SIZE[t.dtype], out.data_ptr(), ws.data_ptr(),
+                 b, h * w, num_classes, dev.index, stream.cuda_stream)
     if err != 0:
+        # a launch that failed may have left the workspace dirty
+        _WORKSPACES.pop((dev.index, stream.cuda_stream), None)
         raise RuntimeError(f"confusion_count launch failed: CUDA error {err}")
     confusion_count.launches += 1
-    return out.float()
+    return out
 
 
 confusion_count.launches = 0

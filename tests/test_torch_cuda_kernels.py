@@ -44,19 +44,79 @@ def _randn(seed, shape, dtype, dev):
     return torch.from_numpy(a).to(device=dev, dtype=dtype)
 
 
+_U8, _I32, _I64 = torch.uint8, torch.int32, torch.int64
+_VGA = (480, 640)
+# (pred dtype, tgt dtype, C, B, (H, W), distribution, layout): every
+# pairing of uint8, int32 and int64; C in {1, 2, 5, 16}; odd, tiny and VGA
+# sizes; the main paths' maps; int64 maps carry labels beyond the int32
+# range (chip_smoke.widen_labels); "offset" maps start one element into a
+# larger tensor (unaligned bases and per-image offsets; the uint8 pair is
+# never aligned at the same pixel)
+_K1_CASES = [
+    (_U8, _U8, 5, 1, _VGA, "frame", "contiguous"),
+    (_U8, _I32, 5, 1, _VGA, "random", "contiguous"),        # serving
+    (_U8, _I64, 5, 3, (121, 161), "random", "contiguous"),
+    (_I32, _U8, 2, 3, (3, 5), "frame", "contiguous"),
+    (_I32, _I32, 5, 64, (120, 160), "random", "contiguous"),
+    (_I32, _I64, 16, 1, _VGA, "frame", "contiguous"),
+    (_I64, _U8, 1, 3, (1, 1), "random", "contiguous"),
+    (_I64, _I32, 5, 64, (120, 160), "frame", "contiguous"),  # training
+    (_I64, _I64, 16, 3, (121, 161), "random", "contiguous"),
+    (_U8, _U8, 16, 64, (3, 5), "random", "contiguous"),
+    (_I32, _I32, 1, 1, (121, 161), "frame", "contiguous"),
+    (_I64, _I64, 2, 1, _VGA, "random", "contiguous"),
+    (_I64, _I32, 5, 16, (240, 320), "random", "contiguous"),  # test.py
+    (_I32, _I64, 2, 64, (1, 1), "random", "contiguous"),
+    (_U8, _I64, 16, 64, (121, 161), "frame", "contiguous"),
+    (_U8, _I32, 5, 3, (121, 161), "random", "offset"),
+    (_I64, _U8, 5, 3, (121, 161), "frame", "offset"),
+    (_I32, _I32, 16, 3, (121, 161), "random", "offset"),
+    (_U8, _U8, 5, 3, (121, 161), "random", "offset"),
+]
+
+
+def _k1_case(pdt, tdt, c, b, size, dist, layout, seed, dev):
+    import chip_smoke
+
+    extra = 1 if layout == "offset" else 0
+    pred, tgt = chip_smoke.k1_maps(dist, (b + extra, *size), c, pdt, tdt,
+                                   seed, dev)
+    if pdt == torch.int64:
+        pred = chip_smoke.widen_labels(pred, seed + 1)
+    if tdt == torch.int64:
+        tgt = chip_smoke.widen_labels(tgt, seed + 2)
+    if layout == "offset":
+        n = b * size[0] * size[1]
+        pred = pred.flatten()[1:1 + n].view(b, *size)
+        tgt = tgt[1:] if (pdt, tdt) != (_U8, _U8) else tgt[:b]
+    return pred, tgt
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,lo,hi", [(5, 0, 5), (2, 0, 2), (5, -2, 8)])
-def test_confusion_kernel_matches_plain(cuda_device, c, lo, hi):
-    r = np.random.default_rng(21 + c)
-    pred = torch.from_numpy(r.integers(lo, hi, (4, 48, 64)).astype(np.int32))
-    tgt = torch.from_numpy(r.integers(lo, hi, (4, 48, 64)))  # int64, cast inside
-    p, t = pred.to(cuda_device), tgt.to(cuda_device)
+@pytest.mark.parametrize("pdt,tdt,c,b,size,dist,layout", _K1_CASES)
+def test_confusion_kernel_matches_plain(cuda_device, pdt, tdt, c, b, size,
+                                        dist, layout):
+    """K1 equals its plain count (on the CPU) exactly (C <= 5 counts in
+    per-thread counters, C = 16 in per-warp histograms); one wrapper call
+    is one counted launch and, for contiguous maps, one device launch in
+    the profiler (no cast, fill or conversion kernel beside it); the counts
+    are f32 on the maps' card."""
+    import chip_smoke
+
+    pred, tgt = _k1_case(pdt, tdt, c, b, size, dist, layout,
+                         _K1_CASES.index((pdt, tdt, c, b, size, dist, layout)),
+                         cuda_device)
+    ref = confusion_count_plain(pred.cpu(), tgt.cpu(), c)
     before = confusion_count.launches
-    got = confusion_count(p, t, c)
+    got = confusion_count(pred, tgt, c)
     torch.cuda.synchronize()
     assert confusion_count.launches == before + 1
-    assert got.dtype == torch.float32
-    assert torch.equal(got.cpu(), confusion_count_plain(pred, tgt, c))
+    assert got.dtype == torch.float32 and got.device == pred.device
+    assert torch.equal(got.cpu(), ref)
+    if layout == "contiguous":
+        rows = chip_smoke.profile_calls(lambda: confusion_count(pred, tgt, c),
+                                        8)
+        assert chip_smoke.k1_device_launches(rows) == 1, rows
 
 
 def _qvga_chains(dt, dev):
@@ -285,6 +345,14 @@ def test_kernel_wrappers_reject_what_they_do_not_take(cuda_device,
     p = torch.zeros((1, 8, 8), dtype=torch.float32, device=cuda_device)
     with pytest.raises(TypeError):
         confusion_count(p, p, 5)
+    lab = torch.zeros((1, 8, 8), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(ValueError):
+        confusion_count(lab, lab, 17)
+    big = torch.zeros((65536, 1, 1), dtype=torch.uint8, device=cuda_device)
+    with pytest.raises(RuntimeError):  # the kernel's grid holds 65535 images
+        confusion_count(big, big, 5)
+    assert torch.equal(confusion_count(lab, lab, 6).cpu()[0, 0, 0],
+                       torch.tensor(64.0))  # the workspace is zero again
     st = ckp.ChainStage(w=torch.zeros(3, 3, 4, 4, device=cuda_device),
                         b=torch.zeros(4, device=cuda_device))
     with pytest.raises(TypeError):

@@ -40,6 +40,38 @@ def test_plain_confusion_matches_pallas_and_einsum(c, lo, hi):
     np.testing.assert_array_equal(got.sum(0).numpy(), np.asarray(ein))
 
 
+# int64 labels beyond the int32 range: the JAX package casts both maps to
+# int32, so such a label counts by its low 32 bits (2**32 + 1 as 1,
+# -2**32 + 2 as 2) or, where those read negative (2**31 + 3), not at all
+_WIDE_LABELS = np.array([2**32 + 1, 2**31 + 3, -1, 4, -2**32 + 2, 2**33 + 4,
+                         2**31, 2**32 - 1], np.int64)
+
+
+@pytest.mark.parametrize("wide", ["pred", "tgt", "both"])
+def test_int64_labels_count_by_their_low_32_bits(wide):
+    c = 4
+    r = np.random.default_rng(41)
+    maps = {k: r.integers(0, c, (3, 16, 24)).astype(np.int64)
+            for k in ("pred", "tgt")}
+    for k in (("pred", "tgt") if wide == "both" else (wide,)):
+        hit = r.random(maps[k].shape) < 0.3
+        maps[k][hit] = r.choice(_WIDE_LABELS, int(hit.sum()))
+    pred, tgt = maps["pred"], maps["tgt"]
+    ref = np.asarray(confusion_matrix_pallas(jnp.asarray(pred), jnp.asarray(tgt),
+                                             c, interpret=True))
+    assert ref.sum() > 0 and ref.sum() < pred.size  # some counted, some skipped
+    jref = jmetrics.seg_batch_stats(jnp.asarray(pred), jnp.asarray(tgt), c,
+                                    impl="einsum")
+    np.testing.assert_array_equal(ref.sum(0), np.asarray(jref.conf))
+    tp, tt = torch.from_numpy(pred), torch.from_numpy(tgt)
+    np.testing.assert_array_equal(confusion_count_plain(tp, tt, c).numpy(), ref)
+    np.testing.assert_array_equal(confusion_count(tp, tt, c).numpy(), ref)
+    got = tmetrics.seg_batch_stats(pred, tgt, c, device="cpu")
+    for field in ("conf", "iou_sum", "lab_cnts", "correct", "img_cnt"):
+        np.testing.assert_array_equal(getattr(got, field).numpy(),
+                                      np.asarray(getattr(jref, field)), field)
+
+
 @pytest.mark.parametrize("mask", [None, [1.0, 0.0, 1.0]])
 @pytest.mark.parametrize("impl", ["auto", "einsum"])
 def test_seg_batch_stats_and_finalize_match_jax(mask, impl):
