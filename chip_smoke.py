@@ -35,7 +35,17 @@ the launch counters set to 0 just before it and read just after:
     ``chain_reference`` called no time.
   - training: train.py's per-combo loop (``cli/train.py train_combo``) on
     the flagship at QVGA, batch 64, 3 epochs in f32 and 3 in bf16, its
-    validation scored by the confusion-count kernel every epoch.
+    validation scored by the confusion-count kernel every epoch;
+  - the legacy pipeline's loops (``legacy_train``): classTrainer's
+    ``train_classifier`` (PB_FCN, then PB_FCN_2 with --v2), trainer's
+    ``train_segmenter`` from that checkpoint, then with --finetune --prune
+    from its output, and labelPropTrain's ``train_label_prop``, at full
+    width on seeded in-memory frames, segmentation validation on the
+    confusion-count kernel;
+  - the trained-net int8 envelope (``int8_trained``): PB_FCN, the --v2
+    ROBO-UNet and LabelProp trained 30 epochs, quantized at four
+    calibration statistics, int8 chain graphs served against the float
+    ones on K2.
 K2's int8 stages are held against the int8 ``chain_reference`` on every
 chain of the five families (VGA b1, bf16 and f32) and on one stage per
 feature, and K2 against ``chain_reference`` on random chains with random
@@ -69,9 +79,12 @@ any phase fails, and at once when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -143,6 +156,9 @@ K1_PATH_CASES = [
     ("valid_label_prop", (2, 120, 160), torch.int32, torch.int32),
     ("test_cli", (16, 240, 320), torch.int64, torch.int32),
     ("train_val", (64, 120, 160), torch.int64, torch.int32),
+    ("legacy_seg_val", (32, 120, 160), torch.int64, torch.int32),
+    ("legacy_finetune_val", (8, 120, 160), torch.int64, torch.int32),
+    ("legacy_lp_val", (16, 120, 160), torch.int64, torch.int32),
     ("b8_vga", (8, *VGA), torch.int32, torch.int32),
 ]
 K1_DISTRIBUTIONS = ("random", "frame")
@@ -407,10 +423,14 @@ def phase_k1(dev, chk: Checks) -> dict:
 class K1Recorder:
     """Stands in for ``ops.metrics.confusion_count`` (``install``) and
     passes every call on to the wrapper; while ``active`` (a main path's
-    counted run) it records each call's (shape, pred dtype, tgt dtype, C)."""
+    counted run) it records each call's (shape, pred dtype, tgt dtype, C),
+    and while ``verify`` it also holds each call's counts to
+    ``confusion_count_plain`` on the same maps (``torch.equal``; the plain
+    count launches no K1), tallying ``verified`` and ``unequal``."""
 
     def __init__(self) -> None:
         self.fn, self.active, self.seen = None, False, {}
+        self.verify, self.verified, self.unequal = False, 0, 0
 
     def install(self) -> None:
         from robocupvision_tpu_torch.ops import metrics
@@ -422,7 +442,15 @@ class K1Recorder:
         if self.active:
             key = (tuple(pred.shape), pred.dtype, tgt.dtype, num_classes)
             self.seen[key] = self.seen.get(key, 0) + 1
-        return self.fn(pred, tgt, num_classes, *args, **kw)
+        out = self.fn(pred, tgt, num_classes, *args, **kw)
+        if self.verify:
+            from robocupvision_tpu_torch.ops.cuda_kernels import (
+                confusion_count_plain)
+
+            self.verified += 1
+            self.unequal += not torch.equal(
+                out, confusion_count_plain(pred, tgt, num_classes))
+        return out
 
     def check(self, chk: Checks) -> None:
         """Every recorded call is one of ``K1_PATH_CASES`` at C = 5."""
@@ -2291,6 +2319,474 @@ def phase_train(dev, chk: Checks) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# The legacy pipeline (classTrainer -> trainer -> labelPropTrain) and the
+# trained-net int8 envelope
+# ---------------------------------------------------------------------------
+
+
+def draw_scene(rng, h: int, w: int):
+    """One synthetic RoboCup frame, as tests/synth_data.py draws it: a
+    field gradient, a line stripe (4), goal posts (3), a robot box (2) and
+    a ball disc (1) -> (RGB in [0, 1] float32 (h, w, 3), labels int32)."""
+    img = np.zeros((h, w, 3), np.float32)
+    img[..., 1] = np.linspace(0.2, 0.5, h)[:, None]
+    lab = np.zeros((h, w), np.int32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    ly = rng.integers(h // 4, 3 * h // 4)
+    stripe = (yy >= ly) & (yy < ly + max(h // 16, 1))
+    img[stripe], lab[stripe] = 0.9, 4
+    gx = rng.integers(0, w - w // 8)
+    post = (xx >= gx) & (xx < gx + max(w // 20, 1)) & (yy < h // 2)
+    img[post], lab[post] = [0.8, 0.1, 0.1], 3
+    rx, ry = rng.integers(0, w - w // 5), rng.integers(h // 3, h - h // 4)
+    box = (xx >= rx) & (xx < rx + w // 6) & (yy >= ry) & (yy < ry + h // 5)
+    img[box], lab[box] = [0.1, 0.7, 0.2], 2
+    cx, cy, r = rng.integers(0, w), rng.integers(h // 2, h), max(h // 10, 2)
+    disc = (xx - cx) ** 2 + (yy - cy) ** 2 < r ** 2
+    img[disc], lab[disc] = [0.1, 0.2, 0.9], 1
+    img += rng.normal(0, 0.02, img.shape).astype(np.float32)
+    return np.round(np.clip(img, 0, 1) * 255) / 255, lab
+
+
+def scene_set(n: int, seed: int, size):
+    """n scenes: RGB (n, h, w, 3) in [0, 1] and labels (n, h, w) int32."""
+    rng = np.random.default_rng(seed)
+    rgb, labs = zip(*(draw_scene(rng, *size) for _ in range(n)))
+    return np.stack(rgb).astype(np.float32), np.stack(labs)
+
+
+def patch_set(n: int, seed: int, size: int = 32):
+    """n classification patches of four classes (background, ball, robot,
+    goal, drawn as tests/synth_data.py draws them) as ImageFolder gives
+    them (ToYUV, Normalize), with their class indices."""
+    from robocupvision_tpu_torch.data.datasets import legacy_normalize
+
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, 4, n).astype(np.int32)
+    yy, xx = np.mgrid[0:size, 0:size]
+    imgs = np.full((n, size, size, 3), 0.3, np.float32)
+    for i, c in enumerate(cls):
+        if c == 1:
+            imgs[i][(xx - size // 2) ** 2 + (yy - size // 2) ** 2
+                    < (size // 3) ** 2] = [0.1, 0.2, 0.9]
+        elif c == 2:
+            imgs[i, size // 4:3 * size // 4, size // 4:3 * size // 4] = \
+                [0.1, 0.7, 0.2]
+        elif c == 3:
+            imgs[i, :, size // 3:size // 2] = [0.8, 0.1, 0.1]
+    imgs += rng.normal(0, 0.05, imgs.shape).astype(np.float32)
+    return legacy_normalize(np.clip(imgs, 0, 1)), cls
+
+
+def lp_pair_set(n: int, seed: int, size):
+    """n LabelProp frame pairs (a scene and the scene moved 2 pixels right,
+    as tests/synth_data.py's sequences move), YUV-normalized as LPDataSet
+    gives the synthetic domain, through ``build_lp_pairs``: (2n, h, w, 8)
+    inputs and (2n, h, w) targets."""
+    from robocupvision_tpu_torch.cli.labelPropTrain import build_lp_pairs
+    from robocupvision_tpu_torch.data.datasets import _cv2_rgb2yuv
+    from robocupvision_tpu_torch.ops.color import (MEAN_SYNTHETIC,
+                                                   STD_SYNTHETIC)
+
+    rgb, labs = scene_set(n, seed, size)
+    rgb = np.stack([rgb, np.roll(rgb, 2, axis=2)], axis=1)
+    labs = np.stack([labs, np.roll(labs, 2, axis=2)], axis=1)
+    yuv = (_cv2_rgb2yuv(rgb) - np.asarray(MEAN_SYNTHETIC, np.float32)) \
+        / np.asarray(STD_SYNTHETIC, np.float32)
+    return build_lp_pairs(yuv.astype(np.float32), labs, 5)
+
+
+class Tee(io.TextIOBase):
+    """Writes go on to ``out`` and into ``text``."""
+
+    def __init__(self, out) -> None:
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s: str) -> int:
+        self.out.write(s)
+        return self.buf.write(s)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    @property
+    def text(self) -> str:
+        return self.buf.getvalue()
+
+
+@contextlib.contextmanager
+def plateau_runs(patience: int):
+    """Runs every ``run_plateau_training`` call made inside (the CLIs'
+    loops build their own Trainer) with the plateau's ``patience`` set to
+    the given one; yields a list that gets each call's Trainer and prune
+    masks."""
+    from robocupvision_tpu_torch.train import legacy
+
+    real, seen = legacy.run_plateau_training, []
+
+    def run(tr, *a, **kw):
+        kw["patience"] = patience
+        seen.append((tr, kw.get("prune_masks")))
+        return real(tr, *a, **kw)
+
+    legacy.run_plateau_training = run
+    try:
+        yield seen
+    finally:
+        legacy.run_plateau_training = real
+
+
+def time_train_step(tr, dev, prune_masks=None) -> dict:
+    """The loop's own train step (``tr.train_step``, its draws and the
+    loop's ``prune_masks`` gradient masking included) on the first batch
+    of its train cache at its batch: 20 steps after 3 on the host clock
+    (synchronised), then 5 under ``torch.profiler``; the card's idle share
+    is the profiler's kernel time a step over the unprofiled step's
+    time."""
+    from robocupvision_tpu_torch.data.device_cache import epoch_batches
+
+    x, t, m = next(epoch_batches(tr.train_cache, tr.batch_size))
+    st = tr.state
+    n = m.shape[0]
+    masks = None if prune_masks is None else {
+        k: torch.as_tensor(v).to(dev) for k, v in prune_masks.items()}
+
+    def one():
+        nonlocal st
+        st, _ = tr.train_step(st, x, t, m, tr.draw_augment(n)
+                              if tr.cfg.augment else None, 1e-3, masks,
+                              tr.draw_dropout(n))
+
+    for _ in range(3):
+        one()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        one()
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) / 20 * 1e3
+    prof = step_profile(one, 5)
+    return {"step_ms": ms, "step_profile": prof,
+            "idle_share": None if prof["device_ms"] is None
+            else 1 - prof["device_ms"] / ms}
+
+
+def card_vs_cpu_step(tr, dev) -> dict:
+    """One SGD step (momentum 0.9, weight decay 1e-3, lr 0.1) of the
+    loop's net and step configuration from its trained params, on a batch
+    of 8 with one padded slot and the same augmentation draws and dropout
+    masks, on the card and on the CPU: the worst |card - CPU| over
+    rtol 1e-3 of every parameter and running statistic, and the losses."""
+    from robocupvision_tpu_torch.data.device_cache import epoch_batches
+    from robocupvision_tpu_torch.models import layers, zoo
+    from robocupvision_tpu_torch.ops import color
+    from robocupvision_tpu_torch.train import optim
+    from robocupvision_tpu_torch.train import step as tstep
+
+    cpu_model = zoo.make(tr.model.family, device="cpu",
+                         **dataclasses.asdict(tr.model.cfg))
+    x, t, m = next(epoch_batches(tr.train_cache, 8))
+    m = m.clone()
+    m[-1] = 0
+    gen = torch.Generator().manual_seed(SEED + 60)
+    draws = color.AUGMENT_MODES[tr.cfg.augment_mode][0](gen, 8)
+    keep = cpu_model.draw_dropout(gen, 8)
+    outs = []
+    for model, d in ((tr.model, dev), (cpu_model, torch.device("cpu"))):
+        tx = optim.sgd(0.9, 1e-3)
+        params = {k: v.detach().to(d).clone()
+                  for k, v in tr.state.params.items()}
+        st = tstep.TrainState(params, tx.init(layers.split_params(params)[0]))
+        fn = tstep.make_train_step(model, tx, tr.cfg)
+        outs.append(fn(st, x.to(d), t.to(d), m.to(d),
+                       {k: v.to(d) for k, v in draws.items()}, 0.1, None,
+                       None if keep is None
+                       else {k: v.to(d) for k, v in keep.items()}))
+    (gst, gout), (cst, cout) = outs
+    worst, name = -1.0, ""
+    for k, v in cst.params.items():
+        e = float(((gst.params[k].cpu() - v).abs() - 1e-3 * v.abs()).max())
+        if e > worst:
+            worst, name = e, k
+    return {"loss": [float(gout["loss"]), float(cout["loss"])],
+            "worst_abs_err_over_rtol": worst, "worst_param": name}
+
+
+LEGACY_CLASS_N, LEGACY_SEG_N, LEGACY_LP_N = (128, 48), (96, 40), (32, 12)
+
+
+def phase_legacy_train(dev, chk: Checks, smi: str) -> list:
+    """The legacy pipeline's three training loops at full width, each the
+    way its CLI runs it, on in-memory frames from seeded generators (the
+    card's machine has no Pillow to read PNGs): ``classTrainer
+    .train_classifier`` (PB_FCN planes 32 with kernel 1, then ``--v2``'s
+    PB_FCN_2 at its defaults; 32x32 patches of four classes, batch 32 and
+    64), ``trainer.train_segmenter`` (PB_FCN from the classifier's
+    checkpoint at the CLI's scale-4 working size 120x160, batch 32, then
+    ``--finetune --prune`` from its output, batch 8) and
+    ``labelPropTrain.train_label_prop`` (LabelProp planes 32, 120x160 pairs
+    from ``build_lp_pairs``, batch 16), in that order, in a temporary
+    working directory. The counters are set to 0 just before each loop and
+    read just after: K1 once per segmentation validation batch and epoch
+    (none when classifying: ``class_batch_stats`` is plain), and K1's
+    counts on every such batch equal to ``confusion_count_plain``
+    (``K1Recorder.verify``); no K2 or K3. Each loop must write the CLI's
+    checkpoint name and its train loss (its printed lines) must be finite
+    and fall; ``plateau_runs`` sets the plateau's patience to -1 in the
+    first loop, so that it fires and rolls back to the best checkpoint
+    after every epoch, and to 0 in the others. After ``--prune`` every band-pruned weight
+    must still be 0. Then each loop's own train step is timed at its
+    batch with its prune masks (``time_train_step``) and one SGD step of its net on the card
+    held within rtol = atol = 1e-3 of the CPU's (``card_vs_cpu_step``)."""
+    import shutil
+
+    from robocupvision_tpu_torch.cli import classTrainer, labelPropTrain, trainer
+    from robocupvision_tpu_torch.data.device_cache import (DeviceCache,
+                                                           num_batches)
+    from robocupvision_tpu_torch.data.datasets import legacy_normalize
+    from robocupvision_tpu_torch.models import zoo
+    from robocupvision_tpu_torch.ops import pruning
+    from robocupvision_tpu_torch.ops.cuda_kernels import (confusion_count,
+                                                          fused_conv3x3_block)
+    from robocupvision_tpu_torch.ops.cuda_packed import fused_conv_chain
+    from robocupvision_tpu_torch.train import checkpoint
+
+    def caches(imgs, labs, n_train):
+        return (DeviceCache.from_numpy(imgs[:n_train], labs[:n_train],
+                                       device=dev),
+                DeviceCache.from_numpy(imgs[n_train:], labs[n_train:],
+                                       device=dev))
+
+    size = (120, 160)
+    imgs, labs = patch_set(sum(LEGACY_CLASS_N), SEED + 50)
+    class_sets = caches(imgs, labs, LEGACY_CLASS_N[0])
+    rgb, labs = scene_set(sum(LEGACY_SEG_N), SEED + 51, size)
+    seg_sets = caches(legacy_normalize(rgb), labs, LEGACY_SEG_N[0])
+    inputs, targets = lp_pair_set(sum(LEGACY_LP_N), SEED + 52, size)
+    lp_sets = caches(inputs, targets, 2 * LEGACY_LP_N[0])
+    # (loop, CLI module, loop function, argv, caches, patience, checkpoint)
+    loops = [
+        ("train_classifier", classTrainer, classTrainer.train_classifier,
+         ["--epochs", "4"], class_sets, -1, "pth/bestModel.pth"),
+        ("train_classifier --v2", classTrainer, classTrainer.train_classifier,
+         ["--epochs", "3", "--v2"], class_sets, 0, "pth/bestModelv2.pth"),
+        ("train_segmenter", trainer, trainer.train_segmenter,
+         ["--epochs", "4"], seg_sets, 0, "pth/bestModelSeg.pth"),
+        ("train_segmenter --finetune --prune", trainer,
+         trainer.train_segmenter, ["--epochs", "3", "--finetune", "--prune"],
+         seg_sets, 0, "pth/bestModelSegbothFinetunedPruned.pth"),
+        ("train_label_prop", labelPropTrain, labelPropTrain.train_label_prop,
+         ["--epochs", "4"], lp_sets, 0, "pth/bestModelLP.pth"),
+    ]
+    results = []
+    here = os.path.dirname(os.path.abspath(__file__))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=here, prefix=".chip_smoke_") as tmp:
+        os.chdir(tmp)
+        try:
+            for name, cli, fn, argv, (tc, vc), patience, ckpt in loops:
+                opt = cli.build_parser().parse_args(argv)
+                if opt.__dict__.get("prune"):
+                    # --finetune --prune starts from the segmenter's output
+                    shutil.copy("pth/bestModelSeg.pth",
+                                "pth/bestModelSegbothFinetuned.pth")
+                tee = Tee(sys.stdout)
+                # --- a main path: the CLI's loop, the counters around it
+                confusion_count.launches = fused_conv_chain.launches = 0
+                fused_conv3x3_block.launches = 0
+                K1_REC.active = K1_REC.verify = True
+                K1_REC.verified = K1_REC.unequal = 0
+                t0 = time.perf_counter()
+                with plateau_runs(patience) as seen, \
+                        contextlib.redirect_stdout(tee):
+                    best = fn(opt, tc, vc, dev)
+                torch.cuda.synchronize(dev)
+                wall = time.perf_counter() - t0
+                K1_REC.active = K1_REC.verify = False
+                launches = {"confusion_count": confusion_count.launches,
+                            "fused_conv_chain": fused_conv_chain.launches,
+                            "fused_conv3x3_block":
+                                fused_conv3x3_block.launches}
+                tr, prune_masks = seen[0]
+                text = tee.text
+                train_loss = [float(v) for v in re.findall(
+                    r"Epoch \[\d+\] Training Loss: (\S+)", text)]
+                segment = tr.cfg.loss != "ce"
+                want_k1 = opt.epochs * num_batches(vc.n, tr.batch_size) \
+                    if segment else 0
+                res = {"phase": "legacy_train", "loop": name,
+                       "family": tr.model.family,
+                       "cfg": dataclasses.asdict(tr.model.cfg),
+                       "batch": tr.batch_size,
+                       "input": list(tc.images.shape[1:]),
+                       "train_n": tc.n, "val_n": vc.n, "epochs": opt.epochs,
+                       "patience": patience, "train_loss": train_loss,
+                       "best_val_loss": best["loss"],
+                       "best_val_acc": best["acc"],
+                       "rollbacks": text.count("Best Model reloaded"),
+                       "checkpoint": ckpt,
+                       "checkpoint_written": os.path.exists(ckpt),
+                       "launches": launches,
+                       "k1_verified": K1_REC.verified,
+                       "k1_unequal_plain": K1_REC.unequal,
+                       "seconds": wall}
+                if opt.__dict__.get("prune"):
+                    reg = tr.model.registry
+                    _, masks = pruning.prune_band(checkpoint.load_any(
+                        "pth/bestModelSegbothFinetuned.pth", reg), reg,
+                        verbose=False)
+                    out = checkpoint.load_any(ckpt, reg)
+                    res["pruned_nonzero"] = sum(
+                        int((out[k][m] != 0).sum()) for k, m in masks.items())
+                    res["pruned_share"] = float(sum(
+                        int(m.sum()) for m in masks.values()) / sum(
+                        m.numel() for m in masks.values()))
+                    chk.expect(res["pruned_nonzero"] == 0,
+                               f"legacy {name}: {res['pruned_nonzero']} "
+                               "band-pruned weights moved off 0")
+                res.update(time_train_step(tr, dev, prune_masks))
+                res["card_vs_cpu_step"] = card_vs_cpu_step(tr, dev)
+                res["card"] = smi
+                emit(res)
+                results.append(res)
+                step = res["card_vs_cpu_step"]
+                chk.expect(res["checkpoint_written"],
+                           f"legacy {name}: no {ckpt}")
+                chk.expect(len(train_loss) == opt.epochs
+                           and all(np.isfinite(train_loss))
+                           and train_loss[-1] < train_loss[0],
+                           f"legacy {name}: train loss {train_loss} does not "
+                           "fall")
+                chk.expect(launches == {"confusion_count": want_k1,
+                                        "fused_conv_chain": 0,
+                                        "fused_conv3x3_block": 0},
+                           f"legacy {name}: launches {launches}, want "
+                           f"{want_k1} K1 and no K2, K3")
+                chk.expect(K1_REC.verified == want_k1 and K1_REC.unequal == 0,
+                           f"legacy {name}: K1 equal to plain on "
+                           f"{K1_REC.verified - K1_REC.unequal} of "
+                           f"{want_k1} validation batches")
+                chk.expect(step["worst_abs_err_over_rtol"] <= 1e-3
+                           and abs(step["loss"][0] - step["loss"][1])
+                           <= 1e-3 * abs(step["loss"][1]),
+                           f"legacy {name}: the card's SGD step differs from "
+                           f"the CPU's: {step}")
+        finally:
+            os.chdir(cwd)
+    chk.expect(sum(r["rollbacks"] for r in results) >= 1,
+               "legacy: no plateau rollback")
+    return results
+
+
+INT8_TRAINED_HW = (48, 64)
+INT8_TRAINED_FLOOR, INT8_TRAINED_TARGET = 0.95, 0.97
+
+
+def phase_int8_trained(dev, chk: Checks, smi: str) -> dict:
+    """The trained-net int8 envelope of tests/test_int8_families.py on the
+    card: PB_FCN (planes 16), the --v2 ROBO-UNet (planes 8, levels 1,
+    belly 5 x 32) and LabelProp (planes 16), each trained 30 epochs with
+    Adam at batch 6 without augmentation on 24 seeded 48x64 scenes (the
+    test's size; LabelProp on 12 scene pairs, both directions), then built
+    as its bf16 chain graph (PB_FCN with its deep chain, --v2 with the
+    folded stem and deep chain, LabelProp with the folded stem and mid
+    chain), quantized by ``quantize_int8`` on 4 held-out frames at the
+    calibration statistic max, 99.9, 99.5 and "auto", and served on 8
+    others: the int8 chain graph's labels against the float chain graph's,
+    both on K2. The counters are set to 0 just before the quantize-and-
+    serve runs and read just after. Fails under the test's floor: the
+    best agreement >= 0.95 and "auto" >= best - 0.02."""
+    from robocupvision_tpu_torch.data.device_cache import DeviceCache
+    from robocupvision_tpu_torch.models import packed, zoo
+    from robocupvision_tpu_torch.ops.color import (MEAN_SYNTHETIC,
+                                                   STD_SYNTHETIC)
+    from robocupvision_tpu_torch.ops.cuda_kernels import confusion_count
+    from robocupvision_tpu_torch.ops.cuda_packed import fused_conv_chain
+    from robocupvision_tpu_torch.train import optim
+    from robocupvision_tpu_torch.train import step as tstep
+    from robocupvision_tpu_torch.train.loop import Trainer
+
+    hw = INT8_TRAINED_HW
+    rgb, labs = scene_set(36, SEED + 70, hw)
+    seg = ((rgb - np.asarray(MEAN_SYNTHETIC, np.float32))
+           / np.asarray(STD_SYNTHETIC, np.float32), labs)
+    lp = lp_pair_set(18, SEED + 71, hw)
+    bf16 = torch.bfloat16
+    families = {
+        "pb_fcn": (dict(family="pb_fcn", planes=16), seg, 24, 3e-3,
+                   (1., 10., 30., 10., 2.),
+                   lambda m, p: packed.build_packed_pb_fcn(
+                       m, p, bf16, pallas=True, pallas_deep=True,
+                       device=dev)),
+        "v2": (dict(family="robo_unet", v2=True, planes=8, levels=1, depth=4,
+                    belly_size=5, belly_planes=32), seg, 24, 1e-3,
+               (1., 10., 30., 10., 2.),
+               lambda m, p: packed.build_packed_infer(
+                   m, p, bf16, pallas=True, pallas_fold_stem=True,
+                   pallas_deep=True, device=dev)),
+        "label_prop": (dict(family="label_prop", planes=16), lp, 24, 1e-3,
+                       (1., 6., 1., 3., 2.),
+                       lambda m, p: packed.build_packed_label_prop(
+                           m, p, bf16, pallas=True, pallas_fold_stem=True,
+                           pallas_mid=True, device=dev)),
+    }
+    res = {"phase": "int8_trained", "input_hw": list(hw), "epochs": 30,
+           "batch": 6, "floor": INT8_TRAINED_FLOOR,
+           "target": INT8_TRAINED_TARGET, "card": smi, "families": {}}
+    for tag, (kw, (x, y), n_train, lr, cw, build) in families.items():
+        kw = dict(kw)
+        model = zoo.make(kw.pop("family"), device=dev,
+                         generator=torch.Generator().manual_seed(SEED + 72),
+                         **kw)
+        cfg = tstep.StepCfg(num_classes=5, class_weights=cw,
+                            out_size=1.0 / (hw[0] * hw[1]), augment=False)
+        tr = Trainer(model, optim.adam(), cfg,
+                     DeviceCache.from_numpy(x[:n_train], y[:n_train],
+                                            device=dev), None, 6)
+        tr.init()
+        t0 = time.perf_counter()
+        losses = [tr.train_epoch(lr).loss for _ in range(30)]
+        train_s = time.perf_counter() - t0
+        calib = torch.from_numpy(x[n_train:n_train + 4]).to(dev)
+        held = torch.from_numpy(x[n_train + 4:n_train + 12]).to(dev)
+        # --- a main path: quantize_int8 and the served graphs
+        confusion_count.launches = fused_conv_chain.launches = 0
+        K1_REC.active = True
+        f = build(model, tr.state.params)
+        ref = f.infer(held)
+        agree = {}
+        for pct in (None, 99.9, 99.5, "auto"):
+            q = packed.quantize_int8(f, calib, pct=pct)
+            agree["max" if pct is None else str(pct)] = float(
+                (q.infer(held) == ref).float().mean())
+        torch.cuda.synchronize(dev)
+        K1_REC.active = False
+        launches = {"confusion_count": confusion_count.launches,
+                    "fused_conv_chain": fused_conv_chain.launches}
+        best = max(agree.values())
+        res["families"][tag] = {
+            "cfg": dataclasses.asdict(model.cfg), "lr": lr,
+            "train_loss_first_last": [losses[0], losses[-1]],
+            "train_s": train_s, "agreement": agree, "best": best,
+            "auto_pct": packed.INT8_PCT_DEFAULTS[
+                packed._int8_family_key(f)],
+            "meets_target": best >= INT8_TRAINED_TARGET,
+            "launches": launches}
+        chk.expect(np.isfinite(losses[-1]) and losses[-1] < losses[0],
+                   f"int8_trained {tag}: train loss {losses[0]} -> "
+                   f"{losses[-1]}")
+        chk.expect(best >= INT8_TRAINED_FLOOR
+                   and agree["auto"] >= best - 0.02,
+                   f"int8_trained {tag}: agreement {agree} under the floor "
+                   f"{INT8_TRAINED_FLOOR} (auto >= best - 0.02)")
+        chk.expect(launches["fused_conv_chain"] > 0
+                   and launches["confusion_count"] == 0,
+                   f"int8_trained {tag}: launches {launches}")
+    emit(res)
+    return res
+
+
 def step_profile(fn, steps: int) -> dict:
     """``steps`` calls of ``fn`` under ``torch.profiler``: the wall time a
     step (host clock, synchronised), the card's kernel time a step, the
@@ -2585,6 +3081,8 @@ def main() -> int:
     tc = phase_test_cli({"unet": unet, "v2": v2}, dev, chk)
     k3_launches = fused_conv3x3_block.launches
     tr = phase_train(dev, chk)
+    lt = phase_legacy_train(dev, chk, smi)
+    it = phase_int8_trained(dev, chk, smi)
     K1_REC.check(chk)
 
     # the main paths' launches; K1's shapes: one (1, 480, 640) map pair
@@ -2597,7 +3095,9 @@ def main() -> int:
         r["launches"] for r in tc["runs"].values()] + [
         sq["main_path_launches"], ts["int8"]["main_path_launches"],
         vlp["int8"]["main_path_launches"]] + [
-        r["launches"] for r in tr["runs"].values()]
+        r["launches"] for r in tr["runs"].values()] + [
+        r["launches"] for r in lt] + [
+        f["launches"] for f in it["families"].values()]
     # K1's entry: the tester's map pair, the case of earlier PRs' entries
     k1m = k1["tester", "random"]
     # K3 has no caller: its entry is the QVGA 64->64 bf16 Conv-block case

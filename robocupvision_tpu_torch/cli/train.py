@@ -28,7 +28,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from robocupvision_tpu_torch.device import DeviceLike, resolve_device
+from robocupvision_tpu_torch.device import DeviceLike, no_tf32, resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -162,10 +162,7 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
 
     opt = s.opt
     dev = resolve_device(device)
-    # without --bf16 the convs and matmuls train in f32, not in the TF32
-    # that cuDNN uses by default for f32 convs
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    no_tf32()  # without --bf16 the convs and matmuls train in f32
     epochs = s.epochs
     learning_rate = opt.lr
     path = naming.train_ckpt_name(s.flags, transfer)

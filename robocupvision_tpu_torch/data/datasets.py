@@ -15,6 +15,9 @@ key, with optional per-image camera sidecars ``*.txt`` holding 'u' (top) or
 [.5, .5, .5]) stack and come back as (H, W, 3) float32 numpy arrays, labels
 as (H, W) int32.
 
+ImageFolder (classTrainer.py:48-53): root/<class>/<image>, classes in
+sorted order, images through ToYUV -> Normalize([.5, 0, 0], [.5, .5, .5]).
+
 LPDataSet (reference dataset.py:191-270):
 root/LabelProp/{Real,Synthetic}/{train,val}/<seq>/{images,labels}/*.png;
 an item is ``len_seq`` consecutive frames of one sequence.
@@ -177,6 +180,12 @@ class SSDataSet:
         lab = load_label(osp.join(self.lab_dir, self.labels[i]), size)
         return img, lab
 
+    def load_all(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Every item stacked: (N, H, W, 3) images, (N, H, W) labels."""
+        items = [self[i] for i in range(len(self))]
+        return (np.stack([img for img, _ in items]),
+                np.stack([lab for _, lab in items]))
+
 
 class LPDataSet:
     """Label-propagation sequence dataset (reference dataset.py:191-270).
@@ -239,3 +248,39 @@ def _cv2_rgb2yuv(rgb01: np.ndarray) -> np.ndarray:
     yuv = rgb01 @ m.T
     yuv[..., 1:] += 0.5
     return yuv
+
+
+class ImageFolder:
+    """Class-per-subdirectory classification dataset (torchvision-free):
+    items are (YUV-normalized image (H, W, 3) float32, class index), the
+    classTrainer transform stack (classTrainer.py:48-53)."""
+
+    def __init__(self, root: str, yuv: bool = True):
+        self.root = root
+        self.yuv = yuv
+        self.classes = sorted(d for d in os.listdir(root)
+                              if osp.isdir(osp.join(root, d))) \
+            if osp.isdir(root) else []
+        self.samples: List[Tuple[str, int]] = []
+        for ci, c in enumerate(self.classes):
+            cdir = osp.join(root, c)
+            for f in sorted(os.listdir(cdir), key=alphanum_key):
+                if f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp")):
+                    self.samples.append((osp.join(cdir, f), ci))
+
+    def __len__(self) -> int:
+        return len(self.samples)
+
+    def __getitem__(self, i: int) -> Tuple[np.ndarray, int]:
+        path, lab = self.samples[i]
+        img = load_image_rgb(path)
+        if self.yuv:
+            img = to_yuv_legacy(img)
+        img = (img - np.array([0.5, 0.0, 0.0], np.float32)) / np.float32(0.5)
+        return img.astype(np.float32), lab
+
+    def load_all(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Every item stacked: (N, H, W, 3) images, (N,) int32 classes."""
+        items = [self[i] for i in range(len(self))]
+        return (np.stack([img for img, _ in items]),
+                np.asarray([lab for _, lab in items], np.int32))

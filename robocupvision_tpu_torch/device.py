@@ -26,3 +26,11 @@ def synchronize(dev: torch.device) -> None:
     """Wait for the work queued on ``dev`` (nothing to wait for on the CPU)."""
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def no_tf32() -> None:
+    """Run f32 convolutions and matmuls in f32, not in the TF32 that cuDNN
+    takes by default for f32 convolutions: training without bf16 trains
+    in f32, as on the CPU."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

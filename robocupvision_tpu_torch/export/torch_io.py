@@ -42,6 +42,18 @@ def from_jax_params(reg: Registry, params_np: Dict[str, "object"]
     return out
 
 
+def to_jax_layout(a: np.ndarray, kind: str) -> np.ndarray:
+    """One array of the port's layout -> the JAX package's (a contiguous
+    copy), by its registry ``kind``."""
+    if kind == "conv_w":
+        a = np.transpose(a, (2, 3, 1, 0))
+    elif kind == "tconv_w":
+        a = np.transpose(a[:, :, ::-1, ::-1], (2, 3, 0, 1))
+    elif kind == "lin_w":
+        a = a.T
+    return np.ascontiguousarray(a)
+
+
 def to_jax_params(reg: Registry, state: Dict[str, torch.Tensor]
                   ) -> Dict[str, np.ndarray]:
     """The port's state_dict (tensors or arrays, torch layouts) ->
@@ -50,14 +62,8 @@ def to_jax_params(reg: Registry, state: Dict[str, torch.Tensor]
     for name, spec in reg.specs.items():
         if name not in state:
             raise KeyError(f"missing parameter: {name}")
-        a = torch.as_tensor(state[name]).detach().float().cpu().numpy()
-        if spec.kind == "conv_w":
-            a = np.transpose(a, (2, 3, 1, 0))
-        elif spec.kind == "tconv_w":
-            a = np.transpose(a[:, :, ::-1, ::-1], (2, 3, 0, 1))
-        elif spec.kind == "lin_w":
-            a = a.T
-        a = np.ascontiguousarray(a)
+        a = to_jax_layout(torch.as_tensor(state[name]).detach().float()
+                          .cpu().numpy(), spec.kind)
         if tuple(a.shape) != tuple(spec.shape):
             raise ValueError(f"{name}: shape {a.shape} != expected {spec.shape}")
         out[name] = a

@@ -20,13 +20,15 @@ reproduce the reference's op orders. They run in eval mode unless called
 inside :func:`train_mode`, where every BN normalizes by its batch
 statistics (leaving out the samples :func:`bn_stats_mask` marks padded)
 and writes its new running statistics into the dict ``train_mode`` yields
-(the JAX package threads that dict through as ``mut``). The op orders
-(its model.py:105-199, 256-267):
+(the JAX package threads that dict through as ``mut``), and every
+:func:`dropout2d` site drops channels by the keep mask and rate
+``train_mode`` was given for it. The op orders (its model.py:105-199, 256-267, 403-414):
   conv_block:        conv -> ReLU -> BN        (BN after ReLU!)
   conv_pool_simple:  conv -> BN -> ReLU
   conv_pool:         dilated conv1 -> ReLU -> stride-2 pool conv -> BN -> ReLU
   up_tconv:          tconv -> BN -> ReLU
   classifier:        optional max pool -> conv
+  ult_classifier:    optional global mean -> Dropout2d (train) -> conv
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import contextlib
 import contextvars
 import dataclasses
 from collections import OrderedDict
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn as tnn
@@ -180,17 +182,24 @@ _BN_TRAIN_MUT: contextvars.ContextVar = contextvars.ContextVar(
     "bn_train_mut", default=None)
 _BN_SAMPLE_MASK: contextvars.ContextVar = contextvars.ContextVar(
     "bn_sample_mask", default=None)
+# {dropout site: (keep mask, p)} of the train-mode forward
+_DROPS: contextvars.ContextVar = contextvars.ContextVar("drops", default=None)
 
 
 @contextlib.contextmanager
-def train_mode() -> Iterator[Params]:
+def train_mode(drops: Optional[Mapping[str, Tuple[torch.Tensor, float]]]
+               = None) -> Iterator[Params]:
     """Run the blocks in train mode; yields the dict of new running
-    statistics (``mut``) that the forward fills."""
+    statistics (``mut``) that the forward fills. ``drops``: the keep mask
+    and rate of each dropout site the forward drops at
+    ({site: ((N, 1, 1, C) bool, p)})."""
     mut: Params = {}
     token = _BN_TRAIN_MUT.set(mut)
+    drop_token = _DROPS.set(drops or {})
     try:
         yield mut
     finally:
+        _DROPS.reset(drop_token)
         _BN_TRAIN_MUT.reset(token)
 
 
@@ -231,6 +240,17 @@ def bn(p: Params, name: str, x):
     mut[name + ".running_mean"] = rm
     mut[name + ".running_var"] = rv
     return y
+
+
+def dropout2d(x: torch.Tensor, site: str) -> torch.Tensor:
+    """Dropout2d at dropout site ``site`` by the keep mask and rate
+    :func:`train_mode` was given for the site; the identity at a site it
+    was given none for (eval mode, a rate of 0)."""
+    drops = _DROPS.get()
+    if _BN_TRAIN_MUT.get() is None or site not in drops:
+        return x
+    keep, p = drops[site]
+    return nn.dropout2d(x, keep, p)
 
 
 # Reference block: Conv = conv -> ReLU -> BN (model.py:105-116)
@@ -321,9 +341,10 @@ def ult_classifier_def(r: Registry, name: str, cin: int, n_class: int,
 
 def ult_classifier(p, name, x, size: int, pool: bool = False):
     """``pool``: the classification form, a global mean over H, W first
-    (AdaptiveAvgPool2d(1); its dropout is a training-time op)."""
+    (AdaptiveAvgPool2d(1)), then Dropout2d at site ``name`` in train
+    mode."""
     if pool:
-        x = torch.mean(x, dim=(1, 2), keepdim=True)
+        x = dropout2d(nn.adaptive_avg_pool_1(x), name)
     return conv(p, name + ".layers.Class", x, padding=size // 2)
 
 

@@ -1116,19 +1116,25 @@ def _int8_family_key(infer) -> str:
     return "robo_unet_v2" if getattr(cfg, "v2", False) else "robo_unet"
 
 
-def quantize_int8(infer, calib_x):
+def quantize_int8(infer, calib_x, pct="auto"):
     """Static int8 post-training quantization of a chain graph (any
     ``Packed*Infer`` built with ``pallas=True``), as the JAX package's
     ``quantize_int8`` does it: one calibration pass over ``calib_x``
     (representative inputs; stack frames along the batch axis for more)
-    collects each chain stage's statistic of |input| -- its max, or its
-    percentile as the family's :data:`INT8_PCT_DEFAULTS` entry says -- and
-    every chain is rebuilt with static
+    collects each chain stage's statistic of |input| -- its max
+    (``pct=None``), its ``pct``-th percentile, or with ``pct="auto"`` what
+    the family's :data:`INT8_PCT_DEFAULTS` entry says (the trained-net
+    envelope sweeps the three) -- and every chain is rebuilt with static
     per-stage input scales and symmetric per-output-channel int8 weights
     (ops/cuda_packed.quantize_chain_stages). The calibration pass runs the
     chains through ``fused_conv_chain`` (K2 on the card) with every stage
     emitted. Returns a new instance; ``infer`` is left as it was. Raises
     ``ValueError`` for a graph without chains or one already quantized."""
+    if isinstance(pct, str):
+        if pct != "auto":
+            raise ValueError(f"pct must be None, a percentile or 'auto', "
+                             f"not {pct!r}")
+        pct = INT8_PCT_DEFAULTS[_int8_family_key(infer)]
     ch = infer.chains
     if ch is None:
         raise ValueError("quantize_int8 needs a chain graph (pallas=True)")
@@ -1136,8 +1142,7 @@ def quantize_int8(infer, calib_x):
         raise ValueError("the graph is already quantized")
     collect: dict = {}
     probe = dataclasses.replace(infer, chains={**ch, "collect": collect,
-                                               "collect_pct": INT8_PCT_DEFAULTS[
-                                                   _int8_family_key(infer)]})
+                                               "collect_pct": pct})
     with torch.no_grad():
         probe._logits_packed(probe._input(calib_x))
     q = dict(ch)

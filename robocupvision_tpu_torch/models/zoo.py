@@ -9,20 +9,23 @@ in its segmentation and classification modes; and the LabelProp net
 ``make(family, ...)`` returns a :class:`Model`, an ``nn.Module`` whose
 ``state_dict`` carries the registry names; its ``forward`` takes NHWC input
 and returns NHWC logits with the module's own weights, and ``apply`` does
-the same with given params, in the ROBO-UNet's case also in train mode,
-like the JAX package's ``Model.apply``.
+the same with given params, in eval or train mode, like the JAX package's
+``Model.apply``. A train-mode forward drops channels at the family's
+dropout sites (PB_FCN_2's classifier, LabelProp's conv blocks when its
+``dropout`` is set) by keep masks that ``Model.draw_dropout`` draws from a
+``torch.Generator``, or that the caller gives.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import functools
-from typing import Optional, Tuple
+from typing import Mapping, Optional, Tuple, Union
 
 import torch
 
 from robocupvision_tpu_torch.device import DeviceLike, resolve_device
 from robocupvision_tpu_torch.models import layers as L
+from robocupvision_tpu_torch.ops import nn
 
 Params = L.Params
 
@@ -182,15 +185,8 @@ def robo_unet_registry(cfg: RoboUNetCfg) -> L.Registry:
     return r
 
 
-def robo_unet_apply(cfg: RoboUNetCfg, p: Params, x: torch.Tensor, *,
-                    train: bool = False):
-    """NHWC input -> NHWC logits. ``train``: BN by batch statistics (padded
-    samples left out under ``layers.bn_stats_mask``), returning
-    (logits, mut) with ``mut`` the new running statistics, as the JAX
-    package's apply does. The ROBO-UNet has no dropout."""
-    if train:
-        with L.train_mode() as mut:
-            return robo_unet_apply(cfg, p, x), mut
+def robo_unet_apply(cfg: RoboUNetCfg, p: Params, x: torch.Tensor):
+    """NHWC input -> NHWC logits (train mode under ``layers.train_mode``)."""
     depth = cfg.eff_depth
     downs = [x]
     downs.append(L.level_down(p, "downPart.Level0", x, cfg.levels - 1, False,
@@ -367,7 +363,7 @@ def pb_fcn_2_apply(cfg: PBFCN2Cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
 class LabelPropCfg:
     num_classes: int = 5
     planes: int = 32
-    dropout: float = 0.0  # training only (its dropout2d is not ported yet)
+    dropout: float = 0.0  # Dropout2d after each conv block, in training
 
 
 def label_prop_registry(cfg: LabelPropCfg) -> L.Registry:
@@ -388,9 +384,18 @@ def label_prop_registry(cfg: LabelPropCfg) -> L.Registry:
     return r
 
 
+LP_DROPOUT_SITES = ("pre", "down1", "down2", "down3", "conv1", "conv2",
+                    "conv3")
+
+
 def label_prop_apply(cfg: LabelPropCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Eval-mode forward: (N, H, W, 8) frame-pair input -> NHWC logits."""
-    cps = functools.partial(L.conv_pool_simple, p)
+    """(N, H, W, 8) frame-pair input -> NHWC logits; in train mode with
+    Dropout2d(``cfg.dropout``) after each conv block of the encoder (the
+    dropout the reference's __init__ meant to wire, model.py:542)."""
+    def cps(name, x, stride, padding, dilation):
+        y = L.conv_pool_simple(p, name, x, stride, padding, dilation)
+        return L.dropout2d(y, name)
+
     top = cps("pre", x, 1, 1, 1)
     middle = cps("down1", top, 2, 1, 1)
     bottom = cps("down2", middle, 2, 1, 1)
@@ -409,11 +414,37 @@ def label_prop_apply(cfg: LabelPropCfg, p: Params, x: torch.Tensor) -> torch.Ten
 # Generic model handle
 # =============================================================================
 
+def pb_fcn_2_dropout_sites(cfg: PBFCN2Cfg):
+    """{site: (channels, p)}: the classification head's Dropout2d(0.5)."""
+    if not cfg.classify:
+        return {}
+    return {"classifier": (cfg.planes * 2 ** (cfg.depth - 1), 0.5)}
+
+
+def label_prop_dropout_sites(cfg: LabelPropCfg):
+    """{site: (channels, p)} in the JAX package's key order; none at
+    dropout 0."""
+    if cfg.dropout <= 0:
+        return {}
+    pl = cfg.planes
+    widths = (pl // 4, pl // 2, pl // 2, pl, pl * 2, pl * 2, pl)
+    return {site: (c, cfg.dropout)
+            for site, c in zip(LP_DROPOUT_SITES, widths)}
+
+
+def _no_dropout_sites(cfg):
+    return {}
+
+
+# family: (config, registry, apply, dropout sites)
 _FAMILIES = {
-    "robo_unet": (RoboUNetCfg, robo_unet_registry, robo_unet_apply),
-    "pb_fcn": (PBFCNCfg, pb_fcn_registry, pb_fcn_apply),
-    "pb_fcn_2": (PBFCN2Cfg, pb_fcn_2_registry, pb_fcn_2_apply),
-    "label_prop": (LabelPropCfg, label_prop_registry, label_prop_apply),
+    "robo_unet": (RoboUNetCfg, robo_unet_registry, robo_unet_apply,
+                  _no_dropout_sites),
+    "pb_fcn": (PBFCNCfg, pb_fcn_registry, pb_fcn_apply, _no_dropout_sites),
+    "pb_fcn_2": (PBFCN2Cfg, pb_fcn_2_registry, pb_fcn_2_apply,
+                 pb_fcn_2_dropout_sites),
+    "label_prop": (LabelPropCfg, label_prop_registry, label_prop_apply,
+                   label_prop_dropout_sites),
 }
 
 
@@ -441,19 +472,48 @@ class Model(L.RegistryModule):
         x = torch.as_tensor(x, device=self.device)
         return _FAMILIES[self.family][2](self.cfg, self.flat(), x)
 
-    def apply(self, params: Params, x: torch.Tensor, *, train: bool = False):
+    @property
+    def dropout_sites(self):
+        """{site: (channels, p)} of the train-mode forward's Dropout2d."""
+        return _FAMILIES[self.family][3](self.cfg)
+
+    def draw_dropout(self, gen: torch.Generator, n: int
+                     ) -> Optional[Mapping[str, torch.Tensor]]:
+        """The keep masks of a train-mode forward of ``n`` samples, one
+        (n, 1, 1, C) bool mask a dropout site drawn from ``gen`` in site
+        order (on the generator's device); None for a family without
+        dropout."""
+        sites = self.dropout_sites
+        if not sites:
+            return None
+        return {site: nn.draw_keep(gen, (n, 1, 1, c), p)
+                for site, (c, p) in sites.items()}
+
+    def apply(self, params: Params, x: torch.Tensor, *, train: bool = False,
+              dropout: Union[None, torch.Generator,
+                             Mapping[str, torch.Tensor]] = None):
         """The forward with the given flat params (the train step's
         tensors, not the module's own): logits, or (logits, mut) with the
-        new BN running statistics when ``train``. Only the ROBO-UNet family
-        trains so far; the others' train modes come with their CLIs."""
+        new BN running statistics when ``train``, BN by the batch
+        statistics (padded samples left out under
+        ``layers.bn_stats_mask``). ``dropout``: the keep masks of the
+        train-mode forward (``draw_dropout``'s dict), or a generator to
+        draw them from; a family with dropout sites raises ValueError in
+        train mode without them. Each site drops at its rate in
+        ``dropout_sites``, the rate its mask was drawn at."""
         fn = _FAMILIES[self.family][2]
         if not train:
             return fn(self.cfg, params, x)
-        if self.family != "robo_unet":
-            raise NotImplementedError(
-                f"train mode of the {self.family} family is not ported yet "
-                "(ROADMAP A.5)")
-        return fn(self.cfg, params, x, train=True)
+        if isinstance(dropout, torch.Generator):
+            dropout = self.draw_dropout(dropout, x.shape[0])
+        sites = self.dropout_sites
+        missing = [s for s in sites if dropout is None or s not in dropout]
+        if missing:
+            raise ValueError(f"train mode needs the keep masks of dropout "
+                             f"sites {missing}")
+        with L.train_mode({s: (dropout[s], p)
+                           for s, (_, p) in sites.items()}) as mut:
+            return fn(self.cfg, params, x), mut
 
 
 def make(family: str, *, device: DeviceLike = None,

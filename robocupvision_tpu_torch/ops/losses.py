@@ -40,6 +40,14 @@ def cross_entropy_2d(logits: torch.Tensor, targets: torch.Tensor,
     return (nll * pw).sum() / torch.clamp_min(pw.sum(), 1e-12)
 
 
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  class_weights: Optional[torch.Tensor] = None,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Classification CE (torch.nn.CrossEntropyLoss) over (N, C) logits
+    and (N,) targets, with class weights and an (N,) sample mask."""
+    return cross_entropy_2d(logits, targets, class_weights, mask)
+
+
 def dice_loss(logits: torch.Tensor, targets: torch.Tensor,
               class_weights: torch.Tensor, mask: Optional[torch.Tensor] = None,
               eps: float = 1e-7) -> torch.Tensor:

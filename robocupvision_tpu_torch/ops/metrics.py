@@ -1,4 +1,5 @@
-"""Segmentation metrics (the JAX package's ops/metrics.py, eval side).
+"""Segmentation metrics (the JAX package's ops/metrics.py, eval side),
+and the classification counts of the legacy classifier's validation.
 
 Conventions (reference train.py:136-164):
 - conf[pred, lab] counts pixels, later normalized per label column by
@@ -11,6 +12,7 @@ Conventions (reference train.py:136-164):
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -78,6 +80,24 @@ def seg_batch_stats(pred_cls, targets, num_classes: int,
         correct=torch.sum(inter.sum(dim=1) * m),
         img_cnt=torch.sum(m),
     )
+
+
+def class_batch_stats(pred_cls: torch.Tensor, targets: torch.Tensor,
+                      num_classes: int,
+                      sample_mask: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Classification counts of a batch (classTrainer.py:144-146): the f32
+    confusion ``conf[pred, label]`` (C, C) and the correct count, padded
+    samples (``sample_mask`` 0) left out, on the tensors' device. A label
+    outside [0, C) adds no confusion entry, as the one-hot form drops it."""
+    m = torch.ones(pred_cls.shape[0], device=pred_cls.device) \
+        if sample_mask is None else sample_mask.to(pred_cls.device).float()
+    classes = torch.arange(num_classes, device=pred_cls.device)
+    oh_pred = (pred_cls.long()[:, None] == classes).float()
+    oh_tgt = (targets.long()[:, None] == classes).float()
+    conf = torch.einsum("bp,bl,b->pl", oh_pred, oh_tgt, m)
+    correct = ((pred_cls == targets).float() * m).sum()
+    return conf, correct
 
 
 def to_host(acc: SegAccum) -> SegAccum:

@@ -9,7 +9,13 @@ torch-layout weights (what the port's modules store).
                         affine, result in the input dtype.
 - ``batch_norm_train``  train mode: the batch statistics (padded samples
                         masked out) and the new running statistics.
-- ``relu``, ``max_pool``.
+- ``relu``, ``max_pool``, ``adaptive_avg_pool_1``.
+- ``dropout``, ``dropout2d``: the train-time drops, applied with a keep
+                        mask that ``draw_keep`` draws from a
+                        ``torch.Generator`` apart from the apply (the JAX
+                        package draws it from jax.random, whose numbers
+                        torch cannot reproduce, so a test hands both the
+                        same mask).
 
 The NHWC <-> NCHW permutes are views: a contiguous NHWC tensor permuted to
 NCHW is a channels-last NCHW tensor, which the convolution takes without a
@@ -116,3 +122,33 @@ def max_pool(x: torch.Tensor, kernel: IntOrPair,
              stride: Optional[IntOrPair] = None) -> torch.Tensor:
     """MaxPool2d, no padding, floor output size (torch default), NHWC."""
     return _nhwc(F.max_pool2d(_nchw(x), kernel, stride))
+
+
+def adaptive_avg_pool_1(x: torch.Tensor) -> torch.Tensor:
+    """AdaptiveAvgPool2d(1) on NHWC: the mean over H, W (dims kept)."""
+    return torch.mean(x, dim=(1, 2), keepdim=True)
+
+
+def draw_keep(gen: torch.Generator, shape, p: float) -> torch.Tensor:
+    """A bool keep mask of ``shape``, each entry kept with probability
+    1 - ``p``, on the generator's device. ``dropout`` takes a mask of x's
+    shape, ``dropout2d`` one of (N, 1, 1, C)."""
+    return torch.rand(tuple(shape), generator=gen, device=gen.device) \
+        < 1.0 - p
+
+
+def dropout(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
+    """Element dropout (torch.nn.Dropout) with the given keep mask: kept
+    entries scaled by 1 / (1 - p), the others 0."""
+    return torch.where(keep.to(x.device), x / (1.0 - p),
+                       torch.zeros((), dtype=x.dtype, device=x.device)
+                       ).to(x.dtype)
+
+
+def dropout2d(x: torch.Tensor, keep: torch.Tensor, p: float) -> torch.Tensor:
+    """Channel dropout (torch.nn.Dropout2d) over NHWC: ``keep`` (N, 1, 1, C)
+    keeps or drops whole channels of each sample."""
+    if keep.dim() != 4 or keep.shape[1:3] != (1, 1):
+        raise ValueError(f"dropout2d takes an (N, 1, 1, C) mask, not "
+                         f"{tuple(keep.shape)}")
+    return dropout(x, keep, p)

@@ -1,7 +1,7 @@
 """Pruning (the JAX package's ops/pruning.py): the near-zero count that the
 CLIs print, the reference's 1%-of-max threshold pruning that train.py's
-finetune phase runs, and the gradient masking that keeps pruned weights
-at zero. "Prunable" tensors are the trainable ones with more than one
+finetune phase runs, the band pruning of the legacy CLIs' ``--prune``, and
+the gradient masking that keeps pruned weights at zero. "Prunable" tensors are the trainable ones with more than one
 dimension, in registry order, as the reference's
 ``for param in model.parameters(): if param.dim() > 1`` walks them.
 """
@@ -13,6 +13,7 @@ from typing import Dict, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
+from robocupvision_tpu_torch.export.torch_io import to_jax_layout
 from robocupvision_tpu_torch.models.layers import is_weight
 
 
@@ -78,6 +79,41 @@ def prune_threshold(params: Mapping, order: Sequence[str],
         if verbose:
             print("Pruned %f%% of the weights" % (
                 float(mask.sum()) / max(float(np.sum(p != 0)), 1.0) * 100.0))
+        p[mask] = 0
+        new[name] = torch.from_numpy(p)
+        masks[name] = torch.from_numpy(mask)
+    return new, masks
+
+
+def prune_band(params: Mapping, registry, lower: float = 73.0,
+               upper: float = 77.0, verbose: bool = True
+               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Prune each prunable tensor to between ``lower`` and ``upper`` percent
+    of its non-zero weights (reference model.py:621-642): a threshold
+    seeded at the tensor's standard deviation and scaled by 1.025 or 0.975
+    until the share of |w| below it falls in the band, then the weights
+    below it zeroed. ``registry``: the model's (its order, and each
+    tensor's layout: the deviation is taken over the tensor in the JAX
+    package's layout, whose summation order it then shares to the bit).
+    Returns (new params, masks), both CPU tensors, the masks True at the
+    pruned positions."""
+    new = {k: torch.as_tensor(_np(v)) for k, v in params.items()}
+    masks: Dict[str, torch.Tensor] = {}
+    for name in prunable_names(registry.order, params):
+        p = _np(params[name]).copy()
+        thresh = float(to_jax_layout(p, registry.specs[name].kind).std())
+        nz = max(float(np.sum(p != 0)), 1.0)
+        while True:
+            num = float(np.sum(np.abs(p) < thresh)) / nz * 100.0
+            if num < lower:
+                thresh *= 1.025
+            elif num > upper:
+                thresh *= 0.975
+            else:
+                break
+        mask = np.abs(p) < thresh
+        if verbose:
+            print("Pruned %f%% of the weights" % (mask.sum() / nz * 100.0))
         p[mask] = 0
         new[name] = torch.from_numpy(p)
         masks[name] = torch.from_numpy(mask)

@@ -2,9 +2,11 @@
 
 ``Trainer`` runs what train.py runs every epoch (train.py:29-203): a
 shuffled epoch of train steps, validation through the eval step (K1 on
-the card), best-epoch selection on (mean class accuracy + mean IoU) / 2,
-and the pruned share. The per-batch work stays on the model's device: the
-shuffle and the augmentation draws come from a generator on that device,
+the card; the class confusion and accuracy for the classification loss),
+best-epoch selection on (mean class accuracy + mean IoU) / 2, and the
+pruned share. The per-batch work stays on the model's device: the
+shuffle, the augmentation draws and the dropout keep masks come from a
+generator on that device,
 the metrics are summed there, the best params are selected there (a copy,
 never an alias of the live params), and ``train_run`` fetches the metrics
 once a chunk of epochs. Script-specific control flow (sweeps, the prune
@@ -51,9 +53,11 @@ class Trainer:
                  multipliers: Optional[Dict[str, float]] = None,
                  seed: int = 12345678, mesh=None):
         """Trains ``model``'s family on its device. The random generator
-        (the shuffle and the augmentation draws) lives on that device,
-        seeded with ``seed``; ``draw_perm(n)`` and ``draw_augment(n)`` draw
-        from it, and a caller may replace them with draws of its own."""
+        (the shuffle, the augmentation draws and the dropout keep masks)
+        lives on that device, seeded with ``seed``; ``draw_perm(n)``,
+        ``draw_augment(n)`` (the draws of ``cfg.augment_mode``) and
+        ``draw_dropout(n)`` (``Model.draw_dropout``) draw from it, and a
+        caller may replace them with draws of its own."""
         if mesh is not None:
             raise NotImplementedError("data-parallel training over a mesh is "
                                       "not ported yet (ROADMAP A.7)")
@@ -66,10 +70,12 @@ class Trainer:
         self.multipliers = multipliers
         self.device = model.device
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.draw_perm = lambda n: shuffle(self.gen, n)
-        self.draw_augment = lambda n: color.draw_augment(self.gen, n)
         self.train_step = tstep.make_train_step(model, tx, cfg, multipliers)
         self.eval_step = tstep.make_eval_step(model, cfg)
+        draw_augment, _ = color.AUGMENT_MODES[cfg.augment_mode]
+        self.draw_perm = lambda n: shuffle(self.gen, n)
+        self.draw_augment = lambda n: draw_augment(self.gen, n)
+        self.draw_dropout = lambda n: model.draw_dropout(self.gen, n)
         self.state: Optional[tstep.TrainState] = None
 
     # -- state ------------------------------------------------------------------
@@ -111,9 +117,11 @@ class Trainer:
         perm = self.draw_perm(self.train_cache.n)
         for imgs, tgt, mask in epoch_batches(self.train_cache,
                                              self.batch_size, perm):
+            n = mask.shape[0]
+            draws = self.draw_augment(n) if self.cfg.augment else None
             self.state, out = self.train_step(self.state, imgs, tgt, mask,
-                                              self.draw_augment(mask.shape[0]),
-                                              lr, masks)
+                                              draws, lr, masks,
+                                              self.draw_dropout(n))
             tot = out if not tot else {k: tot[k] + out[k] for k in tot}
         return tot
 
@@ -135,24 +143,37 @@ class Trainer:
         raise NotImplementedError("train_epoch_streamed (data/streaming) is "
                                   "not ported yet (ROADMAP A.7)")
 
-    def _valid(self, params):
-        """(SegAccum of device tensors, summed loss) over the val set."""
-        acc, loss = None, None
+    def _valid(self, params) -> Optional[Dict]:
+        """The eval step's outputs summed over the val set on the device
+        (``acc`` a SegAccum; for ``ce`` ``conf``, ``correct``,
+        ``img_cnt``), or None for an empty set."""
+        tot = None
         for imgs, tgt, mask in epoch_batches(self.val_cache, self.batch_size):
             out = self.eval_step(imgs, tgt, mask, params)
-            acc = out["acc"] if acc is None else acc + out["acc"]
-            loss = out["loss"] if loss is None else loss + out["loss"]
-        return acc, loss
+            out.pop("pred", None)
+            tot = out if tot is None else {k: tot[k] + out[k] for k in tot}
+        return tot
 
     def valid_epoch(self) -> Dict:
+        """The mean loss and the segmentation metrics of ``seg_finalize``
+        (``ce``: the class confusion counts ``conf`` and the accuracy
+        ``acc`` in percent)."""
         assert self.state is not None and self.val_cache is not None
-        acc, loss = self._valid(self.state.params)
-        if acc is None:
+        tot = self._valid(self.state.params)
+        classify = self.cfg.loss == "ce"
+        if tot is None:
+            if classify:
+                return {"loss": 0.0, "conf": None, "acc": 0.0}
             return {"loss": 0.0, "conf": None, "pixel_acc": 0.0,
                     "mean_class_acc": 0.0, "mean_iou": 0.0, "score": 0.0}
-        fin = seg_finalize(acc, self.cfg.out_size)
-        fin["loss"] = float(loss) / max(
+        loss = float(tot["loss"]) / max(
             num_batches(self.val_cache.n, self.batch_size), 1)
+        if classify:
+            return {"loss": loss, "conf": tot["conf"].cpu().numpy(),
+                    "acc": float(tot["correct"]) * 100.0
+                    / max(float(tot["img_cnt"]), 1.0)}
+        fin = seg_finalize(tot["acc"], self.cfg.out_size)
+        fin["loss"] = loss
         for k in ("pixel_acc", "mean_class_acc", "mean_iou", "score"):
             fin[k] = float(fin[k])
         return fin
@@ -171,8 +192,9 @@ class Trainer:
         nb = max(num_batches(self.train_cache.n, self.batch_size), 1)
         vnb = max(num_batches(self.val_cache.n, self.batch_size), 1)
         tr = self._train_epoch(lr, masks)
-        acc, vloss = self._valid(self.state.params)
-        fin = seg_finalize_tensors(acc, self.cfg.out_size)
+        val = self._valid(self.state.params)
+        vloss = val["loss"]
+        fin = seg_finalize_tensors(val["acc"], self.cfg.out_size)
         better = fin["score"] > best_score
         best_params = {k: torch.where(better, v, best_params[k])
                        for k, v in self.state.params.items()}
@@ -215,6 +237,10 @@ class Trainer:
         when no epoch beat score 0 (the reference saves nothing then)."""
         assert self.state is not None and self.train_cache is not None \
             and self.val_cache is not None
+        if self.cfg.loss == "ce":
+            raise ValueError("train_run is the segmentation loop; the "
+                             "classification loss trains by train_epoch "
+                             "and valid_epoch")
         if len(lrs) != epochs:
             raise ValueError(f"{len(lrs)} learning rates for {epochs} epochs")
         if chunk_epochs is not None and chunk_epochs <= 0:

@@ -1,9 +1,11 @@
 """The train and eval steps (the JAX package's train/step.py).
 
 One train step per batch does what the reference does per batch
-(train.py:43-94): the augmentation (with draws the caller made), the
-class-ablation label remap, the train-mode forward with padded samples
-left out of the BN statistics, the loss plus the L1 term, the gradients of
+(train.py:43-94, and the legacy CLIs' loops): the augmentation (with
+draws the caller made; of the images alone for the classification loss),
+the class-ablation label remap, the train-mode forward with padded samples
+left out of the BN statistics and the dropout keep masks the caller drew,
+the loss plus the L1 term, the gradients of
 the trainable params by autograd, the prune masks zeroing theirs, the
 optimizer's update, and the new BN running statistics merged in. Its
 metrics stay tensors on the device; the loop sums them there and fetches
@@ -13,7 +15,8 @@ One eval step per batch: the label remap, the forward in
 ``compute_dtype``, the loss (plus the L1 term when ``l1_decay`` is set, as
 the reference's valid() adds it), the argmax, and the batch's
 confusion/IoU statistics through ``seg_batch_stats`` (kernel K1 on CUDA
-tensors), padded samples masked out.
+tensors), padded samples masked out; for the classification loss ``ce``
+the class confusion and correct count (``class_batch_stats``) instead.
 """
 
 from __future__ import annotations
@@ -41,11 +44,18 @@ class TrainState:
 @dataclasses.dataclass(frozen=True)
 class StepCfg:
     num_classes: int
-    loss: str = "ce2d"                  # ce2d | dice
+    loss: str = "ce2d"                  # ce2d | dice | ce (classification)
     class_weights: Tuple[float, ...] = ()
     l1_decay: float = 0.0               # train.py:52-54 manual L1 term
     mask_flags: Tuple[bool, bool, bool, bool] = (False, False, False, False)
-    augment_mode: str = "ssyuv"         # hflip + YUV jitter (train.py)
+    augment: bool = True                # the step augments its batch
+    augment_mode: str = "ssyuv"         # ssyuv: hflip + YUV jitter
+                                        #   (train.py)
+                                        # legacy: hflip + vflip + RGB
+                                        #   ColorJitter (trainer.py:88-104)
+                                        # legacy_hflip: hflip + RGB
+                                        #   ColorJitter (classTrainer.py:55-62)
+    jitter: bool = True                 # the augmentation's colour jitter
     out_size: float = 1.0               # 1/(H*W) pixel-acc normalizer
     compute_dtype: str = "float32"      # "bfloat16": bf16 forward and
                                         # backward over f32 master weights;
@@ -66,8 +76,10 @@ def _class_weights(cfg: StepCfg, device) -> Optional[torch.Tensor]:
 
 def _loss(cfg: StepCfg, logits: torch.Tensor, targets: torch.Tensor,
           mask, w: Optional[torch.Tensor]) -> torch.Tensor:
-    """The task loss over (N, H, W, C) logits with class weights ``w``,
-    ``mask`` (N,) expanded to a per-pixel mask."""
+    """The task loss over (N, H, W, C) logits (``ce``: (N, C)) with class
+    weights ``w``, ``mask`` (N,) expanded to a per-pixel mask."""
+    if cfg.loss == "ce":
+        return losses.cross_entropy(logits, targets, w, mask)
     pixel_mask = None
     if mask is not None:
         m = torch.as_tensor(mask, device=logits.device).float()
@@ -80,38 +92,57 @@ def _loss(cfg: StepCfg, logits: torch.Tensor, targets: torch.Tensor,
     return losses.cross_entropy_2d(logits, targets, w, pixel_mask)
 
 
-def _check_seg(cfg: StepCfg) -> None:
-    if cfg.loss not in ("ce2d", "dice"):
-        raise ValueError(f"the steps train and score segmentation (ce2d, "
-                         f"dice), not {cfg.loss!r}")
+def _check(cfg: StepCfg) -> None:
+    if cfg.loss not in ("ce2d", "dice", "ce"):
+        raise ValueError(f"loss must be ce2d, dice or ce, not {cfg.loss!r}")
+    if cfg.augment_mode not in color.AUGMENT_MODES:
+        raise ValueError(f"augment_mode must be one of "
+                         f"{sorted(color.AUGMENT_MODES)}, "
+                         f"not {cfg.augment_mode!r}")
+
+
+def _flat_logits(cfg: StepCfg, logits: torch.Tensor) -> torch.Tensor:
+    """``ce``'s (N, 1, 1, C) logits as (N, C)."""
+    return logits.reshape(logits.shape[0], -1) if cfg.loss == "ce" \
+        else logits
 
 
 def make_train_step(model: Model, tx: optim.GradientTransform, cfg: StepCfg,
                     multipliers: Optional[Mapping[str, float]] = None):
     """Returns step(state, imgs, targets, sample_mask, draws, lr,
-    prune_masks) -> (new state, metrics) for a batch on the model's device.
+    prune_masks=None, dropout=None) -> (new state, metrics) for a batch on
+    the model's device.
 
-    ``draws``: the batch's augmentation draws (``color.draw_augment``). ``prune_masks``: {name: mask} True or
-    1 at pruned positions, or None. ``metrics``: 0-d tensors ``loss``
-    (task loss plus the L1 term), ``reg``, ``correct`` (right pixels of the
-    real samples) and ``img_cnt``, on the device. The new state holds new
+    ``draws``: the batch's augmentation draws for ``cfg.augment_mode``
+    (the mode's draw in ``color.AUGMENT_MODES``; unused without
+    ``cfg.augment``). ``prune_masks``: {name: mask} True or 1 at pruned
+    positions, or None. ``dropout``: the forward's keep masks
+    (``Model.draw_dropout``), for a family with dropout sites.
+    ``metrics``: 0-d tensors ``loss`` (task loss plus the L1 term),
+    ``reg``, ``correct`` (right pixels, or samples for ``ce``, of the real
+    samples) and ``img_cnt``, on the device. The new state holds new
     tensors; the old one is left as it was."""
-    _check_seg(cfg)
+    _check(cfg)
     if cfg.packed:
         raise NotImplementedError("packed training is not ported yet "
                                   "(ROADMAP A.1)")
     if cfg.remat != "none":
         raise NotImplementedError(f"remat={cfg.remat!r} is not ported yet "
                                   "(ROADMAP A.1)")
-    if cfg.augment_mode != "ssyuv":
-        raise NotImplementedError(f"augment_mode={cfg.augment_mode!r} is not "
-                                  "ported yet (ROADMAP A.2)")
     nb, nr, ng, nl = cfg.mask_flags
     weights = _class_weights(cfg, model.device)
+    _, augment = color.AUGMENT_MODES[cfg.augment_mode]
+    classify = cfg.loss == "ce"
 
     def step(state: TrainState, imgs, targets, sample_mask, draws, lr,
-             prune_masks: Optional[Mapping[str, torch.Tensor]] = None):
-        imgs, targets = color.augment_batch(imgs, targets, draws)
+             prune_masks: Optional[Mapping[str, torch.Tensor]] = None,
+             dropout: Optional[Mapping[str, torch.Tensor]] = None):
+        if cfg.augment:
+            # a class label has no pixels to flip
+            imgs, flipped = augment(imgs, None if classify else targets,
+                                    draws, cfg.jitter)
+            if not classify:
+                targets = flipped
         targets = labels.mask_label(targets, nb, nr, ng, nl)
         trainable, bn_state = L.split_params(state.params)
         leaves = {k: v.detach().requires_grad_(True)
@@ -121,13 +152,17 @@ def make_train_step(model: Model, tx: optim.GradientTransform, cfg: StepCfg,
         with torch.enable_grad():
             with L.bn_stats_mask(sample_mask):
                 logits, mut = model.apply({**leaves, **bn_state}, x,
-                                          train=True)
+                                          train=True, dropout=dropout)
+            logits = _flat_logits(cfg, logits)
             task = _loss(cfg, logits, targets, sample_mask, weights)
             reg = torch.zeros((), device=logits.device)
             if cfg.l1_decay:
                 reg = cfg.l1_decay * losses.l1_regularization(leaves)
             total = task + reg
-            grads = torch.autograd.grad(total, list(leaves.values()))
+            # a param the forward does not reach (the segmentation head of
+            # a net trained to classify) gets a zero gradient, as in JAX
+            grads = torch.autograd.grad(total, list(leaves.values()),
+                                        materialize_grads=True)
         grads = dict(zip(leaves, grads))
         if prune_masks is not None:
             grads = mask_gradients(grads, prune_masks)
@@ -152,8 +187,9 @@ def make_eval_step(model: Model, cfg: StepCfg):
     """Returns step(imgs, targets, sample_mask, params=None) -> {"loss",
     "acc" (a SegAccum of tensors on the model's device), "pred"} for a
     batch already on the model's device, with ``params`` (the train loop's)
-    or the model's own weights."""
-    _check_seg(cfg)
+    or the model's own weights; for ``ce``: {"loss", "conf" (C, C),
+    "correct", "img_cnt"}."""
+    _check(cfg)
     nb, nr, ng, nl = cfg.mask_flags
     weights = _class_weights(cfg, model.device)
 
@@ -163,12 +199,17 @@ def make_eval_step(model: Model, cfg: StepCfg):
         targets = labels.mask_label(targets, nb, nr, ng, nl)
         if cfg.compute_dtype == "bfloat16":
             imgs = imgs.to(torch.bfloat16)
-        logits = model.apply(p, imgs)
+        logits = _flat_logits(cfg, model.apply(p, imgs))
         loss = _loss(cfg, logits, targets, sample_mask, weights)
         if cfg.l1_decay:
             trainable, _ = L.split_params(p)
             loss = loss + cfg.l1_decay * losses.l1_regularization(trainable)
         pred = torch.argmax(logits, dim=-1)
+        if cfg.loss == "ce":
+            conf, correct = metrics.class_batch_stats(
+                pred, targets, cfg.num_classes, sample_mask)
+            return {"loss": loss, "conf": conf, "correct": correct,
+                    "img_cnt": torch.as_tensor(sample_mask).float().sum()}
         acc = metrics.seg_batch_stats(pred, targets, cfg.num_classes,
                                       sample_mask, device=pred.device)
         return {"loss": loss, "acc": acc, "pred": pred}

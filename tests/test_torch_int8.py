@@ -272,6 +272,22 @@ def test_quantize_int8_families(family):
         tpacked.quantize_int8(dataclasses.replace(tg16, chains=None), x)
 
 
+@pytest.mark.parametrize("pct", [None, 99.5])
+def test_quantize_int8_calibration_statistic_matches_jax(pct):
+    """``pct`` picks the calibration statistic (max, or a percentile)
+    as the JAX package's does: labels agree with its quantized graph
+    (f32); an unknown string is refused."""
+    jg, tg, x = _graphs("pb_fcn", "f32")
+    jq = jpacked.quantize_int8(jg, jnp.asarray(x), pct=pct)
+    tq = tpacked.quantize_int8(tg, x, pct=pct)
+    jref = dataclasses.replace(jq, chains={**jq.chains, "collect": {}})
+    agree = np.mean(tq.infer(x).numpy()
+                    == np.asarray(jref.infer(jnp.asarray(x))))
+    assert agree >= 0.999, agree
+    with pytest.raises(ValueError, match="pct"):
+        tpacked.quantize_int8(tg, x, pct="max")
+
+
 def test_int8_chain_on_cpu_is_chain_reference():
     """On CPU tensors fused_conv_chain runs the plain version, int8 too,
     and counts its calls there."""

@@ -60,7 +60,9 @@ def test_port_imports_no_pil_at_module_level(path):
 
 
 def _entry_points():
-    from robocupvision_tpu_torch.cli import test, tester, validLabelProp
+    from robocupvision_tpu_torch.cli import (classTrainer, labelPropTrain,
+                                             test, tester, trainer,
+                                             validLabelProp)
     from robocupvision_tpu_torch.data.device_cache import DeviceCache
     from robocupvision_tpu_torch.models import packed, zoo
     from robocupvision_tpu_torch.ops import metrics
@@ -85,6 +87,11 @@ def _entry_points():
         "validLabelProp.serve_and_score":
             lambda: validLabelProp.serve_and_score(lambda x: x, []),
         "test.main": lambda: test.main(["--UNet"]),
+        "classTrainer.main": lambda: classTrainer.main([]),
+        "trainer.main": lambda: trainer.main([]),
+        "labelPropTrain.main": lambda: labelPropTrain.main([]),
+        "classTrainer.train_classifier": lambda: classTrainer.train_classifier(
+            classTrainer.build_parser().parse_args([]), None, None),
         "DeviceCache": lambda: DeviceCache.from_numpy(
             np.zeros((1, 4, 4, 3), np.float32), maps),
     }
@@ -97,7 +104,10 @@ def _entry_points():
                                   "build_packed_label_prop",
                                   "validLabelProp.main",
                                   "validLabelProp.serve_and_score",
-                                  "test.main", "DeviceCache"])
+                                  "test.main", "DeviceCache",
+                                  "classTrainer.main", "trainer.main",
+                                  "labelPropTrain.main",
+                                  "classTrainer.train_classifier"])
 def test_entry_points_raise_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point runs there")

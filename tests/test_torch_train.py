@@ -385,14 +385,10 @@ def test_prune_masks_keep_pruned_weights_at_zero():
 
 def test_unported_step_options_raise():
     tm = zoo.make("robo_unet", device="cpu", **small_hyper())
-    for kw in (dict(packed=True), dict(remat="dots"),
-               dict(augment_mode="legacy")):
+    for kw in (dict(packed=True), dict(remat="dots")):
         with pytest.raises(NotImplementedError):
             tstep.make_train_step(tm, optim.adam(),
                                   tstep.StepCfg(num_classes=5, **kw))
-    pb = zoo.make("pb_fcn", device="cpu", planes=8)
-    with pytest.raises(NotImplementedError):
-        pb.apply(pb.flat(), torch.zeros((1, 16, 16, 3)), train=True)
     with pytest.raises(NotImplementedError):
         loop.Trainer(tm, optim.adam(), tstep.StepCfg(num_classes=5), None,
                      None, 4, mesh=object())
