@@ -42,6 +42,17 @@ the launch counters set to 0 just before it and read just after:
     from its output, and labelPropTrain's ``train_label_prop``, at full
     width on seeded in-memory frames, segmentation validation on the
     confusion-count kernel;
+  - the rest of training (``train_variants``): the flagship's packed,
+    remat "dots" and remat "full" train steps at QVGA, b64, each through a
+    Trainer epoch and its validation (K1 once a validation batch), timed
+    in f32 and bf16 beside the plain step (ms, kernels and idle share a
+    step, peak memory) and held to the plain step on the card; the
+    streamed epoch (``train_streamed``): uint8 frames through
+    ``Trainer.train_epoch_streamed`` and its validation, images/s against
+    the cached epoch; and the classifier baselines (``classifier_clis``):
+    classVal's ``train_baseline`` (the DownSampler + Classifier pair,
+    ``--hessL``, ``--hessMC``) and objDetEval's ``train_detector`` at b64
+    on seeded 32x32 patches;
   - the trained-net int8 envelope (``int8_trained``): PB_FCN, the --v2
     ROBO-UNet and LabelProp trained 30 epochs, quantized at four
     calibration statistics, int8 chain graphs served against the float
@@ -213,7 +224,7 @@ def widen_labels(t: torch.Tensor, seed: int) -> torch.Tensor:
     return torch.where((u >= 0.2) & (u < 0.3), t.new_tensor(2**31 + 3), t)
 
 
-def profile_calls(fn, calls: int, before=None, tries: int = 3):
+def profile_calls(fn, calls: int, before=None, tries: int = 6):
     """torch.profiler over ``calls`` calls of ``fn``, ``before()`` run
     ahead of each: per call, every device row as (name, events, ms). The
     trace is kept only from a second profiler step on (the first, a few
@@ -221,7 +232,8 @@ def profile_calls(fn, calls: int, before=None, tries: int = 3):
     unrecorded). The tracer can still drop events: a trace that comes back
     without device time, or with a row whose events are no whole number a
     call, is taken again, up to ``tries`` times in all (then the last one
-    is returned, or None if it holds no device time)."""
+    is returned, or None if it holds no device time; three tries have come
+    back empty on an H100)."""
     from torch.profiler import ProfilerActivity, schedule
     from torch.profiler import profile as tprofile
 
@@ -2547,9 +2559,6 @@ def phase_legacy_train(dev, chk: Checks, smi: str) -> list:
     from robocupvision_tpu_torch.data.datasets import legacy_normalize
     from robocupvision_tpu_torch.models import zoo
     from robocupvision_tpu_torch.ops import pruning
-    from robocupvision_tpu_torch.ops.cuda_kernels import (confusion_count,
-                                                          fused_conv3x3_block)
-    from robocupvision_tpu_torch.ops.cuda_packed import fused_conv_chain
     from robocupvision_tpu_torch.train import checkpoint
 
     def caches(imgs, labs, n_train):
@@ -2593,21 +2602,10 @@ def phase_legacy_train(dev, chk: Checks, smi: str) -> list:
                                 "pth/bestModelSegbothFinetuned.pth")
                 tee = Tee(sys.stdout)
                 # --- a main path: the CLI's loop, the counters around it
-                confusion_count.launches = fused_conv_chain.launches = 0
-                fused_conv3x3_block.launches = 0
-                K1_REC.active = K1_REC.verify = True
-                K1_REC.verified = K1_REC.unequal = 0
-                t0 = time.perf_counter()
                 with plateau_runs(patience) as seen, \
                         contextlib.redirect_stdout(tee):
-                    best = fn(opt, tc, vc, dev)
-                torch.cuda.synchronize(dev)
-                wall = time.perf_counter() - t0
-                K1_REC.active = K1_REC.verify = False
-                launches = {"confusion_count": confusion_count.launches,
-                            "fused_conv_chain": fused_conv_chain.launches,
-                            "fused_conv3x3_block":
-                                fused_conv3x3_block.launches}
+                    best, launches, verified, unequal, wall = counted_run(
+                        lambda: fn(opt, tc, vc, dev))
                 tr, prune_masks = seen[0]
                 text = tee.text
                 train_loss = [float(v) for v in re.findall(
@@ -2628,8 +2626,8 @@ def phase_legacy_train(dev, chk: Checks, smi: str) -> list:
                        "checkpoint": ckpt,
                        "checkpoint_written": os.path.exists(ckpt),
                        "launches": launches,
-                       "k1_verified": K1_REC.verified,
-                       "k1_unequal_plain": K1_REC.unequal,
+                       "k1_verified": verified,
+                       "k1_unequal_plain": unequal,
                        "seconds": wall}
                 if opt.__dict__.get("prune"):
                     reg = tr.model.registry
@@ -2663,10 +2661,10 @@ def phase_legacy_train(dev, chk: Checks, smi: str) -> list:
                                         "fused_conv3x3_block": 0},
                            f"legacy {name}: launches {launches}, want "
                            f"{want_k1} K1 and no K2, K3")
-                chk.expect(K1_REC.verified == want_k1 and K1_REC.unequal == 0,
+                chk.expect(verified == want_k1 and unequal == 0,
                            f"legacy {name}: K1 equal to plain on "
-                           f"{K1_REC.verified - K1_REC.unequal} of "
-                           f"{want_k1} validation batches")
+                           f"{verified - unequal} of {want_k1} validation "
+                           "batches")
                 chk.expect(step["worst_abs_err_over_rtol"] <= 1e-3
                            and abs(step["loss"][0] - step["loss"][1])
                            <= 1e-3 * abs(step["loss"][1]),
@@ -2676,6 +2674,395 @@ def phase_legacy_train(dev, chk: Checks, smi: str) -> list:
             os.chdir(cwd)
     chk.expect(sum(r["rollbacks"] for r in results) >= 1,
                "legacy: no plateau rollback")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# The rest of training: the packed and remat steps, the streamed epoch and
+# the classifier baselines' loops
+# ---------------------------------------------------------------------------
+
+
+def counted_run(fn):
+    """``fn()`` as a main path: the launch counters set to 0 just before
+    and read just after, K1 held to its plain count on every call
+    (``K1Recorder.verify``). -> (fn's result, launches, K1 calls verified,
+    K1 calls unequal to plain, seconds)."""
+    from robocupvision_tpu_torch.ops.cuda_kernels import (confusion_count,
+                                                          fused_conv3x3_block)
+    from robocupvision_tpu_torch.ops.cuda_packed import fused_conv_chain
+
+    confusion_count.launches = fused_conv_chain.launches = 0
+    fused_conv3x3_block.launches = 0
+    K1_REC.active = K1_REC.verify = True
+    K1_REC.verified = K1_REC.unequal = 0
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        K1_REC.active = K1_REC.verify = False
+    wall = time.perf_counter() - t0
+    return out, {"confusion_count": confusion_count.launches,
+                 "fused_conv_chain": fused_conv_chain.launches,
+                 "fused_conv3x3_block": fused_conv3x3_block.launches}, \
+        K1_REC.verified, K1_REC.unequal, wall
+
+
+def worst_over_tol(got, want, rtol: float) -> tuple:
+    """max over every tensor of max(|got - want| - rtol * |want|), and the
+    name where it is largest (compare with the atol)."""
+    worst, name = -1.0, ""
+    for k, v in want.items():
+        e = float(((got[k] - v).abs() - rtol * v.abs()).max())
+        if e > worst:
+            worst, name = e, k
+    return worst, name
+
+
+TRAIN_VARIANTS = {"plain": {}, "packed": dict(packed=True),
+                  "remat_dots": dict(remat="dots"),
+                  "remat_full": dict(remat="full")}
+
+
+def phase_train_variants(dev, chk: Checks, smi: str) -> dict:
+    """The train step's variants (``StepCfg.packed``, ``remat`` "dots"
+    and "full") on the flagship ROBO-UNet at its defaults, QVGA 120x160,
+    b64, class weights (1, 10, 30, 10, 2), L1 1e-6, Adam (the JAX bench's
+    setting), beside the plain step from the same weights. Main paths,
+    one per variant, with the counters set to 0 just before and read just
+    after: a Trainer epoch (512 seeded frames, f32) and its validation
+    (120 frames, the last batch with 8 padded samples), K1 once per
+    validation batch and equal to ``confusion_count_plain`` on each, no K2
+    or K3. Then each variant's step alone in f32 (no TF32) and bf16: ms a
+    step (10 steps after 2, host clock, synchronised), kernels a step and
+    the card's idle share (``step_profile``, 3 steps), and the peak memory
+    of one step (``max_memory_allocated`` after
+    ``reset_peak_memory_stats``). Held on the card: one plain-SGD packed
+    step (lr 1e-2, one padded sample, the same draws) against the
+    unpacked one at atol 1e-5 / rtol 1e-4, and the dots and full steps
+    against none at atol = rtol = 1e-4, beside the gap between two runs
+    of the plain step."""
+    from robocupvision_tpu_torch.cli import train
+    from robocupvision_tpu_torch.data.device_cache import (DeviceCache,
+                                                           epoch_batches,
+                                                           num_batches)
+    from robocupvision_tpu_torch.models import zoo
+    from robocupvision_tpu_torch.ops import color
+    from robocupvision_tpu_torch.train import optim
+    from robocupvision_tpu_torch.train import step as tstep
+    from robocupvision_tpu_torch.train.loop import Trainer
+
+    size, batch = (120, 160), 64
+    imgs, labs = eval_set(TRAIN_N + VAL_N, SEED + 70, size, paint=True)
+    train_cache = DeviceCache.from_numpy(imgs[:TRAIN_N], labs[:TRAIN_N],
+                                         device=dev)
+    val_cache = DeviceCache.from_numpy(imgs[TRAIN_N:], labs[TRAIN_N:],
+                                       device=dev)
+    model = zoo.make("robo_unet", device=dev,
+                     generator=torch.Generator().manual_seed(SEED + 71),
+                     **train.model_hyper(False, False))
+    base = tstep.StepCfg(num_classes=5, class_weights=(1, 10, 30, 10, 2),
+                         l1_decay=1e-6, out_size=1.0 / (size[0] * size[1]))
+    vnb = num_batches(VAL_N, batch)
+    t_phase = time.perf_counter()
+    res = {"phase": "train_variants", "model": "robo_unet flagship "
+           "(model_hyper)", "shape": [batch, *size, 3], "optimizer": "adam",
+           "card": smi, "main_paths": {}, "steps": {}}
+    for tag, kw in TRAIN_VARIANTS.items():
+        if tag == "plain":  # phase_train's main path
+            continue
+        tr = Trainer(model, optim.adam(), dataclasses.replace(base, **kw),
+                     train_cache, val_cache, batch, seed=SEED + 72)
+        tr.init()
+        (ep, val), launches, verified, unequal, wall = counted_run(
+            lambda: (tr.train_epoch(1e-3), tr.valid_epoch()))
+        res["main_paths"][tag] = {
+            "train_loss": ep.loss, "val_loss": val["loss"],
+            "val_score": val["score"], "launches": launches,
+            "k1_per_validation_epoch": launches["confusion_count"],
+            "k1_verified": verified, "k1_unequal_plain": unequal,
+            "seconds": wall}
+        chk.expect(launches == {"confusion_count": vnb,
+                                "fused_conv_chain": 0,
+                                "fused_conv3x3_block": 0},
+                   f"train_variants {tag}: launches {launches}, want {vnb} "
+                   "K1 and no K2, K3")
+        chk.expect(verified == vnb and unequal == 0,
+                   f"train_variants {tag}: K1 equal to plain on "
+                   f"{verified - unequal} of {vnb} validation batches")
+        chk.expect(bool(np.isfinite([ep.loss, val["loss"]]).all()),
+                   f"train_variants {tag}: loss {ep.loss}, {val['loss']}")
+
+    xb, tb, mb = next(epoch_batches(train_cache, batch))
+    tx = optim.adam()
+    for dt in ("float32", "bfloat16"):
+        for tag, kw in TRAIN_VARIANTS.items():
+            fn = tstep.make_train_step(model, tx, dataclasses.replace(
+                base, compute_dtype=dt, **kw))
+            st = tstep.init_state(model, tx)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 73)
+
+            def one():
+                nonlocal st
+                st, _ = fn(st, xb, tb, mb, color.draw_augment(gen, batch),
+                           1e-3, None)
+
+            for _ in range(2):
+                one()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            for _ in range(10):
+                one()
+            torch.cuda.synchronize(dev)
+            ms = (time.perf_counter() - t0) / 10 * 1e3
+            resident = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            one()
+            torch.cuda.synchronize(dev)
+            peak = torch.cuda.max_memory_allocated(dev)
+            prof = step_profile(one, 3)
+            res["steps"][f"{tag}_{dt}"] = {
+                "step_ms": ms, "kernels": prof["kernels"],
+                "device_ms": prof["device_ms"],
+                "idle_share": None if prof["device_ms"] is None
+                else 1 - prof["device_ms"] / ms,
+                "peak_mb": peak / 2 ** 20,
+                "peak_over_resident_mb": (peak - resident) / 2 ** 20,
+                "top": prof["top"]}
+            del st, fn
+
+    # the variants' parameters after one plain-SGD step from one start
+    mask = mb.clone()
+    mask[-1] = 0
+    draws = color.draw_augment(torch.Generator(device=dev).manual_seed(
+        SEED + 74), batch)
+    after = {}
+    for tag, kw in [("plain", {}), ("plain_again", {})] + [
+            (t, k) for t, k in TRAIN_VARIANTS.items() if t != "plain"]:
+        fn = tstep.make_train_step(model, optim.sgd(),
+                                   dataclasses.replace(base, **kw))
+        st, out = fn(tstep.init_state(model, optim.sgd()), xb, tb, mask,
+                     draws, 1e-2, None)
+        after[tag] = (st.params, float(out["loss"]))
+    ref, ref_loss = after["plain"]
+    held = {}
+    for tag, (atol, rtol) in (("plain_again", (0.0, 0.0)),
+                              ("packed", (1e-5, 1e-4)),
+                              ("remat_dots", (1e-4, 1e-4)),
+                              ("remat_full", (1e-4, 1e-4))):
+        worst, name = worst_over_tol(after[tag][0], ref, rtol)
+        held[tag] = {"atol": atol, "rtol": rtol,
+                     "worst_abs_err_over_rtol": worst, "worst_param": name,
+                     "loss": after[tag][1], "plain_loss": ref_loss}
+        if tag != "plain_again":
+            chk.expect(worst <= atol and abs(after[tag][1] - ref_loss)
+                       <= rtol * abs(ref_loss),
+                       f"train_variants: the {tag} SGD step differs from the "
+                       f"plain one: {held[tag]}")
+    res["sgd_step_vs_plain"] = held
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+STREAM_N = 512
+
+
+def phase_train_streamed(dev, chk: Checks, smi: str) -> dict:
+    """``Trainer.train_epoch_streamed`` on the flagship at b64, QVGA: 512
+    seeded uint8 frames and uint8 labels on the host, copied from pinned
+    memory on a side stream and normalized on the card
+    (``device_transform``). The main path, with the counters set to 0 just
+    before and read just after: one shuffled streamed epoch (Adam) and its
+    validation (120 frames in a ``DeviceCache``), K1 once per validation
+    batch and equal to its plain count. Images/s of the streamed epoch
+    against ``train_epoch`` over the same frames normalized once into a
+    ``DeviceCache`` (host clock, synchronised; two epochs of each in turns:
+    streamed, cached, cached, streamed, after one of each to warm). And an
+    unshuffled streamed epoch (plain SGD, lr 1e-2) against the cached
+    epoch in the same order from the same weights and draws: every
+    parameter and running statistic within atol = rtol = 1e-4."""
+    from robocupvision_tpu_torch.cli import train
+    from robocupvision_tpu_torch.data.device_cache import (DeviceCache,
+                                                           epoch_batches,
+                                                           num_batches)
+    from robocupvision_tpu_torch.models import zoo
+    from robocupvision_tpu_torch.train import optim
+    from robocupvision_tpu_torch.train import step as tstep
+    from robocupvision_tpu_torch.train.loop import Trainer
+
+    size, batch = (120, 160), 64
+    t_phase = time.perf_counter()
+    imgs, labs = eval_set(STREAM_N + VAL_N, SEED + 80, size, paint=True)
+    frames = np.clip(np.round(imgs * 32 + 128), 0, 255).astype(np.uint8)
+    labels = labs.astype(np.uint8)
+
+    def normalize(x, y):
+        return (x.float() - 128.0) / 32.0, y.int()
+
+    ds = list(zip(frames[:STREAM_N], labels[:STREAM_N]))  # (frame, label)
+    cached = DeviceCache(*normalize(torch.from_numpy(frames[:STREAM_N]).to(dev),
+                                    torch.from_numpy(labels[:STREAM_N]).to(dev)),
+                         STREAM_N)
+    val_cache = DeviceCache(*normalize(torch.from_numpy(frames[STREAM_N:]).to(dev),
+                                       torch.from_numpy(labels[STREAM_N:]).to(dev)),
+                            VAL_N)
+    model = zoo.make("robo_unet", device=dev,
+                     generator=torch.Generator().manual_seed(SEED + 81),
+                     **train.model_hyper(False, False))
+    cfg = tstep.StepCfg(num_classes=5, class_weights=(1, 10, 30, 10, 2),
+                        l1_decay=1e-6, out_size=1.0 / (size[0] * size[1]))
+    vnb = num_batches(VAL_N, batch)
+    tr = Trainer(model, optim.adam(), cfg, cached, val_cache, batch,
+                 seed=SEED + 82)
+    tr.init()
+    (ep, val), launches, verified, unequal, wall = counted_run(
+        lambda: (tr.train_epoch_streamed(1e-3, ds, device_transform=normalize),
+                 tr.valid_epoch()))
+    res = {"phase": "train_streamed", "model": "robo_unet flagship "
+           "(model_hyper)", "shape": [batch, *size, 3], "frames": STREAM_N,
+           "frame_dtype": "uint8", "card": smi, "train_loss": ep.loss,
+           "val_loss": val["loss"], "launches": launches,
+           "k1_per_validation_epoch": launches["confusion_count"],
+           "k1_verified": verified, "k1_unequal_plain": unequal,
+           "seconds": wall}
+    chk.expect(launches == {"confusion_count": vnb, "fused_conv_chain": 0,
+                            "fused_conv3x3_block": 0},
+               f"train_streamed: launches {launches}, want {vnb} K1 and no "
+               "K2, K3")
+    chk.expect(verified == vnb and unequal == 0 and np.isfinite(ep.loss),
+               f"train_streamed: K1 equal to plain on {verified - unequal} of "
+               f"{vnb} validation batches, loss {ep.loss}")
+
+    def streamed():
+        tr.train_epoch_streamed(1e-3, ds, device_transform=normalize)
+
+    def cached_epoch():
+        tr.train_epoch(1e-3)
+
+    rates = {"streamed": [], "cached": []}
+    for kind, fn in (("streamed", streamed), ("cached", cached_epoch),
+                     ("cached", cached_epoch), ("streamed", streamed),
+                     ("streamed", streamed), ("cached", cached_epoch)):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        rates[kind].append(STREAM_N / (time.perf_counter() - t0))
+    # the first of each warmed up
+    res["images_per_s"] = {k: v[1:] for k, v in rates.items()}
+    res["images_per_s_warmup"] = {k: v[0] for k, v in rates.items()}
+
+    sgd = Trainer(model, optim.sgd(), cfg, cached, val_cache, batch,
+                  seed=SEED + 83)
+    p0 = {k: v.clone() for k, v in model.flat().items()}
+    g0 = sgd.gen.get_state()
+    sgd.set_params(p0)
+    sgd.train_epoch_streamed(1e-2, ds, shuffle=False,
+                             device_transform=normalize)
+    streamed_params = {k: v.clone() for k, v in sgd.state.params.items()}
+    sgd.set_params(p0)
+    sgd.gen.set_state(g0)
+    sgd._steps(epoch_batches(cached, batch), 1e-2, None)
+    worst, name = worst_over_tol(streamed_params, sgd.state.params, 1e-4)
+    res["unshuffled_vs_cached"] = {"worst_abs_err_over_rtol": worst,
+                                   "worst_param": name}
+    chk.expect(worst <= 1e-4, f"train_streamed: the unshuffled streamed epoch "
+               f"differs from the cached one: {worst} at {name}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+CLASS_CLI_N = (512, 128)
+
+
+def phase_classifier_clis(dev, chk: Checks, smi: str) -> list:
+    """The classifier baselines' loops the way their CLIs run them, at b64
+    on seeded in-memory 32x32 patches of four classes (``patch_set``; 512
+    train, 128 val; the card's machine has no Pillow): ``classVal
+    .train_baseline`` (the DownSampler(32) + Classifier pair, then
+    ``--hessL`` and ``--hessMC``) and ``objDetEval.train_detector`` (BNN
+    L), 4 epochs for the pair and 6 for each BNN (whose loss leaves ln 4
+    later), in a temporary working directory. The counters are
+    set to 0 just before each loop and read just after: no K1 (the class
+    confusion is plain), K2 or K3. Each must write its CLI's checkpoint
+    files and its train loss must be finite and fall; the pair runs with
+    the plateau's patience -1 (a rollback through its two-file ``load_fn``
+    after every epoch), the others with the CLIs' 10. Then each loop's own
+    step is timed at b64 (``time_train_step``: ms a step, kernels a step
+    and the card's idle share)."""
+    from robocupvision_tpu_torch.cli import classVal, objDetEval
+    from robocupvision_tpu_torch.data.device_cache import DeviceCache
+
+    imgs, labs = patch_set(sum(CLASS_CLI_N), SEED + 90)
+    n = CLASS_CLI_N[0]
+    tc = DeviceCache.from_numpy(imgs[:n], labs[:n], device=dev)
+    vc = DeviceCache.from_numpy(imgs[n:], labs[n:], device=dev)
+    # (loop, CLI module, loop function, argv, patience, checkpoints)
+    loops = [
+        ("classVal", classVal, classVal.train_baseline, ["--epochs", "4"],
+         -1, ["pth/bestModelB.pth", "pth/bestClassB.pth"]),
+        ("classVal --hessL", classVal, classVal.train_baseline,
+         ["--epochs", "6", "--hessL"], 10, ["pth/bestModelHessL.pth"]),
+        ("classVal --hessMC", classVal, classVal.train_baseline,
+         ["--epochs", "6", "--hessMC"], 10, ["pth/bestModelHessMC.pth"]),
+        ("objDetEval", objDetEval, objDetEval.train_detector,
+         ["--epochs", "6"], 10, ["pth/bestModelHessL.pth"]),
+    ]
+    results = []
+    here = os.path.dirname(os.path.abspath(__file__))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=here, prefix=".chip_smoke_") as tmp:
+        os.chdir(tmp)
+        try:
+            for name, cli, fn, argv, patience, files in loops:
+                opt = cli.build_parser().parse_args(argv)
+                tee = Tee(sys.stdout)
+                with plateau_runs(patience) as seen, \
+                        contextlib.redirect_stdout(tee):
+                    best, launches, _, _, wall = counted_run(
+                        lambda: fn(opt, tc, vc, dev))
+                tr, _ = seen[0]
+                text = tee.text
+                train_loss = [float(v) for v in re.findall(
+                    r"Epoch \[\d+\] Training Loss: (\S+)", text)]
+                res = {"phase": "classifier_clis", "loop": name,
+                       "family": tr.model.family, "batch": tr.batch_size,
+                       "input": list(tc.images.shape[1:]), "train_n": tc.n,
+                       "val_n": vc.n, "epochs": opt.epochs,
+                       "patience": patience, "train_loss": train_loss,
+                       "best_val_loss": best["loss"],
+                       "best_val_acc": best["acc"],
+                       "rollbacks": text.count("Best Model reloaded"),
+                       "false_neg_lines": text.count("False Neg"),
+                       "checkpoints": {f: os.path.exists(f) for f in files},
+                       "launches": launches, "seconds": wall, "card": smi}
+                res.update(time_train_step(tr, dev))
+                emit(res)
+                results.append(res)
+                chk.expect(all(res["checkpoints"].values()),
+                           f"classifier_clis {name}: checkpoints "
+                           f"{res['checkpoints']}")
+                chk.expect(len(train_loss) == opt.epochs
+                           and all(np.isfinite(train_loss))
+                           and train_loss[-1] < train_loss[0],
+                           f"classifier_clis {name}: train loss {train_loss} "
+                           "does not fall")
+                chk.expect(launches == {"confusion_count": 0,
+                                        "fused_conv_chain": 0,
+                                        "fused_conv3x3_block": 0},
+                           f"classifier_clis {name}: launches {launches}, "
+                           "want none")
+                if cli is objDetEval:
+                    chk.expect(res["false_neg_lines"] >= 1,
+                               f"classifier_clis {name}: no false-negative "
+                               "report")
+        finally:
+            os.chdir(cwd)
+    chk.expect(results[0]["rollbacks"] >= 1,
+               "classifier_clis: no plateau rollback of the pair")
     return results
 
 
@@ -3082,6 +3469,9 @@ def main() -> int:
     k3_launches = fused_conv3x3_block.launches
     tr = phase_train(dev, chk)
     lt = phase_legacy_train(dev, chk, smi)
+    tv = phase_train_variants(dev, chk, smi)
+    tsr = phase_train_streamed(dev, chk, smi)
+    cc = phase_classifier_clis(dev, chk, smi)
     it = phase_int8_trained(dev, chk, smi)
     K1_REC.check(chk)
 
@@ -3097,6 +3487,8 @@ def main() -> int:
         vlp["int8"]["main_path_launches"]] + [
         r["launches"] for r in tr["runs"].values()] + [
         r["launches"] for r in lt] + [
+        r["launches"] for r in tv["main_paths"].values()] + [
+        tsr["launches"]] + [r["launches"] for r in cc] + [
         f["launches"] for f in it["families"].values()]
     # K1's entry: the tester's map pair, the case of earlier PRs' entries
     k1m = k1["tester", "random"]

@@ -1,5 +1,5 @@
-"""Parameter registry, the registry-named ``nn.Module``, and the eval-mode
-block functions of the ROBO-UNet, PB_FCN and PB_FCN_2 families.
+"""Parameter registry, the registry-named ``nn.Module``, and the block
+functions of the zoo's families.
 
 ``Registry`` is a copy of the JAX package's: it declares parameters in
 PyTorch state_dict order with PyTorch state_dict names (e.g.
@@ -20,12 +20,15 @@ reproduce the reference's op orders. They run in eval mode unless called
 inside :func:`train_mode`, where every BN normalizes by its batch
 statistics (leaving out the samples :func:`bn_stats_mask` marks padded)
 and writes its new running statistics into the dict ``train_mode`` yields
-(the JAX package threads that dict through as ``mut``), and every
-:func:`dropout2d` site drops channels by the keep mask and rate
-``train_mode`` was given for it. The op orders (its model.py:105-199, 256-267, 403-414):
+(the JAX package threads that dict through as ``mut``), every
+:func:`dropout2d` site drops channels and every :func:`dropout` site
+elements by the keep mask and rate ``train_mode`` was given for it. The
+op orders (its model.py:105-199, 256-267, 403-414):
   conv_block:        conv -> ReLU -> BN        (BN after ReLU!)
   conv_pool_simple:  conv -> BN -> ReLU
   conv_pool:         dilated conv1 -> ReLU -> stride-2 pool conv -> BN -> ReLU
+  conv_pool_double:  dilated conv1 -> ReLU -> dilated conv2 -> ReLU
+                     -> stride-2 pool conv -> BN -> ReLU
   up_tconv:          tconv -> BN -> ReLU
   classifier:        optional max pool -> conv
   ult_classifier:    optional global mean -> Dropout2d (train) -> conv
@@ -192,7 +195,8 @@ def train_mode(drops: Optional[Mapping[str, Tuple[torch.Tensor, float]]]
     """Run the blocks in train mode; yields the dict of new running
     statistics (``mut``) that the forward fills. ``drops``: the keep mask
     and rate of each dropout site the forward drops at
-    ({site: ((N, 1, 1, C) bool, p)})."""
+    ({site: (bool keep mask, p)}: (N, 1, 1, C) at a :func:`dropout2d`
+    site, the activation's shape at a :func:`dropout` site)."""
     mut: Params = {}
     token = _BN_TRAIN_MUT.set(mut)
     drop_token = _DROPS.set(drops or {})
@@ -242,15 +246,25 @@ def bn(p: Params, name: str, x):
     return y
 
 
-def dropout2d(x: torch.Tensor, site: str) -> torch.Tensor:
-    """Dropout2d at dropout site ``site`` by the keep mask and rate
-    :func:`train_mode` was given for the site; the identity at a site it
-    was given none for (eval mode, a rate of 0)."""
+def _drop(x: torch.Tensor, site: str, fn) -> torch.Tensor:
     drops = _DROPS.get()
     if _BN_TRAIN_MUT.get() is None or site not in drops:
         return x
     keep, p = drops[site]
-    return nn.dropout2d(x, keep, p)
+    return fn(x, keep, p)
+
+
+def dropout2d(x: torch.Tensor, site: str) -> torch.Tensor:
+    """Dropout2d at dropout site ``site`` by the keep mask and rate
+    :func:`train_mode` was given for the site; the identity at a site it
+    was given none for (eval mode, a rate of 0)."""
+    return _drop(x, site, nn.dropout2d)
+
+
+def dropout(x: torch.Tensor, site: str) -> torch.Tensor:
+    """Element dropout (nn.Dropout) at dropout site ``site``, its keep mask
+    of x's shape; the identity outside train mode, as :func:`dropout2d`."""
+    return _drop(x, site, nn.dropout)
 
 
 # Reference block: Conv = conv -> ReLU -> BN (model.py:105-116)
@@ -286,6 +300,21 @@ def conv_pool_def(r: Registry, name: str, cin: int, cout: int) -> None:
 
 def conv_pool(p, name, x):
     y = nn.relu(conv(p, name + ".conv1", x, padding=2, dilation=2))
+    y = conv(p, name + ".pool", y, stride=2, padding=1)
+    return nn.relu(bn(p, name + ".bn", y))
+
+
+# Reference block: ConvPoolDouble (model.py:144-164)
+def conv_pool_double_def(r: Registry, name: str, cin: int, cout: int) -> None:
+    r.conv(name + ".conv1", cin, cout, 3, bias=False)
+    r.conv(name + ".conv2", cout, cout, 3, bias=False)
+    r.conv(name + ".pool", cout, cout, 3, bias=False)
+    r.bn(name + ".bn", cout)
+
+
+def conv_pool_double(p, name, x):
+    y = nn.relu(conv(p, name + ".conv1", x, padding=2, dilation=2))
+    y = nn.relu(conv(p, name + ".conv2", y, padding=2, dilation=2))
     y = conv(p, name + ".pool", y, stride=2, padding=1)
     return nn.relu(bn(p, name + ".bn", y))
 

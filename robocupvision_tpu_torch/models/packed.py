@@ -50,6 +50,11 @@ dilated belly [conv1, conv2, conv3] on the 1/8 grid (``pallas_mid``), and
 its up chain [upConv2 + skip, upConv3, classifier], whose classifier takes
 the channel-slice skip of ``top`` through a 1x1 ``skip_w`` kernel.
 
+``packed_train_apply`` is the flagship's packed graph made
+differentiable, for training (``StepCfg.packed``): its packed kernels are
+gathers of the live weights through maps built once
+(``build_train_pack_maps``), BN in train mode over the packed layout.
+
 ``quantize_int8`` turns any chain graph into a static int8 one: one
 calibration pass through the chains (K2 on CUDA) collects each stage's
 activation statistic, and every chain is rebuilt with int8 stages
@@ -62,6 +67,7 @@ state_dict and carries it there with export/torch_io.to_jax_params.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Dict, Optional, Tuple
@@ -70,7 +76,8 @@ import numpy as np
 import torch
 
 from robocupvision_tpu_torch.device import DeviceLike, resolve_device
-from robocupvision_tpu_torch.export.torch_io import to_jax_params
+from robocupvision_tpu_torch.export.torch_io import (to_jax_layout,
+                                                     to_jax_params)
 from robocupvision_tpu_torch.models import layers as L
 from robocupvision_tpu_torch.models.zoo import (LabelPropCfg, Model,
                                                 PBFCN2Cfg, PBFCNCfg,
@@ -1150,3 +1157,206 @@ def quantize_int8(infer, calib_x, pct="auto"):
         if q.get(tag):
             q[tag] = ckp.quantize_chain_stages(q[tag], collect[tag])
     return dataclasses.replace(infer, chains=q)
+
+
+# ---- packed TRAINING graph ----------------------------------------------------
+#
+# The same exact rewrite, made differentiable (the JAX package's
+# packed_train_apply): each packed kernel is a gather of the live weight
+# (each packed position reads one original weight or a structural zero),
+# so autograd scatter-adds the gradients back onto the original parameter
+# tensors, and the train state, checkpoints, optimizer and prune masks
+# keep the canonical layout. The gather maps are built over the port's own
+# torch layouts and index the packed kernel in torch's conv layout (out,
+# in, kh, kw), so a step gathers from the live leaf with no permute copy.
+# Only the positions that read a weight are gathered, into a zero kernel:
+# the JAX package's gather of an appended zero sends the structural zeros
+# (most positions) to one index, and on the card the backward of such a
+# gather (a sort-based scatter-add) walks that run serially, 19.9 ms a
+# b64 step on an H100 (PERF.md). BatchNorm runs in train mode with phase-grouped statistics: the
+# packed activation (N, Hp, Wp, t*C) is viewed as (N, Hp, Wp, t, C), and
+# batch_norm_train reduces over every axis but the last, per original
+# channel, over the same values as the unpacked graph.
+
+
+def _gather_index_map(spec: L.ParamSpec, packer) -> np.ndarray:
+    """Index map for the weight ``spec`` (the port's torch layout): packed
+    kernel position, in torch's conv layout (out, in, kh, kw) -> flat index
+    into the torch-layout weight, with ``numel`` as the structural-zero
+    sentinel (one zero is appended to the flattened weight at gather
+    time). ``packer`` takes the JAX package's HWIO layout, so the index
+    array is carried there (``to_jax_layout``) and packed."""
+    n = int(np.prod(spec.torch_shape))
+    ids = np.arange(1, n + 1, dtype=np.int64).reshape(spec.torch_shape)
+    packed = packer(to_jax_layout(ids, spec.kind))   # HWIO of ids, 0 = zero
+    idx = np.transpose(packed, (3, 2, 0, 1)) - 1     # -> (out, in, kh, kw)
+    return np.ascontiguousarray(np.where(idx < 0, n, idx))
+
+
+@dataclasses.dataclass(frozen=True)
+class Gather:
+    """A packed kernel as a gather: its (out, in, kh, kw) shape, the flat
+    positions that read a weight and the flat weight index each reads;
+    every other position is a structural zero."""
+
+    shape: Tuple[int, ...]
+    pos: torch.Tensor
+    src: torch.Tensor
+
+    @classmethod
+    def from_index_map(cls, idx: np.ndarray, n: int,
+                       device: torch.device) -> "Gather":
+        flat = idx.reshape(-1)
+        pos = np.flatnonzero(flat != n)
+        return cls(tuple(idx.shape), torch.from_numpy(pos).to(device),
+                   torch.from_numpy(flat[pos]).to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class PackMaps:
+    """Gathers and tile factors of the packed-training forward."""
+
+    cfg: RoboUNetCfg
+    gathers: Dict[str, Gather]  # conv name -> its packed kernel's gather
+    tile: Dict[str, int]        # conv name -> f_out^2 per-channel tiling
+
+
+def build_train_pack_maps(model: Model) -> PackMaps:
+    """The gather maps of a ROBO-UNet configuration, built once on the
+    host and kept on the model's device. The family build_packed_infer
+    packs without pooling or concat skips: pool=False, v2=False,
+    levels=2, belly_size>0, class_size=1, eff_depth>=4."""
+    cfg = model.cfg
+    assert isinstance(cfg, RoboUNetCfg), "packed training is ROBO-UNet only"
+    assert not cfg.pool and not cfg.v2, "pool/v2 variants not packed (yet)"
+    assert cfg.levels == 2 and cfg.belly_size > 0 and cfg.class_size == 1
+    assert cfg.eff_depth >= 4
+
+    specs = model.registry.specs
+    gathers: Dict[str, Gather] = {}
+    tile: Dict[str, int] = {}
+
+    def add(name, wname, packer, f_out):
+        spec = specs[wname]
+        gathers[name] = Gather.from_index_map(
+            _gather_index_map(spec, packer), int(np.prod(spec.shape)),
+            model.device)
+        tile[name] = f_out * f_out
+
+    def add_block(name, packer, f_out):
+        add(name, name + ".conv.weight", packer, f_out)
+
+    add_block("downPart.Level0.layers.Conv0",
+              lambda w: pack_stem_weight_grouped(w, 4), 4)
+    add_block("downPart.Level1.layers.Conv0",
+              lambda w: pack_conv_weight(w, 4, 2, 2), 2)
+    add_block("downPart.Level1.layers.Conv1",
+              lambda w: pack_conv_weight(w, 2, 2, 1), 2)
+    add_block("downPart.Level2.layers.Conv0",
+              lambda w: pack_conv_weight(w, 2, 1, 2), 1)
+    D = cfg.eff_depth
+    for j in range(D - 1):
+        r = D - 2 - j
+        if _f_at(r) > 1:
+            add_block(f"upPart.Up{j}",
+                      lambda w, fi=_f_at(r + 1), fo=_f_at(r):
+                          pack_conv_weight(w, fi, fo, transpose=True),
+                      _f_at(r))
+    name = "segmenter.layers.Class"
+    add(name, name + ".weight", lambda w: pack_conv_weight(w, 4, 4, 1), 4)
+    return PackMaps(cfg, gathers, tile)
+
+
+def _gather_weight(p: Params, wname: str, g: Gather) -> torch.Tensor:
+    """The packed kernel: the live weight gathered into its non-zero
+    positions (autograd scatter-adds the gradient back onto the weight)."""
+    w = p[wname].reshape(-1)
+    return w.new_zeros(int(np.prod(g.shape))).index_copy(
+        0, g.pos, w[g.src]).reshape(g.shape)
+
+
+def _packed_bn(p: Params, name: str, x: torch.Tensor, t: int) -> torch.Tensor:
+    """BatchNorm over the packed layout with per-original-channel
+    statistics."""
+    n, hp, wp, cp = x.shape
+    y = L.bn(p, name, x.reshape(n, hp, wp, t, cp // t))
+    return y.reshape(n, hp, wp, cp)
+
+
+def _pconv(maps: PackMaps, p: Params, name: str, x: torch.Tensor,
+           wname: str, bname: str, **kw) -> torch.Tensor:
+    w = _gather_weight(p, wname, maps.gathers[name])
+    return nn.conv2d(x, w, p[bname].repeat(maps.tile[name]),
+                     padding=kw.pop("padding", int(w.shape[2]) // 2), **kw)
+
+
+def _pconv_block(maps: PackMaps, p: Params, name: str,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Packed conv_block: conv -> ReLU -> BN (reference model.py:116)."""
+    y = _pconv(maps, p, name, x, name + ".conv.weight", name + ".conv.bias")
+    return _packed_bn(p, name + ".bn", nn.relu(y), maps.tile[name])
+
+
+def _ptconv_block(maps: PackMaps, p: Params, name: str,
+                  x: torch.Tensor) -> torch.Tensor:
+    """Packed up_tconv: tconv -> BN -> ReLU."""
+    y = _pconv(maps, p, name, x, name + ".conv.weight", name + ".conv.bias")
+    return nn.relu(_packed_bn(p, name + ".bn", y, maps.tile[name]))
+
+
+def pack_targets(targets: torch.Tensor) -> torch.Tensor:
+    """(N, H, W) int labels -> (N, H/4, W/4, 16) packed labels. The pixel
+    set is kept, so the loss and metrics over the packed layout are
+    exact."""
+    return space_to_depth(targets[..., None], 4)
+
+
+def packed_train_apply(maps: PackMaps, p: Params, x: torch.Tensor, *,
+                       train: bool = True):
+    """The packed forward with live params, BN in train mode (batch
+    statistics, padded samples left out under ``layers.bn_stats_mask``)
+    when ``train``. Returns ((N, H/4, W/4, 16, num_classes) logits, mut):
+    zoo.robo_unet_apply rewritten exactly, up to float reassociation;
+    pair it with :func:`pack_targets`. The segmentation head has no
+    dropout (reference model.py:410, the pool=False path)."""
+    cfg = maps.cfg
+    n, H, W, c = x.shape
+    assert H % 8 == 0 and W % 8 == 0, (H, W)
+    ctx = L.train_mode() if train else contextlib.nullcontext({})
+    with ctx as mut:
+        logits = _packed_forward(maps, cfg, p, x)
+    nl, hp, wp, _ = logits.shape
+    return logits.reshape(nl, hp, wp, 16, cfg.num_classes), mut
+
+
+def _packed_forward(maps: PackMaps, cfg: RoboUNetCfg, p: Params,
+                    x: torch.Tensor) -> torch.Tensor:
+    D = cfg.eff_depth
+    n, H, W, c = x.shape
+    feats = {}
+    name = "downPart.Level0.layers.Conv0"
+    y = _pconv(maps, p, name, x.reshape(n, H, W // 4, 4 * c),
+               name + ".conv.weight", name + ".conv.bias", stride=(4, 1),
+               padding=1)
+    h = _packed_bn(p, name + ".bn", nn.relu(y), 16)
+    feats[0] = h
+    h = _pconv_block(maps, p, "downPart.Level1.layers.Conv0", h)
+    h = _pconv_block(maps, p, "downPart.Level1.layers.Conv1", h)
+    feats[1] = h
+    h = _pconv_block(maps, p, "downPart.Level2.layers.Conv0", h)
+    h = L.conv_block(p, "downPart.Level2.layers.Conv1", h, 1, 3)
+    feats[2] = h
+    for i in range(3, D):
+        h = L.level_down(p, f"downPart.Level{i}", h, cfg.levels, True, False)
+        feats[i] = h
+    h2 = L.level_down(p, "PB.PB_1", h, cfg.belly_size - 1, False, False)
+    up = L.level_down(p, "PB.PB_2", h2, 1, False, False)
+    for j in range(D - 1):
+        r = D - 2 - j
+        if _f_at(r) == 1:
+            up = L.up_tconv(p, f"upPart.Up{j}", up) + feats[r]
+        else:
+            up = _ptconv_block(maps, p, f"upPart.Up{j}", up) + feats[r]
+    name = "segmenter.layers.Class"
+    return _pconv(maps, p, name, up, name + ".weight", name + ".bias",
+                  padding=0)

@@ -4,16 +4,20 @@ at QVGA and at VGA (``no_scale``), the flagship with additive skips, the
 (concat skips), with its analytic op count; PB_FCN over its DownSampler
 encoder (model.py:201-232, 269-309) and PB_FCN_2 (model.py:416-459), each
 in its segmentation and classification modes; and the LabelProp net
-(model.py:538-567).
+(model.py:538-567); and the classifier baselines of classVal.py and
+objDetEval.py: the FCN (model.py:311-330), BNN L and MC (model.py:569-619),
+and the standalone DownSampler and Classifier (classVal.py:60-61; the
+DownSampler's forward returns the encoder's feature tuple).
 
 ``make(family, ...)`` returns a :class:`Model`, an ``nn.Module`` whose
 ``state_dict`` carries the registry names; its ``forward`` takes NHWC input
 and returns NHWC logits with the module's own weights, and ``apply`` does
 the same with given params, in eval or train mode, like the JAX package's
-``Model.apply``. A train-mode forward drops channels at the family's
-dropout sites (PB_FCN_2's classifier, LabelProp's conv blocks when its
-``dropout`` is set) by keep masks that ``Model.draw_dropout`` draws from a
-``torch.Generator``, or that the caller gives.
+``Model.apply``. A train-mode forward drops channels (elements at BNN L's
+``fc``) at the family's dropout sites (PB_FCN_2's classifier, LabelProp's
+conv blocks when its ``dropout`` is set, BNN's convs) by keep masks that
+``Model.draw_dropout`` draws from a ``torch.Generator``, or that the
+caller gives.
 """
 
 from __future__ import annotations
@@ -411,6 +415,150 @@ def label_prop_apply(cfg: LabelPropCfg, p: Params, x: torch.Tensor) -> torch.Ten
 
 
 # =============================================================================
+# FCN baseline -- reference model.py:235-254, 311-330
+# =============================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class FCNCfg:
+    planes: int = 32
+    num_classes: int = 5
+
+
+def fcn_registry(cfg: FCNCfg) -> L.Registry:
+    r = L.Registry()
+    pl = cfg.planes
+    out = pl // 2
+    L.conv_pool_simple_def(r, "FCN.conv0", 3, out, 3, bias=False)
+    L.conv_pool_simple_def(r, "FCN.conv0_1", out, out, 3, bias=False)
+    L.conv_pool_simple_def(r, "FCN.conv1", out, out, 3, bias=False)
+    L.conv_pool_double_def(r, "FCN.conv2", out, pl)
+    L.conv_pool_double_def(r, "FCN.conv3", pl, pl * 2)
+    L.conv_pool_simple_def(r, "FCN.conv4", pl * 2, pl * 4, 3, bias=False)
+    L.conv_pool_simple_def(r, "FCN.conv5", pl * 4, pl * 2, 3, bias=False)
+    L.up_tconv_def(r, "up1", pl * 2, pl)
+    L.up_tconv_def(r, "up2", pl, pl // 2)
+    L.up_tconv_def(r, "up3", pl // 2, pl // 2)
+    L.classifier_def(r, "classifier", pl // 2, cfg.num_classes, 1)
+    return r
+
+
+def fcn_apply(cfg: FCNCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    def cps(name, x, stride, padding, dilation):
+        return L.conv_pool_simple(p, name, x, stride, padding, dilation)
+
+    x0 = cps("FCN.conv0_1", cps("FCN.conv0", x, 1, 2, 2), 1, 2, 2)
+    x1 = cps("FCN.conv1", x0, 2, 1, 1)
+    x2 = L.conv_pool_double(p, "FCN.conv2", x1)
+    x3 = L.conv_pool_double(p, "FCN.conv3", x2)
+    x3 = cps("FCN.conv5", cps("FCN.conv4", x3, 1, 2, 2), 1, 2, 2)
+    h = L.up_tconv(p, "up1", x3) + x2
+    h = L.up_tconv(p, "up2", h) + x1
+    h = L.up_tconv(p, "up3", h) + x0
+    return L.classifier(p, "classifier", h, 0, 1)
+
+
+# =============================================================================
+# BNNL / BNNMC -- reference model.py:569-619
+# =============================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class BNNCfg:
+    variant: str = "L"  # "L" or "MC"
+    num_classes: int = 4
+
+
+def bnn_registry(cfg: BNNCfg) -> L.Registry:
+    r = L.Registry()
+    if cfg.variant == "L":
+        r.conv("conv1", 3, 8, 8)
+        r.conv("conv2", 8, 16, 8)
+        r.conv("conv3", 16, 16, 8)
+        r.conv("fc", 16, 512, 1)
+        r.conv("classifier", 512, cfg.num_classes, 1)
+    else:
+        r.conv("conv1", 3, 8, 5)
+        r.conv("conv2", 8, 16, 3)
+        r.conv("conv3", 16, 16, 3)
+        r.conv("classifier", 16, cfg.num_classes, 3)
+    return r
+
+
+def bnn_apply(cfg: BNNCfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """conv -> Dropout2d(0.25) -> max pool -> ReLU, three times (L: 8x8
+    kernels, padding 4/3/3, then the 1x1 ``fc`` with element dropout 0.5
+    and a 1x1 classifier; MC: 5/3/3 kernels, padding 1, then a 3x3
+    classifier)."""
+    def block(name, y, padding, pool):
+        y = L.dropout2d(L.conv(p, name, y, padding=padding), name)
+        return nn.relu(nn.max_pool(y, pool, 2))
+
+    if cfg.variant == "L":
+        y = block("conv1", x, 4, 4)
+        y = block("conv2", y, 3, 4)
+        y = block("conv3", y, 3, 4)
+        y = L.dropout(L.conv(p, "fc", y), "fc")
+        return L.conv(p, "classifier", nn.relu(y))
+    y = block("conv1", x, 1, 4)
+    y = block("conv2", y, 1, 4)
+    y = block("conv3", y, 1, 2)
+    return L.conv(p, "classifier", y)
+
+
+def bnn_dropout_sites(cfg: BNNCfg):
+    """{site: (channels, p)}: Dropout2d(0.25) after each conv; BNN L's
+    ``fc`` drops elements at 0.5 (``_ELEMENT_SITES``)."""
+    sites = {"conv1": (8, 0.25), "conv2": (16, 0.25), "conv3": (16, 0.25)}
+    if cfg.variant == "L":
+        sites["fc"] = (512, 0.5)
+    return sites
+
+
+def _bnn_l_fc_hw(h: int, w: int) -> Tuple[int, int]:
+    """BNN L's ``fc`` activation (H, W) for an (h, w) input: each of the
+    three blocks is an 8x8 conv (padding 4, then 3) and a 4x4/2 pool."""
+    def block(n, pad):
+        return (n + 2 * pad - 8 + 1 - 4) // 2 + 1
+
+    return block(block(block(h, 4), 3), 3), block(block(block(w, 4), 3), 3)
+
+
+# =============================================================================
+# Standalone Classifier head (classVal.py:61) and DownSampler (classVal.py:60)
+# =============================================================================
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassifierCfg:
+    in_planes: int = 64
+    num_classes: int = 4
+    pool_size: int = 4
+    kernel_size: int = 1
+
+
+def classifier_registry(cfg: ClassifierCfg) -> L.Registry:
+    r = L.Registry()
+    L.classifier_def(r, "", cfg.in_planes, cfg.num_classes, cfg.kernel_size)
+    return r
+
+
+def classifier_apply(cfg: ClassifierCfg, p: Params, x: torch.Tensor):
+    return L.classifier(p, "", x, cfg.pool_size, cfg.kernel_size)
+
+
+def downsampler_standalone_registry(cfg: DownSamplerCfg) -> L.Registry:
+    r = L.Registry()
+    downsampler_registry(cfg, r, "")
+    return r
+
+
+def downsampler_standalone_apply(cfg: DownSamplerCfg, p: Params, x):
+    """The encoder's feature tuple (f4, f3, f2, f1, f0), not one tensor."""
+    return downsampler_apply(cfg, p, x, "")
+
+
+# =============================================================================
 # Generic model handle
 # =============================================================================
 
@@ -438,14 +586,25 @@ def _no_dropout_sites(cfg):
 
 # family: (config, registry, apply, dropout sites)
 _FAMILIES = {
+    "downsampler": (DownSamplerCfg, downsampler_standalone_registry,
+                    downsampler_standalone_apply, _no_dropout_sites),
     "robo_unet": (RoboUNetCfg, robo_unet_registry, robo_unet_apply,
                   _no_dropout_sites),
     "pb_fcn": (PBFCNCfg, pb_fcn_registry, pb_fcn_apply, _no_dropout_sites),
     "pb_fcn_2": (PBFCN2Cfg, pb_fcn_2_registry, pb_fcn_2_apply,
                  pb_fcn_2_dropout_sites),
+    "fcn": (FCNCfg, fcn_registry, fcn_apply, _no_dropout_sites),
     "label_prop": (LabelPropCfg, label_prop_registry, label_prop_apply,
                    label_prop_dropout_sites),
+    "bnn": (BNNCfg, bnn_registry, bnn_apply, bnn_dropout_sites),
+    "classifier": (ClassifierCfg, classifier_registry, classifier_apply,
+                   _no_dropout_sites),
 }
+
+# family: {site: the site's activation (H, W) from the input's}, for the
+# dropout sites that drop elements (nn.Dropout), whose keep masks have the
+# activation's shape; every other site is Dropout2d's, (N, 1, 1, C)
+_ELEMENT_SITES = {"bnn": {"fc": _bnn_l_fc_hw}}
 
 
 class Model(L.RegistryModule):
@@ -474,20 +633,33 @@ class Model(L.RegistryModule):
 
     @property
     def dropout_sites(self):
-        """{site: (channels, p)} of the train-mode forward's Dropout2d."""
+        """{site: (channels, p)} of the train-mode forward's dropouts."""
         return _FAMILIES[self.family][3](self.cfg)
 
-    def draw_dropout(self, gen: torch.Generator, n: int
+    def draw_dropout(self, gen: torch.Generator, n: int,
+                     hw: Optional[Tuple[int, int]] = None
                      ) -> Optional[Mapping[str, torch.Tensor]]:
-        """The keep masks of a train-mode forward of ``n`` samples, one
-        (n, 1, 1, C) bool mask a dropout site drawn from ``gen`` in site
-        order (on the generator's device); None for a family without
+        """The keep masks of a train-mode forward of ``n`` samples of
+        (H, W) ``hw``, one bool mask a dropout site drawn from ``gen`` in
+        site order (on the generator's device): (n, 1, 1, C) at a
+        Dropout2d site, the activation's shape at an element-dropout site
+        (BNN L's ``fc``, which needs ``hw``); None for a family without
         dropout."""
         sites = self.dropout_sites
         if not sites:
             return None
-        return {site: nn.draw_keep(gen, (n, 1, 1, c), p)
-                for site, (c, p) in sites.items()}
+        element = _ELEMENT_SITES.get(self.family, {})
+        out = {}
+        for site, (c, p) in sites.items():
+            if site in element:
+                if hw is None:
+                    raise ValueError(f"dropout site {site!r} drops elements: "
+                                     "its mask needs the input's (H, W)")
+                shape = (n, *element[site](*hw), c)
+            else:
+                shape = (n, 1, 1, c)
+            out[site] = nn.draw_keep(gen, shape, p)
+        return out
 
     def apply(self, params: Params, x: torch.Tensor, *, train: bool = False,
               dropout: Union[None, torch.Generator,
@@ -505,7 +677,8 @@ class Model(L.RegistryModule):
         if not train:
             return fn(self.cfg, params, x)
         if isinstance(dropout, torch.Generator):
-            dropout = self.draw_dropout(dropout, x.shape[0])
+            dropout = self.draw_dropout(dropout, x.shape[0],
+                                        tuple(x.shape[1:3]))
         sites = self.dropout_sites
         missing = [s for s in sites if dropout is None or s not in dropout]
         if missing:

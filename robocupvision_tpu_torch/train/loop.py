@@ -9,7 +9,8 @@ shuffle, the augmentation draws and the dropout keep masks come from a
 generator on that device,
 the metrics are summed there, the best params are selected there (a copy,
 never an alias of the live params), and ``train_run`` fetches the metrics
-once a chunk of epochs. Script-specific control flow (sweeps, the prune
+once a chunk of epochs. ``train_epoch_streamed`` trains an epoch from a
+host dataset through a prefetching stream instead of the device cache. Script-specific control flow (sweeps, the prune
 phase) lives in the CLI, as in the reference.
 """
 
@@ -24,6 +25,7 @@ import torch
 from robocupvision_tpu_torch.data.device_cache import (DeviceCache,
                                                        epoch_batches,
                                                        num_batches, shuffle)
+from robocupvision_tpu_torch.data.streaming import StreamingBatches
 from robocupvision_tpu_torch.models import layers as L
 from robocupvision_tpu_torch.models.zoo import Model
 from robocupvision_tpu_torch.ops import color
@@ -56,8 +58,10 @@ class Trainer:
         (the shuffle, the augmentation draws and the dropout keep masks)
         lives on that device, seeded with ``seed``; ``draw_perm(n)``,
         ``draw_augment(n)`` (the draws of ``cfg.augment_mode``) and
-        ``draw_dropout(n)`` (``Model.draw_dropout``) draw from it, and a
-        caller may replace them with draws of its own."""
+        ``draw_dropout(n)`` (``Model.draw_dropout`` at the current
+        batch's (H, W)) draw from it, and a caller may replace them with
+        draws of its own. The streamed epoch's host shuffle draws from a
+        numpy generator seeded once with ``seed``."""
         if mesh is not None:
             raise NotImplementedError("data-parallel training over a mesh is "
                                       "not ported yet (ROADMAP A.7)")
@@ -69,13 +73,17 @@ class Trainer:
         self.batch_size = batch_size
         self.multipliers = multipliers
         self.device = model.device
+        self.seed = seed
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._host_rng: Optional[np.random.Generator] = None
+        self._batch_hw = None  # the (H, W) of the batch being drawn for
         self.train_step = tstep.make_train_step(model, tx, cfg, multipliers)
         self.eval_step = tstep.make_eval_step(model, cfg)
         draw_augment, _ = color.AUGMENT_MODES[cfg.augment_mode]
         self.draw_perm = lambda n: shuffle(self.gen, n)
         self.draw_augment = lambda n: draw_augment(self.gen, n)
-        self.draw_dropout = lambda n: model.draw_dropout(self.gen, n)
+        self.draw_dropout = lambda n: model.draw_dropout(self.gen, n,
+                                                         self._batch_hw)
         self.state: Optional[tstep.TrainState] = None
 
     # -- state ------------------------------------------------------------------
@@ -110,14 +118,13 @@ class Trainer:
 
     # -- epochs -----------------------------------------------------------------
 
-    def _train_epoch(self, lr: float, masks) -> Dict[str, torch.Tensor]:
-        """One shuffled epoch of train steps; the metrics summed on the
-        device."""
+    def _steps(self, batches, lr: float, masks) -> Dict[str, torch.Tensor]:
+        """A train step on each (imgs, targets, sample_mask) batch; the
+        metrics summed on the device."""
         tot: Dict[str, torch.Tensor] = {}
-        perm = self.draw_perm(self.train_cache.n)
-        for imgs, tgt, mask in epoch_batches(self.train_cache,
-                                             self.batch_size, perm):
+        for imgs, tgt, mask in batches:
             n = mask.shape[0]
+            self._batch_hw = tuple(imgs.shape[1:3])
             draws = self.draw_augment(n) if self.cfg.augment else None
             self.state, out = self.train_step(self.state, imgs, tgt, mask,
                                               draws, lr, masks,
@@ -125,10 +132,14 @@ class Trainer:
             tot = out if not tot else {k: tot[k] + out[k] for k in tot}
         return tot
 
-    def train_epoch(self, lr: float, prune_masks=None) -> EpochResult:
-        assert self.state is not None and self.train_cache is not None
-        tot = self._train_epoch(lr, self._masks(prune_masks))
-        nb = num_batches(self.train_cache.n, self.batch_size)
+    def _train_epoch(self, lr: float, masks) -> Dict[str, torch.Tensor]:
+        """One shuffled epoch of train steps over the train cache."""
+        perm = self.draw_perm(self.train_cache.n)
+        return self._steps(epoch_batches(self.train_cache, self.batch_size,
+                                         perm), lr, masks)
+
+    def _epoch_result(self, tot: Dict[str, torch.Tensor],
+                      nb: int) -> EpochResult:
         if not tot:
             return EpochResult(loss=0.0, reg=0.0, pixel_acc=0.0)
         tot = {k: float(v) for k, v in tot.items()}
@@ -137,11 +148,36 @@ class Trainer:
             pixel_acc=tot["correct"] * self.cfg.out_size * 100.0
             / max(tot["img_cnt"], 1.0))
 
-    def train_epoch_streamed(self, lr: float, dataset, **kw) -> EpochResult:
-        """An epoch fed from a host dataset through a prefetching stream,
-        for sets larger than the card's memory: not ported yet."""
-        raise NotImplementedError("train_epoch_streamed (data/streaming) is "
-                                  "not ported yet (ROADMAP A.7)")
+    def train_epoch(self, lr: float, prune_masks=None) -> EpochResult:
+        assert self.state is not None and self.train_cache is not None
+        tot = self._train_epoch(lr, self._masks(prune_masks))
+        return self._epoch_result(
+            tot, num_batches(self.train_cache.n, self.batch_size))
+
+    def train_epoch_streamed(self, lr: float, dataset, *,
+                             shuffle: bool = True,
+                             device_transform: Optional[Callable] = None,
+                             prune_masks=None) -> EpochResult:
+        """One epoch fed from a host dataset through the prefetching
+        stream (data/streaming.py) instead of the device cache, for sets
+        larger than the card's memory: the host reads and copies batches
+        while the card trains, through the same train step as
+        :meth:`train_epoch`. ``shuffle``: the order from a numpy generator
+        seeded once from the Trainer's seed (the device generator is left
+        to the draws). ``device_transform``: ``(imgs, labels) -> (imgs,
+        labels)`` on the card after the copy (e.g. uint8 frames
+        normalized there)."""
+        assert self.state is not None
+        rng = None
+        if shuffle:
+            if self._host_rng is None:
+                self._host_rng = np.random.default_rng(self.seed)
+            rng = self._host_rng
+        stream = StreamingBatches(dataset, self.batch_size, rng,
+                                  device_transform=device_transform,
+                                  device=self.device)
+        tot = self._steps(stream, lr, self._masks(prune_masks))
+        return self._epoch_result(tot, len(stream))
 
     def _valid(self, params) -> Optional[Dict]:
         """The eval step's outputs summed over the val set on the device

@@ -7,7 +7,10 @@ the class-ablation label remap, the train-mode forward with padded samples
 left out of the BN statistics and the dropout keep masks the caller drew,
 the loss plus the L1 term, the gradients of
 the trainable params by autograd, the prune masks zeroing theirs, the
-optimizer's update, and the new BN running statistics merged in. Its
+optimizer's update, and the new BN running statistics merged in. With
+``StepCfg.packed`` the forward is the packed graph (models/packed.py) and
+the loss is taken over packed targets; with ``StepCfg.remat`` the forward
+runs under ``torch.utils.checkpoint``. Its
 metrics stay tensors on the device; the loop sums them there and fetches
 them once a chunk.
 
@@ -22,11 +25,15 @@ the class confusion and correct count (``class_batch_stats``) instead.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from robocupvision_tpu_torch.models import layers as L
+from robocupvision_tpu_torch.models import packed as packed_mod
 from robocupvision_tpu_torch.models.zoo import Model
 from robocupvision_tpu_torch.ops import color, labels, losses, metrics
 from robocupvision_tpu_torch.ops.pruning import mask_gradients
@@ -61,9 +68,17 @@ class StepCfg:
                                         # backward over f32 master weights;
                                         # loss, BN statistics and the
                                         # optimizer stay f32
-    packed: bool = False                # the JAX package's lane-packed
-                                        # training graph: not ported
-    remat: str = "none"                 # activation recomputation: not ported
+    packed: bool = False                # the lane-packed training graph
+                                        # (ROBO-UNet, ce2d only): an exact
+                                        # rewrite over the same params,
+                                        # optimizer and checkpoints
+                                        # (models/packed.py
+                                        # packed_train_apply)
+    remat: str = "none"                 # none | dots | full: recompute the
+                                        # forward's activations in the
+                                        # backward instead of keeping them
+                                        # (dots: keep the conv and matmul
+                                        # outputs); numerics unchanged
 
 
 def _class_weights(cfg: StepCfg, device) -> Optional[torch.Tensor]:
@@ -99,6 +114,54 @@ def _check(cfg: StepCfg) -> None:
         raise ValueError(f"augment_mode must be one of "
                          f"{sorted(color.AUGMENT_MODES)}, "
                          f"not {cfg.augment_mode!r}")
+    if cfg.remat not in ("none", "dots", "full"):
+        raise ValueError(f"remat must be none, dots or full, not "
+                         f"{cfg.remat!r}")
+
+
+# the ops whose outputs remat="dots" keeps: the convolutions and matmuls
+# (JAX's dots_saveable keeps dot_general and conv_general_dilated outputs)
+_DOTS = (torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _make_forward(model: Model, cfg: StepCfg):
+    """forward(leaves, bn_state, x, sample_mask, dropout) -> (logits, mut):
+    the train-mode forward, under ``cfg.remat``'s checkpoint.
+
+    The forward enters the train-mode contexts itself (BN's sample mask,
+    train mode with the dropout keep masks) from its arguments: a
+    checkpoint's recompute runs inside autograd's backward, after any
+    context around the step has exited, and would otherwise recompute BN
+    in eval mode, without the mask or the drops. The running statistics
+    the recompute writes go into a dict of its own and are dropped: ``mut``
+    is the first forward's."""
+    maps = None
+    if cfg.packed:
+        assert cfg.loss == "ce2d", "packed training supports the ce2d path"
+        maps = packed_mod.build_train_pack_maps(model)
+
+    def forward(leaves, bn_state, x, sample_mask, dropout):
+        p = {**leaves, **bn_state}
+        with L.bn_stats_mask(sample_mask):
+            if maps is not None:
+                return packed_mod.packed_train_apply(maps, p, x)
+            return model.apply(p, x, train=True, dropout=dropout)
+
+    if cfg.remat == "none":
+        return forward
+    # the forward draws nothing, so no generator state needs keeping
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(forward, *args, **kw)
 
 
 def _flat_logits(cfg: StepCfg, logits: torch.Tensor) -> torch.Tensor:
@@ -123,12 +186,7 @@ def make_train_step(model: Model, tx: optim.GradientTransform, cfg: StepCfg,
     samples) and ``img_cnt``, on the device. The new state holds new
     tensors; the old one is left as it was."""
     _check(cfg)
-    if cfg.packed:
-        raise NotImplementedError("packed training is not ported yet "
-                                  "(ROADMAP A.1)")
-    if cfg.remat != "none":
-        raise NotImplementedError(f"remat={cfg.remat!r} is not ported yet "
-                                  "(ROADMAP A.1)")
+    forward = _make_forward(model, cfg)
     nb, nr, ng, nl = cfg.mask_flags
     weights = _class_weights(cfg, model.device)
     _, augment = color.AUGMENT_MODES[cfg.augment_mode]
@@ -144,15 +202,15 @@ def make_train_step(model: Model, tx: optim.GradientTransform, cfg: StepCfg,
             if not classify:
                 targets = flipped
         targets = labels.mask_label(targets, nb, nr, ng, nl)
+        if cfg.packed:
+            targets = packed_mod.pack_targets(targets)
         trainable, bn_state = L.split_params(state.params)
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in trainable.items()}
         x = imgs.to(torch.bfloat16) if cfg.compute_dtype == "bfloat16" \
             else imgs
         with torch.enable_grad():
-            with L.bn_stats_mask(sample_mask):
-                logits, mut = model.apply({**leaves, **bn_state}, x,
-                                          train=True, dropout=dropout)
+            logits, mut = forward(leaves, bn_state, x, sample_mask, dropout)
             logits = _flat_logits(cfg, logits)
             task = _loss(cfg, logits, targets, sample_mask, weights)
             reg = torch.zeros((), device=logits.device)

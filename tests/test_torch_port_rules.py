@@ -60,10 +60,12 @@ def test_port_imports_no_pil_at_module_level(path):
 
 
 def _entry_points():
-    from robocupvision_tpu_torch.cli import (classTrainer, labelPropTrain,
-                                             test, tester, trainer,
+    from robocupvision_tpu_torch.cli import (classTrainer, classVal,
+                                             labelPropTrain, objDetEval,
+                                             test, tester, train, trainer,
                                              validLabelProp)
     from robocupvision_tpu_torch.data.device_cache import DeviceCache
+    from robocupvision_tpu_torch.data.streaming import StreamingBatches
     from robocupvision_tpu_torch.models import packed, zoo
     from robocupvision_tpu_torch.ops import metrics
     from robocupvision_tpu_torch.utils.serving import ServingPipeline
@@ -94,6 +96,11 @@ def _entry_points():
             classTrainer.build_parser().parse_args([]), None, None),
         "DeviceCache": lambda: DeviceCache.from_numpy(
             np.zeros((1, 4, 4, 3), np.float32), maps),
+        "train.main": lambda: train.main([]),
+        "classVal.main": lambda: classVal.main([]),
+        "objDetEval.main": lambda: objDetEval.main([]),
+        "StreamingBatches": lambda: StreamingBatches([], 4),
+        "zoo.make(bnn)": lambda: zoo.make("bnn"),
     }
 
 
@@ -107,7 +114,10 @@ def _entry_points():
                                   "test.main", "DeviceCache",
                                   "classTrainer.main", "trainer.main",
                                   "labelPropTrain.main",
-                                  "classTrainer.train_classifier"])
+                                  "classTrainer.train_classifier",
+                                  "train.main", "classVal.main",
+                                  "objDetEval.main", "StreamingBatches",
+                                  "zoo.make(bnn)"])
 def test_entry_points_raise_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point runs there")

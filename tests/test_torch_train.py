@@ -384,18 +384,20 @@ def test_prune_masks_keep_pruned_weights_at_zero():
 
 
 def test_unported_step_options_raise():
+    """The mesh stays unported; packed training refuses what the JAX
+    package's asserts refuse (``pool``), and an unknown remat mode is a
+    ValueError."""
     tm = zoo.make("robo_unet", device="cpu", **small_hyper())
-    for kw in (dict(packed=True), dict(remat="dots")):
-        with pytest.raises(NotImplementedError):
-            tstep.make_train_step(tm, optim.adam(),
-                                  tstep.StepCfg(num_classes=5, **kw))
     with pytest.raises(NotImplementedError):
         loop.Trainer(tm, optim.adam(), tstep.StepCfg(num_classes=5), None,
                      None, 4, mesh=object())
-    tr = loop.Trainer(tm, optim.adam(), tstep.StepCfg(num_classes=5), None,
-                      None, 4)
-    with pytest.raises(NotImplementedError):
-        tr.train_epoch_streamed(1e-3, None)
+    unet = zoo.make("robo_unet", device="cpu", **VARIANTS["unet"])
+    with pytest.raises(AssertionError):
+        tstep.make_train_step(unet, optim.adam(),
+                              tstep.StepCfg(num_classes=5, packed=True))
+    with pytest.raises(ValueError, match="remat"):
+        tstep.make_train_step(tm, optim.adam(),
+                              tstep.StepCfg(num_classes=5, remat="bogus"))
 
 
 # ---- the slice: Trainer.train_run --------------------------------------------
