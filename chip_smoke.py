@@ -1722,6 +1722,215 @@ def phase_tester(pb_model, dev, chk: Checks) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# export and deploy: tester --dump --aot, the cfg interpreter, the engine
+# ---------------------------------------------------------------------------
+
+EXPORT_FRAMES = 8
+EXPORT_FORMS = {"plain": {}, "pallas": dict(pallas=True),
+                "int8": dict(pallas=True, int8=True)}
+
+# a fresh process that imports only the op's module loads and runs an
+# artifact: argv = artifact, input .npy, output .npy
+ARTIFACT_ALONE = """
+import json, sys
+import numpy as np, torch
+import robocupvision_tpu_torch.ops.cuda_packed as ckp
+fn = torch.export.load(sys.argv[1]).module()
+x = torch.from_numpy(np.load(sys.argv[2])).cuda()
+ckp.fused_conv_chain.launches = 0
+with torch.no_grad():
+    y = fn(x)
+torch.cuda.synchronize()
+np.save(sys.argv[3], y.cpu().numpy())
+print(json.dumps({"launches": ckp.fused_conv_chain.launches,
+                  "modules": sorted(m for m in sys.modules
+                                    if m.startswith("robocupvision"))}))
+"""
+
+
+def phase_export(nets, dev, chk: Checks, smi: str) -> dict:
+    """Export and deploy at the tester's net (PB_FCN, planes 32, VGA, f32):
+    (a) ``tester.dump`` (``--dump``) writes net.cfg + weights2.dat, and
+    ``verify_deployment`` holds ``run_cfg`` on the card to the live model
+    within 1e-4 for it, LabelProp and the flagship ROBO-UNet; (b) the
+    native engine (host CPU) against ``run_cfg`` on one VGA frame, under
+    verifyDeploy's rule (max |diff| < 5e-3, label agreement > 0.999); (c)
+    ``tester.dump(..., aot_hw=VGA)`` (``--dump --aot``) in three forms,
+    plain, ``--pallas`` and ``--pallas --int8`` (calibrated on frame 0),
+    each traced on the card, saved and loaded back: over the phase's frames
+    its labels equal the live graph's ``infer_u8`` bit for bit, K2 launches
+    through the loaded artifact (counters set to 0 just before the frames)
+    equal its 2 chains a frame (none for plain), and both fps are timed
+    (CUDA events); (d) a fresh process that imports only
+    ``ops/cuda_packed.py`` loads the pallas artifact, serves frame 0 and
+    matches; (e) testDumper's vectors from ``run_cfg`` on the card are
+    within 1e-5 of the CPU run's, its inputs byte-identical."""
+    from robocupvision_tpu_torch.cli import testDumper, tester
+    from robocupvision_tpu_torch.data.datasets import legacy_normalize
+    from robocupvision_tpu_torch.export import aot, deploy, netcfg
+    from robocupvision_tpu_torch.export.engine import NativeEngine
+    from robocupvision_tpu_torch.models import packed
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    t_phase = time.perf_counter()
+    model = nets["pb_fcn"]
+    rng = np.random.default_rng(SEED + 40)
+    frames = [legacy_normalize(rng.integers(0, 256, (*VGA, 3)).astype(
+        np.float32) / 255.0)[None] for _ in range(EXPORT_FRAMES)]
+    xs = [torch.from_numpy(f).to(dev) for f in frames]
+    res = {"phase": "export", "net": "pb_fcn planes 32 VGA f32",
+           "frames": EXPORT_FRAMES, "nvidia_smi": smi}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here, prefix=".chip_smoke_") as tmp:
+        # (a) the deployment pair, and the interpreter against the live nets
+        t0 = time.perf_counter()
+        dump_dir = os.path.join(tmp, "weights", "VGA")
+        tester.dump(model, dump_dir, "weights2.dat")
+        wrote = sorted(os.listdir(dump_dir))
+        chk.expect(wrote == ["net.cfg", "weights2.dat"],
+                   f"export: --dump wrote {wrote}")
+        lp_x = torch.from_numpy(np.random.default_rng(SEED + 41)
+                                .standard_normal((1, 120, 160, 8))
+                                .astype(np.float32)).to(dev)
+        verify = {}
+        for name, net, x in (("pb_fcn_vga", model, xs[0]),
+                             ("label_prop", nets["label_prop"], lp_x),
+                             ("flagship_vga", nets["flagship"], xs[1])):
+            d = dump_dir
+            if net is not model:
+                d = os.path.join(tmp, name)
+                deploy.export_deployment(d, net, fname="weights2.dat")
+            try:
+                verify[name] = deploy.verify_deployment(
+                    d, net, None, x, fname="weights2.dat")
+            except AssertionError as e:
+                verify[name] = str(e)
+        res["verify_deployment_max_abs"] = verify
+        for name, v in verify.items():
+            chk.expect(isinstance(v, float) and v <= 1e-4,
+                       f"export: verify_deployment {name}: {v}")
+        res["verify_s"] = time.perf_counter() - t0
+
+        # (b) the robot's engine against the interpreter, one VGA frame
+        t0 = time.perf_counter()
+        cfg_path = os.path.join(dump_dir, "net.cfg")
+        dat_path = os.path.join(dump_dir, "weights2.dat")
+        with torch.no_grad():
+            cfg_out = netcfg.run_cfg(netcfg.parse_cfg(cfg_path),
+                                     np.fromfile(dat_path, "<f4"),
+                                     xs[0]).cpu().numpy()[0]
+        eng = NativeEngine(cfg_path, dat_path)
+        eng_out = eng.forward(np.ascontiguousarray(frames[0][0].transpose(2, 0, 1)))
+        diff = float(np.abs(eng_out - cfg_out.transpose(2, 0, 1)).max())
+        agree = float((eng_out.argmax(0) == cfg_out.argmax(-1)).mean())
+        res["engine"] = {"max_abs": diff, "label_agreement": agree,
+                         "weights_fully_consumed": eng.weights_fully_consumed,
+                         "s": time.perf_counter() - t0}
+        eng.close()
+        chk.expect(diff < 5e-3 and agree > 0.999 and
+                   res["engine"]["weights_fully_consumed"],
+                   f"export: engine vs run_cfg diff {diff}, agreement {agree}")
+
+        # (c) the traced serving graph in three forms, loaded back
+        forms = {}
+        launches = 0
+        for form, kw in EXPORT_FORMS.items():
+            t0 = time.perf_counter()
+            fdir = os.path.join(tmp, form)
+            out = tester.dump(model, fdir, "weights2.dat", aot_hw=VGA,
+                              calib_x=frames[0] if kw.get("int8") else None,
+                              **kw)
+            export_s = time.perf_counter() - t0
+            fn = aot.load_serving(out)
+            live = packed.build_packed_pb_fcn(
+                model, None, torch.float32, pallas=bool(kw.get("pallas")),
+                device=dev)
+            if kw.get("int8"):
+                with torch.no_grad():
+                    live = packed.quantize_int8(live, xs[0])
+            nodes = sum("fused_conv_chain" in str(n.target)
+                        for n in torch.export.load(out).graph.nodes)
+            # --- a main path: frames through the loaded artifact ----------
+            ckp.fused_conv_chain.launches = 0
+            ckp.chain_reference.calls = 0
+            with torch.no_grad():
+                got = [fn(x) for x in xs]
+            torch.cuda.synchronize()
+            k2 = ckp.fused_conv_chain.launches
+            ref_calls = ckp.chain_reference.calls
+            with torch.no_grad():
+                want = [live.infer_u8(x) for x in xs]
+                equal = all(torch.equal(g, w) for g, w in zip(got, want))
+                art_ms = cuda_ms(lambda: fn(xs[0]), 20)
+                live_ms = cuda_ms(lambda: live.infer_u8(xs[0]), 20)
+            chains = 2 if kw.get("pallas") else 0
+            forms[form] = {"op_nodes": nodes, "launches": k2,
+                           "chain_reference_calls": ref_calls,
+                           "labels_equal_live": equal,
+                           "artifact_fps": 1e3 / art_ms,
+                           "live_fps": 1e3 / live_ms,
+                           "artifact_mb": os.path.getsize(out) / 2 ** 20,
+                           "export_s": export_s}
+            launches += k2
+            chk.expect(equal, f"export {form}: artifact labels != live graph")
+            chk.expect(nodes == chains and k2 == chains * EXPORT_FRAMES,
+                       f"export {form}: {nodes} op nodes, {k2} K2 launches "
+                       f"for {EXPORT_FRAMES} frames")
+            chk.expect(ref_calls == 0,
+                       f"export {form}: chain_reference ran {ref_calls} times")
+            if form == "pallas":
+                pallas_out, pallas_want = out, want[0]
+        res["forms"] = forms
+        res["main_path_launches"] = {"fused_conv_chain": launches}
+
+        # (d) the pallas artifact in a process that imports only the op
+        np.save(os.path.join(tmp, "x.npy"), frames[0])
+        run = subprocess.run(
+            [sys.executable, "-c", ARTIFACT_ALONE, pallas_out,
+             os.path.join(tmp, "x.npy"), os.path.join(tmp, "y.npy")],
+            cwd=here, capture_output=True, text=True, timeout=300)
+        alone = {"rc": run.returncode}
+        if run.returncode == 0:
+            alone.update(json.loads(run.stdout.strip().splitlines()[-1]))
+            alone["labels_equal_live"] = bool(np.array_equal(
+                np.load(os.path.join(tmp, "y.npy")),
+                pallas_want.cpu().numpy()))
+        else:
+            alone["stderr"] = run.stderr[-1500:]
+        res["artifact_alone"] = alone
+        chk.expect(run.returncode == 0 and alone.get("labels_equal_live")
+                   and alone.get("launches") == 2
+                   and "robocupvision_tpu_torch.models.zoo"
+                   not in alone.get("modules", ["?"]),
+                   f"export: the artifact alone {alone}")
+
+        # (e) testDumper's golden vectors on the card against the CPU
+        with contextlib.redirect_stdout(io.StringIO()):
+            testDumper.main(["--out", os.path.join(tmp, "gold_card")],
+                            device=dev)
+            testDumper.main(["--out", os.path.join(tmp, "gold_cpu")],
+                            device="cpu")
+        worst, same_inputs = 0.0, True
+        for f in sorted(os.listdir(os.path.join(tmp, "gold_cpu"))):
+            a = np.fromfile(os.path.join(tmp, "gold_card", f), np.uint8)
+            b = np.fromfile(os.path.join(tmp, "gold_cpu", f), np.uint8)
+            if f.startswith("out"):
+                worst = max(worst, float(np.abs(a.view(np.float32)
+                                                - b.view(np.float32)).max()))
+            else:
+                same_inputs = same_inputs and np.array_equal(a, b)
+        res["golden"] = {"cases": len(testDumper.CASES),
+                         "out_max_abs_card_vs_cpu": worst,
+                         "inputs_weights_cfgs_equal": same_inputs}
+        chk.expect(worst <= 1e-5 and same_inputs,
+                   f"export: golden vectors card vs cpu {worst}, inputs "
+                   f"equal {same_inputs}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
 def metric_line(fin) -> str:
     """The CLIs' printed validation line."""
     return ("Validation Pixel Acc: %.2f Mean Class Acc: %.2f Mean IoU: %.2f"
@@ -3464,6 +3673,7 @@ def main() -> int:
     sq = phase_serving_int8(model, dev, chk, frames)
     phase_device_fps(model, graphs, dev, frames)
     ts = phase_tester(pb_model, dev, chk)
+    ex = phase_export(nets, dev, chk, smi)
     vlp = phase_valid_label_prop(lp_model, dev, chk)
     tc = phase_test_cli({"unet": unet, "v2": v2}, dev, chk)
     k3_launches = fused_conv3x3_block.launches
@@ -3480,7 +3690,7 @@ def main() -> int:
     # full chain graph (folded-stem down, deep, up with its head)
     main_runs = [sv2["main_path_launches"], sv3["main_path_launches"]] + [
         r["launches"] for r in ts["runs"].values()] + [
-        vlp["main_path_launches"]] + [
+        ex["main_path_launches"], vlp["main_path_launches"]] + [
         v["main_path_launches"] for v in variants.values()] + [
         r["launches"] for r in tc["runs"].values()] + [
         sq["main_path_launches"], ts["int8"]["main_path_launches"],

@@ -122,7 +122,7 @@ def main(argv=None, device: DeviceLike = None) -> int:
     if opt.lProp:
         raise NotImplementedError(
             "--lProp needs the port's ops/optflow (cv2 and the Farneback "
-            "port, ROADMAP.md A.11), which is not ported yet")
+            "port, ROADMAP.md A.6), which is not ported yet")
 
     from robocupvision_tpu_torch.cli.train import model_hyper
     from robocupvision_tpu_torch.data.datasets import SSYUVDataset

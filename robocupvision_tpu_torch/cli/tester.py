@@ -8,13 +8,16 @@ normalized confusion matrix and the mean per-frame latency in ms.
 ``--packed`` serves the lane-packed graph in f32 (``--pallas``: its fused
 chains, kernel K2 on CUDA; ``--int8``: those chains quantized to int8,
 calibrated on the first val frame); scores go through ``seg_batch_stats``
-(kernel K1 on CUDA).
+(kernel K1 on CUDA). ``--dump`` writes the robot's deployment pair
+(net.cfg + weights2.dat, or weights.dat with ``--pruned``) under
+./weights/<variant>/, and with ``--aot`` the traced serving graph
+(serving.pt2, export/aot.py) at the first frame's shape, its fused chains
+as K2 op nodes with ``--pallas``, int8 with ``--int8``.
 
     python -m robocupvision_tpu_torch.cli.tester --noScale --packed --pallas
 
 runs on the CUDA card; ``main(argv, device="cpu")`` runs the plain PyTorch
-path on the CPU. ``--dump`` and ``--aot`` need the export slice of the port
-and raise ``NotImplementedError``.
+path on the CPU.
 """
 
 from __future__ import annotations
@@ -44,9 +47,10 @@ def build_parser() -> argparse.ArgumentParser:
                     ("--noLine", "Treat Lines as Background"),
                     ("--topCam", "Use Top Camera images only"),
                     ("--bottomCam", "Use Bottom Camera images only"),
-                    ("--dump", "Dump model parameters (not ported yet)"),
-                    ("--aot", "with --dump: also write the compiled serving "
-                     "graph (not ported yet)"),
+                    ("--dump", "Dump model parameters"),
+                    ("--aot", "with --dump: also write the traced serving "
+                     "graph (serving.pt2, torch.export -- framework "
+                     "extension, export/aot.py)"),
                     ("--useCuda", "(accepted for compatibility; the CUDA "
                      "card is used)"),
                     ("--packed", "lane-packed inference graph "
@@ -121,6 +125,33 @@ def serve_and_score(infer: Callable, frames: Iterable[Tuple[np.ndarray, np.ndarr
     return acc, t_total, n
 
 
+def dump(model, dump_dir: str, fname: str, v2: bool = False,
+         aot_hw: Optional[Tuple[int, int]] = None, pallas: bool = False,
+         int8: bool = False, calib_x=None) -> Optional[str]:
+    """``--dump``: the deployment pair of ``model`` under ``dump_dir``
+    (net.cfg + ``fname``; ``v2``, PB_FCN_2, only the weights, its
+    classification head left out as the reference's substring test does).
+    With ``aot_hw`` (``--aot``), also the traced f32 serving graph at that
+    frame shape: its fused chains as K2 op nodes with ``pallas``, int8
+    with ``int8`` (calibrated on ``calib_x``). Returns the artifact's path,
+    or None."""
+    from robocupvision_tpu_torch.export import aot, deploy, weights_io
+
+    if v2:
+        weights_io.save_params(dump_dir, model.registry, model.state_dict(),
+                               fname=fname, skip_classifier=True)
+    else:
+        deploy.export_deployment(dump_dir, model, fname=fname)
+    print(f"Dumped weights to {dump_dir}/{fname}")
+    if aot_hw is None:
+        return None
+    # the traced graph is shape-specialized, as the served one
+    out = aot.export_serving(dump_dir, model, hw=aot_hw, dtype=torch.float32,
+                             pallas=pallas, int8=int8, calib_x=calib_x)
+    print(f"Dumped AOT serving graph to {out}")
+    return out
+
+
 def main(argv=None, device: DeviceLike = None) -> int:
     opt = build_parser().parse_args(argv)
     dev = resolve_device(device)
@@ -174,10 +205,17 @@ def main(argv=None, device: DeviceLike = None) -> int:
     model.load_state_dict(checkpoint.load_any(path, model.registry))
 
     if opt.dump:
-        raise NotImplementedError(
-            "--dump (and --aot with it) needs the port's export/deploy and "
-            "export/aot (ROADMAP.md A.10, export and deploy), which are not "
-            "ported yet")
+        # the reference's path formula (tester.py:122): "./weights/" +
+        # the variant's parts
+        dump_dir = "./weights/" + ("VGA" if opt.noScale else "") + \
+            ("v2" if opt.v2 else "") + ("NoBall" if opt.noBall else "") + \
+            ("NoGoal" if opt.noGoal else "") + ("NoRobot" if opt.noRobot else "") + \
+            ("NoLine" if opt.noLine else "") + cam_load
+        dump(model, dump_dir, "weights.dat" if opt.pruned else "weights2.dat",
+             v2=opt.v2,
+             aot_hw=tuple(ds[0][0].shape[:2]) if opt.aot else None,
+             pallas=opt.pallas, int8=opt.int8,
+             calib_x=ds[0][0][None] if opt.int8 else None)
 
     table = mask_label_table(opt.noBall, opt.noRobot, opt.noGoal, opt.noLine)
 

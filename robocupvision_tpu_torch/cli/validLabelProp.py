@@ -108,7 +108,7 @@ def main(argv=None, device: DeviceLike = None) -> int:
     if opt.optFlow or opt.jaxFlow:
         raise NotImplementedError(
             "--optFlow and --jaxFlow need the port's ops/optflow (cv2 and the "
-            "Farneback port, ROADMAP.md A.11), which is not ported yet")
+            "Farneback port, ROADMAP.md A.6), which is not ported yet")
     if opt.int8 and not (opt.packed and opt.pallas):
         print("--int8 requires --packed --pallas")
         return -1

@@ -1,18 +1,26 @@
-"""net.cfg, the darknet-style deployment graph format, write side (the JAX
-package's export/netcfg.py, less its interpreter ``run_cfg``).
+"""net.cfg, the darknet-style deployment graph format (the JAX package's
+export/netcfg.py): writer, parser, emitters, and ``run_cfg``, a torch
+interpreter that runs a cfg + weights.dat pair directly.
 
 The reference hand-maintains these files (weights/net.cfg,
 weightsVGA/net.cfg, weightsLP/net.cfg) to describe the deployed networks
 for the external C++ engine: section order is the layer list, and
 ``[shortcut] from=N`` names the 0-based output of layer N. They are
-generated here from the model configs. Sections written:
+generated here from the model configs. ``run_cfg`` checks that the written
+pair describes the whole network (``deploy.verify_deployment``) and computes
+the golden vectors the C++ engine replays (``cli/testDumper.py``).
+Sections (those of the reference's three cfg files, and the layer types
+its testDumper exercises, testDumper.py:30-55):
   [net] height width channels downscale
-  [convolutional] filters size stride pad dilation activation hasBias
+  [convolutional] filters size|KHxKW stride pad dilation activation hasBias
   [batchnorm] activation
   [transposedconv] filters size stride pad outpad activation
   [shortcut] from activation      (adds over the first min(C) channels)
   [concat] from
   [maxpool] size stride
+  [avgpool] size stride
+  [pixelshuffle] factor
+  [connected] outputs             (fully connected)
   [softmax]
 """
 
@@ -20,7 +28,11 @@ from __future__ import annotations
 
 from typing import Dict, List, Tuple
 
+import numpy as np
+import torch
+
 from robocupvision_tpu_torch.models.layers import Registry
+from robocupvision_tpu_torch.ops import nn
 
 Section = Tuple[str, Dict[str, str]]
 
@@ -238,3 +250,112 @@ def apply_param_widths(secs: List[Section], reg: Registry, state,
     if ki != len(kernels):
         raise ValueError(f"cfg has {ki} weighted layers, registry {len(kernels)}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# torch interpreter over (cfg, flat weights)
+# ---------------------------------------------------------------------------
+
+
+class FlatReader:
+    """Reads consecutive shaped slices off a flat f32 weight stream."""
+
+    def __init__(self, flat: np.ndarray):
+        self.flat = np.asarray(flat, np.float32)
+        self.off = 0
+
+    def take(self, *shape: int) -> np.ndarray:
+        n = int(np.prod(shape))
+        out = self.flat[self.off:self.off + n].reshape(shape)
+        self.off += n
+        return out
+
+    def done(self) -> bool:
+        return self.off == self.flat.size
+
+
+def _pair(v: str) -> Tuple[int, int]:
+    """A cfg value "A" or "AxB" as (A, A) or (A, B)."""
+    a, _, b = v.partition("x")
+    return int(a), int(b or a)
+
+
+def run_cfg(sections: List[Section], flat_weights: np.ndarray, x,
+            return_all: bool = False):
+    """Run a cfg graph on the NHWC input ``x`` (a tensor, on its device, or
+    an array, on the CPU) with weights read in order off the flat stream.
+
+    Weight order per layer is paramSave/state_dict order, torch layouts:
+    conv weight (O, I, kh, kw) [+ bias]; tconv weight (I, O, kh, kw) + bias
+    (torch's ConvTranspose2d takes it unflipped; the JAX interpreter flips
+    it into its own pre-flipped form); bn gamma, beta, mean, var; connected
+    weight (O, I) + bias. Returns the final output, and with ``return_all``
+    every layer's output too."""
+    assert sections[0][0] == "net"
+    r = FlatReader(flat_weights)
+    h = torch.as_tensor(x)
+    dev = h.device
+
+    def take(*shape):
+        return torch.from_numpy(np.array(r.take(*shape))).to(dev)
+
+    outs = []
+    cin = int(h.shape[-1])
+    for name, kv in sections[1:]:
+        kv = {k: str(v) for k, v in kv.items()}  # accept int-valued sections
+        act = kv.get("activation", "linear")
+        if name == "convolutional":
+            co = int(kv["filters"])
+            kh, kw = _pair(kv.get("size", "1"))
+            w = take(co, cin, kh, kw)
+            b = take(co) if int(kv.get("hasBias", 1)) else None
+            h = nn.conv2d(h, w, b, stride=int(kv.get("stride", 1)),
+                          padding=_pair(kv.get("pad", "0")),
+                          dilation=_pair(kv.get("dilation", "1")))
+            cin = co
+        elif name == "transposedconv":
+            co = int(kv["filters"])
+            k = int(kv.get("size", 3))
+            w = take(cin, co, k, k)
+            b = take(co) if int(kv.get("hasBias", 1)) else None
+            h = nn.conv_transpose2d(h, w, b, stride=int(kv.get("stride", 2)),
+                                    padding=int(kv.get("pad", 1)),
+                                    output_padding=int(kv.get("outpad", 1)))
+            cin = co
+        elif name == "batchnorm":
+            g, bb, rm, rv = take(cin), take(cin), take(cin), take(cin)
+            h = nn.batch_norm(h, g, bb, rm, rv)
+        elif name == "shortcut":
+            other = outs[int(kv["from"])]
+            c = min(int(h.shape[-1]), int(other.shape[-1]))
+            h = torch.cat([h[..., :c] + other[..., :c], h[..., c:]], dim=-1)
+        elif name == "concat":
+            h = torch.cat([h, outs[int(kv["from"])]], dim=-1)
+            cin = int(h.shape[-1])
+        elif name == "maxpool":
+            h = nn.max_pool(h, int(kv.get("size", 2)), int(kv.get("stride", 2)))
+        elif name == "avgpool":
+            h = nn.avg_pool(h, int(kv.get("size", 2)), int(kv.get("stride", 2)))
+        elif name == "pixelshuffle":
+            h = nn.pixel_shuffle(h, int(kv.get("factor", 2)))
+            cin = int(h.shape[-1])
+        elif name == "connected":
+            co = int(kv["outputs"])
+            n_batch = int(h.shape[0])
+            # darknet's FC flattens the whole activation in NCHW order (the
+            # engine's semantics); the output is (N, 1, 1, outputs)
+            flat = h.permute(0, 3, 1, 2).reshape(n_batch, -1)
+            in_len = int(kv.get("inputs", flat.shape[1]))
+            if in_len != flat.shape[1]:
+                raise ValueError(f"[connected] inputs={in_len} != {flat.shape[1]}")
+            w = take(co, in_len)
+            h = nn.linear(flat, w.T, take(co)).reshape(n_batch, 1, 1, co)
+            cin = co
+        elif name == "softmax":
+            h = nn.softmax(h, dim=-1)
+        else:
+            raise ValueError(f"unknown section [{name}]")
+        if act == "relu":
+            h = nn.relu(h)
+        outs.append(h)
+    return (h, outs) if return_all else h

@@ -1,5 +1,6 @@
-"""Flat weights.dat export, the external C++ engine's weight contract (the
-JAX package's export/weights_io.py ``save_params``).
+"""Flat weights.dat, the external C++ engine's weight contract (the JAX
+package's export/weights_io.py): ``save_params`` writes it,
+``load_params_flat`` reads it back.
 
 Reference paramSave.py:5-18: every state_dict tensor, concatenated flat in
 registration order, written little-endian. Written as float32 (the format
@@ -11,6 +12,7 @@ torch layouts and registry order.
 from __future__ import annotations
 
 import os
+from collections import OrderedDict
 from typing import Dict, Tuple
 
 import numpy as np
@@ -41,3 +43,46 @@ def save_params(path: str, reg: Registry, state: Dict[str, torch.Tensor],
     out = os.path.join(path, fname)
     flat.astype("<f4").tofile(out)
     return out
+
+
+def load_params_flat(path: str, reg: Registry,
+                     skip_classifier: bool = False
+                     ) -> "OrderedDict[str, torch.Tensor]":
+    """Inverse of :func:`save_params`: slice the flat stream back into the
+    port's state_dict (CPU f32, torch layouts, registry order); tensors
+    left out with ``skip_classifier`` come back as zeros.
+
+    Detects the element width: the reference's own saveParams seeds its
+    concatenation with ``np.empty(0)`` (float64), so every dump the
+    reference itself produced (the shipped weightsLP/weights.dat: 742,696
+    bytes, 92,837 float64 values, LabelProp(planes=32)'s parameter count) is
+    little-endian float64, while this package and the robot engine write
+    float32 (paramSave.py:9-18). A stream of exactly 8 bytes a value is read
+    as float64."""
+    def kept(name):
+        return not (skip_classifier and "classifier" in name)
+
+    expected = sum(int(np.prod(spec.shape))
+                   for name, spec in reg.specs.items() if kept(name))
+    if os.path.getsize(path) == expected * 8:
+        flat = np.fromfile(path, dtype="<f8").astype(np.float32)
+    else:
+        flat = np.fromfile(path, dtype="<f4")
+    state: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+    offset = 0
+    for name, spec in reg.specs.items():
+        if not kept(name):
+            state[name] = _zeros_like_spec(reg, name)
+            continue
+        n = int(np.prod(spec.shape))
+        state[name] = torch.from_numpy(
+            flat[offset:offset + n].reshape(spec.torch_shape).copy())
+        offset += n
+    if offset != flat.size:
+        raise ValueError(f"{path}: consumed {offset} of {flat.size} floats")
+    return state
+
+
+def _zeros_like_spec(reg: Registry, name: str) -> torch.Tensor:
+    """A zero tensor of ``name``'s shape in the port's (torch) layout."""
+    return torch.zeros(reg.specs[name].torch_shape, dtype=torch.float32)

@@ -396,7 +396,10 @@ class _PackedBase:
         When the chains dict carries a ``collect`` map (int8 calibration,
         :func:`quantize_int8`) the same call also appends each stage's
         statistic (max|input|, or its ``collect_pct``-th percentile) to
-        ``collect[tag]`` (ops/cuda_packed.chain_stats)."""
+        ``collect[tag]`` (ops/cuda_packed.chain_stats). With ``op`` set
+        (a graph that export/aot.py traces) the call goes through the
+        ``torch.library`` op instead, one graph node a chain, to the same
+        launch."""
         x, skips = x.contiguous(), [s.contiguous() for s in skips]
         col = self.chains.get("collect")
         if col is not None:
@@ -404,6 +407,8 @@ class _PackedBase:
                                           pct=self.chains.get("collect_pct"))
             col.setdefault(tag, []).extend(stats)
             return outs
+        if self.chains.get("op"):
+            return ckp.fused_conv_chain_op(x, stages, skips)
         return ckp.fused_conv_chain(x, stages, skips)
 
     # -- block interpreter --------------------------------------------------

@@ -54,8 +54,8 @@ def raw_camera_preprocess(x_u8: torch.Tensor, mean=(0.5, 0.0, 0.0),
     """Raw uint8 RGB frames -> the legacy serving input (/255, ToYUV,
     normalize) as ONE affine: ``x @ (YUV^T / (255*std)) - mean/std``, in
     f32 on the frames' device."""
-    a = torch.as_tensor(YUV_FROM_RGB.T / (255.0 * std), dtype=torch.float32,
-                        device=x_u8.device)
+    a = torch.as_tensor(np.ascontiguousarray(YUV_FROM_RGB.T / (255.0 * std)),
+                        dtype=torch.float32, device=x_u8.device)
     c = -torch.as_tensor(mean, dtype=torch.float32, device=x_u8.device) / std
     return torch.einsum("...c,cd->...d", x_u8.float(), a) + c
 

@@ -47,13 +47,25 @@ them once, where a graph builds its stages (``ChainStage.taps``).
 :func:`chain_reference` for CPU tensors; nothing else selects between them.
 ``fused_conv_chain.launches`` counts kernel launches and
 ``chain_reference.calls`` the plain version's calls.
+
+The same launch is also the op ``robocupvision_tpu_torch::fused_conv_chain``
+(``torch.library``; importing this module registers it), which a
+``torch.export`` graph holds as one opaque node a chain
+(:func:`fused_conv_chain_op`, export/aot.py): its CUDA implementation is the
+launch above, its CPU implementation :func:`chain_reference`, and its fake
+implementation gives each emitted output's shape and dtype. The op's schema
+takes tensors, ints and floats only, so a chain enters it flattened
+(:func:`chain_op_args`): every stage's tensors in one list, its switches and
+tap-list widths in an int list, its input scale in a float list; the tap
+lists and pool tables are built before the graph is traced and enter as
+constant tensors, since they are read off weight values.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Any, List, Sequence
+from typing import Any, List, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -671,6 +683,15 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
     stages = _prepare(stages)
     if x.device.type == "cpu":
         return chain_reference(x, stages, skips)
+    return _launch(x, stages, [None if st.pool else _taps_of(st)
+                               for st in stages], skips)
+
+
+def _launch(x: torch.Tensor, stages: List[ChainStage], taps: Sequence,
+            skips: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """One K2 launch of a prepared chain on the current stream; ``taps[i]``
+    is stage i's tap lists (anything with ``table``, ``cob`` and
+    ``dense``), None for a pool stage."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv_chain runs on cuda or cpu, not {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -738,12 +759,12 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
         else:
             w = _param(st.w, dev, torch.int8 if quant else x.dtype)
             b = _param(st.b, dev, torch.float32)
-            taps = _taps_of(st)
-            if taps.cob != kernel_cob(cout, quant, st.skip_w is not None):
-                raise ValueError(f"stage {i}: tap lists for {taps.cob}-wide "
+            st_taps = taps[i]
+            if st_taps.cob != kernel_cob(cout, quant, st.skip_w is not None):
+                raise ValueError(f"stage {i}: tap lists for {st_taps.cob}-wide "
                                  "groups, not the kernel's")
-            listed = listed or not taps.dense
-            table = _param(taps.table, dev, torch.int32)
+            listed = listed or not st_taps.dense
+            table = _param(st_taps.table, dev, torch.int32)
             keep += [w, b, table]
             d.w, d.b, d.table = w.data_ptr(), b.data_ptr(), table.data_ptr()
             if quant:
@@ -804,3 +825,130 @@ def fused_conv_chain(x: torch.Tensor, stages: Sequence[ChainStage],
 
 
 fused_conv_chain.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the torch.library op (what a torch.export graph holds)
+# ---------------------------------------------------------------------------
+
+# a stage's entries in the op's int list: its switches, then its CUDA-core
+# tap-list width (``cob``) and whether those lists hold every row (``dense``)
+_STAGE_INTS = ("pool", "rbb", "skip_idx", "emit", "stem_f", "relu_only",
+               "dil", "argmax_groups", "has_scale", "has_skip_w", "cob",
+               "dense")
+
+
+class _OpTaps(NamedTuple):
+    """A stage's tap lists as the op receives them: what ``_launch`` reads."""
+
+    table: torch.Tensor
+    cob: int
+    dense: bool
+
+
+def with_tables(stages: Sequence[ChainStage]) -> List[ChainStage]:
+    """A prepared chain whose every stage carries the tables read off its
+    weights: the tap lists of a conv stage (``taps``, built now unless the
+    stage holds lists read from its own tensors) and a pool stage's
+    ``pool_src``. Runs on real tensors, ahead of any trace."""
+    return [st if st.pool else dataclasses.replace(st, taps=_taps_of(st))
+            for st in _prepare(stages)]
+
+
+def chain_op_args(stages: Sequence[ChainStage]):
+    """A chain flattened into the op's schema: ``(tensors, ints, floats)``.
+    Per stage, ``tensors`` takes w, b, the tap table (a pool stage: its
+    ``pool_src``), then scale and shift, skip_w and w_scale where the stage
+    has them; ``ints`` takes the ``_STAGE_INTS`` entries; ``floats`` its
+    ``x_scale``. Reads no tensor's values: every stage must carry its tables
+    already (:func:`with_tables`)."""
+    tensors, ints, floats = [], [], []
+    for i, st in enumerate(_prepare(stages)):
+        if not st.pool and st.taps is None:
+            raise ValueError(f"stage {i} has no tap lists: build them with "
+                             "with_tables before tracing")
+        tensors += [st.w, st.b, st.pool_src if st.pool else st.taps.table]
+        if st.scale is not None:
+            tensors += [st.scale, st.shift]
+        if st.skip_w is not None:
+            tensors.append(st.skip_w)
+        if st.w_scale is not None:
+            tensors.append(st.w_scale)
+        ints += [int(st.pool), int(st.rbb), st.skip_idx, int(st.emit),
+                 st.stem_f, int(st.relu_only), st.dil, st.argmax_groups,
+                 int(st.scale is not None), int(st.skip_w is not None),
+                 0 if st.pool else st.taps.cob,
+                 0 if st.pool else int(st.taps.dense)]
+        floats.append(float(st.x_scale))
+    return tensors, ints, floats
+
+
+def _op_stages(tensors: Sequence[torch.Tensor], ints: Sequence[int],
+               floats: Sequence[float]):
+    """Inverse of :func:`chain_op_args`: (stages, per-stage taps)."""
+    stages, taps = [], []
+    it = iter(tensors)
+    k = len(_STAGE_INTS)
+    for i, x_scale in enumerate(floats):
+        m = dict(zip(_STAGE_INTS, ints[i * k:(i + 1) * k]))
+        w, b, table = next(it), next(it), next(it)
+        scale, shift = (next(it), next(it)) if m["has_scale"] else (None, None)
+        skip_w = next(it) if m["has_skip_w"] else None
+        w_scale = next(it) if x_scale and not m["pool"] else None
+        stages.append(ChainStage(
+            w=w, b=b, scale=scale, shift=shift, rbb=bool(m["rbb"]),
+            skip_idx=m["skip_idx"], emit=bool(m["emit"]), stem_f=m["stem_f"],
+            relu_only=bool(m["relu_only"]), skip_w=skip_w, dil=m["dil"],
+            argmax_groups=m["argmax_groups"], pool=bool(m["pool"]),
+            pool_src=table if m["pool"] else None, x_scale=x_scale,
+            w_scale=w_scale))
+        taps.append(None if m["pool"] else
+                    _OpTaps(table, m["cob"], bool(m["dense"])))
+    return stages, taps
+
+
+@torch.library.custom_op("robocupvision_tpu_torch::fused_conv_chain",
+                         mutates_args=(), device_types="cuda")
+def _chain_op(x: torch.Tensor, skips: List[torch.Tensor],
+              tensors: List[torch.Tensor], ints: List[int],
+              floats: List[float]) -> List[torch.Tensor]:
+    """K2's launch (:func:`_launch`, counted in ``fused_conv_chain.launches``)
+    of a flattened chain."""
+    stages, taps = _op_stages(tensors, ints, floats)
+    return _launch(x.contiguous(), _prepare(stages), taps,
+                   [s.contiguous() for s in skips])
+
+
+@_chain_op.register_kernel("cpu")
+def _chain_op_cpu(x, skips, tensors, ints, floats):
+    stages, _ = _op_stages(tensors, ints, floats)
+    return chain_reference(x, stages, skips)
+
+
+@_chain_op.register_fake
+def _chain_op_fake(x, skips, tensors, ints, floats):
+    """The emitted outputs' shapes and dtypes, as :func:`chain_reference`
+    gives them: (N, H, W, Cout) at x's dtype for each emitted stage (the
+    chain grid: x's, or a ``stem_f = f`` chain's image over f; a pool
+    stage's Cout is its selection stack's), the argmax head's (N, H, W,
+    groups) int32 labels last."""
+    stages = _prepare(_op_stages(tensors, ints, floats)[0])
+    n, h, w, _ = x.shape
+    f = stages[0].stem_f or 1
+    outs = []
+    for st in stages:
+        if st.argmax_groups:
+            outs.append(x.new_empty((n, h // f, w // f, st.argmax_groups),
+                                    dtype=torch.int32))
+        elif st.emit:
+            outs.append(x.new_empty((n, h // f, w // f, int(st.w.shape[3]))))
+    return outs
+
+
+def fused_conv_chain_op(x: torch.Tensor, stages: Sequence[ChainStage],
+                        skips: Sequence[torch.Tensor] = ()
+                        ) -> List[torch.Tensor]:
+    """:func:`fused_conv_chain` through the op: what a traced graph calls,
+    one op node a chain (stages with their tables, :func:`with_tables`)."""
+    tensors, ints, floats = chain_op_args(stages)
+    return _chain_op(x, list(skips), tensors, ints, floats)

@@ -9,7 +9,10 @@ torch-layout weights (what the port's modules store).
                         affine, result in the input dtype.
 - ``batch_norm_train``  train mode: the batch statistics (padded samples
                         masked out) and the new running statistics.
-- ``relu``, ``max_pool``, ``adaptive_avg_pool_1``.
+- ``relu``, ``max_pool``, ``avg_pool``, ``adaptive_avg_pool_1``.
+- ``linear``            w (in, out), as the JAX package stores it.
+- ``pixel_shuffle``     torch.nn.PixelShuffle on the NCHW view.
+- ``softmax``.
 - ``dropout``, ``dropout2d``: the train-time drops, applied with a keep
                         mask that ``draw_keep`` draws from a
                         ``torch.Generator`` apart from the apply (the JAX
@@ -122,6 +125,34 @@ def max_pool(x: torch.Tensor, kernel: IntOrPair,
              stride: Optional[IntOrPair] = None) -> torch.Tensor:
     """MaxPool2d, no padding, floor output size (torch default), NHWC."""
     return _nhwc(F.max_pool2d(_nchw(x), kernel, stride))
+
+
+def avg_pool(x: torch.Tensor, kernel: IntOrPair,
+             stride: Optional[IntOrPair] = None) -> torch.Tensor:
+    """AvgPool2d, no padding, floor output size, NHWC: the window sum over
+    the window size."""
+    return _nhwc(F.avg_pool2d(_nchw(x), kernel, stride))
+
+
+def linear(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Dense layer; ``w`` is (in, out), as in the JAX package."""
+    y = x @ w.to(x.dtype)
+    return y if b is None else y + b.to(y.dtype)
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """PixelShuffle on NHWC: (N, H, W, C*r*r) -> (N, H*r, W*r, C), as
+    torch.nn.PixelShuffle computes it on the NCHW view (input channel
+    c*r*r + i*r + j goes to output pixel (h*r + i, w*r + j))."""
+    n, h, w, crr = x.shape
+    c = crr // (r * r)
+    y = x.reshape(n, h, w, c, r, r).permute(0, 1, 4, 2, 5, 3)
+    return y.reshape(n, h * r, w * r, c)
+
+
+def softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    return torch.softmax(x, dim=dim)
 
 
 def adaptive_avg_pool_1(x: torch.Tensor) -> torch.Tensor:

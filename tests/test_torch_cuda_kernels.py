@@ -732,3 +732,51 @@ def test_chain_kernel_fuzz_matches_reference(cuda_device, monkeypatch, seed):
             want = torch.argmax(lg.reshape(n, h, w, head, c // head), dim=-1)
             assert torch.equal(labels, want.to(torch.int32))
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["flagship_stem", "pb_fcn_down_dil",
+                                  "pb_fcn_up_head"])
+def test_chain_op_is_the_direct_launch(cuda_device, dt, case):
+    """K2 through the torch.library op (what an exported graph calls):
+    one counted launch a call, bit-identical to the direct launch, and
+    against chain_reference at the kernel's tolerance."""
+    x, stages, skips = _feature_chain(case, dt, cuda_device)
+    stages = ckp.with_tables(stages)
+    want = ckp.fused_conv_chain(x, stages, skips)
+    before = ckp.fused_conv_chain.launches
+    got = ckp.fused_conv_chain_op(x, stages, skips)
+    torch.cuda.synchronize()
+    assert ckp.fused_conv_chain.launches == before + 1
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    _assert_chain_close(got, ckp.chain_reference(x, stages, skips), dt)
+
+
+@pytest.mark.cuda
+def test_export_serving_round_trip_on_card(cuda_device, tmp_path):
+    """A pallas and an int8 PB_FCN artifact traced on the card reload,
+    launch K2 once a chain a frame through the op, and label a frame as the
+    live graph does, bit for bit."""
+    from robocupvision_tpu_torch.export import aot
+
+    model = zoo.make("pb_fcn", planes=8, no_scale=True, device=cuda_device,
+                     generator=torch.Generator().manual_seed(3))
+    x = _randn(30, (1, 64, 96, 3), torch.float32, cuda_device)
+    for int8 in (False, True):
+        out = aot.export_serving(str(tmp_path), model, hw=(64, 96),
+                                 dtype=torch.float32, pallas=True, int8=int8,
+                                 calib_x=x if int8 else None,
+                                 fname=f"s{int(int8)}.pt2")
+        fn = aot.load_serving(out)
+        live = packed.build_packed_pb_fcn(model, None, torch.float32,
+                                          pallas=True, device=cuda_device)
+        if int8:
+            live = packed.quantize_int8(live, x)
+        before = ckp.fused_conv_chain.launches
+        got = fn(x)
+        torch.cuda.synchronize()
+        assert ckp.fused_conv_chain.launches == before + 2
+        assert torch.equal(got, live.infer_u8(x))

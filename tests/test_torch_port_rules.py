@@ -62,8 +62,9 @@ def test_port_imports_no_pil_at_module_level(path):
 def _entry_points():
     from robocupvision_tpu_torch.cli import (classTrainer, classVal,
                                              labelPropTrain, objDetEval,
-                                             test, tester, train, trainer,
-                                             validLabelProp)
+                                             test, testDumper, tester, train,
+                                             trainer, validLabelProp,
+                                             verifyDeploy)
     from robocupvision_tpu_torch.data.device_cache import DeviceCache
     from robocupvision_tpu_torch.data.streaming import StreamingBatches
     from robocupvision_tpu_torch.models import packed, zoo
@@ -101,6 +102,8 @@ def _entry_points():
         "objDetEval.main": lambda: objDetEval.main([]),
         "StreamingBatches": lambda: StreamingBatches([], 4),
         "zoo.make(bnn)": lambda: zoo.make("bnn"),
+        "verifyDeploy.main": lambda: verifyDeploy.main(["--dir", "weights"]),
+        "testDumper.main": lambda: testDumper.main([]),
     }
 
 
@@ -117,7 +120,8 @@ def _entry_points():
                                   "classTrainer.train_classifier",
                                   "train.main", "classVal.main",
                                   "objDetEval.main", "StreamingBatches",
-                                  "zoo.make(bnn)"])
+                                  "zoo.make(bnn)", "verifyDeploy.main",
+                                  "testDumper.main"])
 def test_entry_points_raise_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point runs there")

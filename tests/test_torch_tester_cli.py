@@ -4,8 +4,10 @@ JAX package's, on a synthetic RoboCup-layout root (tests/synth_data.py) at
 mask PNGs equal on all but 1e-4 of the pixels (argmax ties of the f32
 chain graph), ``--pipeline 3`` equal to serial, ``--int8`` (PB_FCN and
 ``--v2``) within 1e-3 of the JAX CLI's ``--int8`` run with masks equal on
->= 0.999 of the pixels, the checkpoint format shared both ways, and the
-dataset reader equal to the JAX package's."""
+>= 0.999 of the pixels, ``--dump`` byte-identical to the JAX tester's and
+``--dump --aot --pallas`` reloading to the live graph's labels, the
+checkpoint format shared both ways, and the dataset reader equal to the JAX
+package's."""
 
 import os
 import re
@@ -176,17 +178,80 @@ def _int8_run_matches_jax(env, capsys, v2):
         assert np.mean(np.any(got != want, axis=-1)) <= 1e-3
 
 
+def _dump(main, env, tmp, flags, capsys, **kw):
+    """Run ``main`` with ``flags`` in a fresh directory ``tmp`` holding the
+    work directory's checkpoints; returns what it printed."""
+    import shutil
+
+    shutil.copytree(env["work"] / "pth", tmp / "pth")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        return _run(main, ["--root", env["root"], "--noScale"] + flags,
+                    capsys, **kw)
+    finally:
+        os.chdir(cwd)
+
+
 @pytest.mark.parametrize("flag", [["--dump"], ["--dump", "--aot"],
                                   ["--packed", "--pallas", "--int8"]])
-def test_unported_flags_raise(env, monkeypatch, capsys, flag):
-    """``--dump`` and ``--aot`` (the export slice) raise; ``--int8``, now
-    ported, runs and matches the JAX CLI's ``--int8`` run."""
+def test_unported_flags_raise(env, monkeypatch, tmp_path, capsys, flag):
+    """The flags this test once held as refused now run: ``--dump`` writes
+    weights/VGA/{net.cfg, weights2.dat} byte-identical to the JAX tester's
+    dump of the same checkpoint; ``--dump --aot --pallas`` also writes
+    serving.pt2, which reloads and labels a frame as the live graph does
+    (its chains as K2 op nodes); ``--int8`` runs and matches the JAX CLI's
+    ``--int8`` run."""
     monkeypatch.chdir(env["work"])
     if "--int8" in flag:
         _int8_run_matches_jax(env, capsys, v2=False)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tester.main(["--root", env["root"], "--noScale"] + flag, device="cpu")
+    if flag == ["--dump"]:
+        _dump(jtester.main, env, tmp_path / "jax", flag, capsys)
+        out = _dump(tester.main, env, tmp_path / "port", flag, capsys,
+                    device="cpu")
+        assert "Dumped weights to ./weights/VGA/weights2.dat" in out
+        for name in ("net.cfg", "weights2.dat"):
+            with open(tmp_path / "port" / "weights" / "VGA" / name, "rb") as f:
+                got = f.read()
+            with open(tmp_path / "jax" / "weights" / "VGA" / name, "rb") as f:
+                assert got == f.read(), name
+        return
+    from robocupvision_tpu_torch.export import aot
+    from robocupvision_tpu_torch.models import packed
+
+    out = _dump(tester.main, env, tmp_path, flag + ["--pallas"], capsys,
+                device="cpu")
+    assert "Dumped AOT serving graph to ./weights/VGA/serving.pt2" in out
+    assert "Mean IoU" in out
+    prog = torch.export.load(str(tmp_path / "weights" / "VGA" / "serving.pt2"))
+    assert sum("fused_conv_chain" in str(n.target)
+               for n in prog.graph.nodes) == 2
+    fn = aot.load_serving(str(tmp_path / "weights" / "VGA"))
+    ds = datasets.SSDataSet(env["root"], split="val", scale=1)
+    x = torch.from_numpy(ds[0][0][None])
+    model = tzoo.make("pb_fcn", planes=32, num_classes=5, kernel_size=1,
+                      no_scale=True, device="cpu")
+    model.load_state_dict(checkpoint.load_any(
+        str(env["work"] / "pth" / "bestModelSegVGA.pth"), model.registry))
+    live = packed.build_packed_pb_fcn(model, None, torch.float32, pallas=True,
+                                      device="cpu").infer_u8(x)
+    assert torch.equal(fn(x), live)
+
+
+def test_tester_dump_v2_matches_jax(env, tmp_path, capsys):
+    """``--dump --v2``: PB_FCN_2 through ``save_params(skip_classifier=True)``
+    (its classification head left out), byte-identical to the JAX tester's
+    weightsVGAv2 dump."""
+    flags = ["--dump", "--v2"]
+    _dump(jtester.main, env, tmp_path / "jax", flags, capsys)
+    out = _dump(tester.main, env, tmp_path / "port", flags, capsys,
+                device="cpu")
+    assert "Classifier module skipped" in out
+    with open(tmp_path / "port" / "weights" / "VGAv2" / "weights2.dat", "rb") as f:
+        got = f.read()
+    with open(tmp_path / "jax" / "weights" / "VGAv2" / "weights2.dat", "rb") as f:
+        assert got == f.read()
 
 
 def test_tester_int8_v2_matches_jax(env, monkeypatch, capsys):
