@@ -56,11 +56,23 @@ the launch counters set to 0 just before it and read just after:
   - the trained-net int8 envelope (``int8_trained``): PB_FCN, the --v2
     ROBO-UNet and LabelProp trained 30 epochs, quantized at four
     calibration statistics, int8 chain graphs served against the float
-    ones on K2.
+    ones on K2;
+  - slim nets (``slim``): the flagship structurally pruned (ops/slim.py:
+    ratio 0.4 with widths rounded to 8, and unrounded, odd widths) and
+    compacted; the slim full chain graph served through
+    ``ServingPipeline`` and scored by K1; every K2 chain of the slim
+    two-chain and full chain graphs (bf16, f32) held to
+    ``chain_reference``, int8 of the slim graph, its AOT artifact,
+    deployment and engine, tools.structured_prune, detect's loop, and the
+    dense, masked and slim graphs timed side by side;
+  - the pruning loops (``prune_clis``): pruner's ``prune_iterations``
+    (PB_FCN, b8, 120x160) and train.py's --finetune --pruneStruct phase
+    (``train_combo``, the flagship at QVGA, b8), validation on K1.
 K2's int8 stages are held against the int8 ``chain_reference`` on every
 chain of the five families (VGA b1, bf16 and f32) and on one stage per
 feature, and K2 against ``chain_reference`` on random chains with random
-zero blocks in bf16, f32 and int8 (``k2_fuzz``). K3, the fused conv3x3
+zero blocks in bf16, f32 and int8 and on bf16 chains at the slim nets'
+widths (``k2_fuzz``). K3, the fused conv3x3
 block, has no caller: it is held against its plain version alone, beside
 cuDNN, at the QVGA packed widths, at VGA and at widths that are no
 multiples of 16. One call of each K2 chain of a prepared graph and one
@@ -807,9 +819,62 @@ def fuzz_cases(seed: int, dev):
     return cases, band
 
 
+# (Cin, Cout) of the bf16 width chains: the slim nets' widths, 8, 24 and 40
+# (not multiples of 16: the mma_nt = 8 tap loop, partial 16-channel k
+# chunks) and odd ones (scalar loads), as prune_channels gives them
+WIDTH_PAIRS = ((8, 24), (24, 40), (40, 8), (5, 39), (39, 77))
+
+
+def width_chain(cin: int, cout: int, dev, seed: int = 0):
+    """A bf16 chain at slim widths for K2 against ``chain_reference``:
+    ``(x, stages, skips)``. A 3x3 rbb stage cin -> cout, a dilated 3x3
+    bn-relu stage cout -> cout with an identity skip, a 1x1 relu-only stage
+    cout -> cin with a 3x3 ``skip_w`` conv of a cin-wide skip, and a 3x3
+    head cin -> 10 with a two-group argmax; random zero blocks in every
+    kernel, the tap lists attached as the packers attach them."""
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    rng = np.random.default_rng(2000 + 97 * cin + cout + seed)
+    n, h, w = 2, 12, 20
+    bf = torch.bfloat16
+
+    def t(a, dt=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dt)
+
+    def arr(*shape, scale=1.0):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    def conv_w(k, ci, co):
+        return t(_zero_blocks(arr(k, k, ci, co, scale=(k * k * ci) ** -0.5),
+                              rng, 0.3), bf)
+
+    def stage(w, co, skip_w=None, **kw):
+        return ckp.ChainStage(w=w, b=t(arr(co, scale=0.1)), skip_w=skip_w,
+                              taps=ckp.tap_blocks(w, skip_w), **kw)
+
+    def affine(co):
+        return dict(scale=t(rng.uniform(0.5, 1.2, co).astype(np.float32)),
+                    shift=t(arr(co, scale=0.1)))
+
+    x = t(arr(n, h, w, cin), bf)
+    skips = [t(arr(n, h, w, cout, scale=0.5), bf),
+             t(arr(n, h, w, cin, scale=0.5), bf)]
+    stages = [
+        stage(conv_w(3, cin, cout), cout, rbb=True, emit=True,
+              **affine(cout)),
+        stage(conv_w(3, cout, cout), cout, dil=2, skip_idx=0,
+              **affine(cout)),
+        stage(conv_w(1, cout, cin), cin, relu_only=True, skip_idx=1,
+              skip_w=conv_w(3, cin, cin), emit=True),
+        stage(conv_w(3, cin, 10), 10),
+    ]
+    return x, ckp.with_argmax_head(stages, 2), skips
+
+
 def phase_k2_fuzz(dev, chk: Checks) -> dict:
     """K2 on FUZZ_SEEDS random chains (``fuzz_cases``) in bf16, f32 and
-    int8, each against ``chain_reference`` by ``check_chain``'s gates (bf16
+    int8, and on the bf16 chains at the slim nets' widths
+    (``width_chain``), each against ``chain_reference`` by ``check_chain``'s gates (bf16
     per element within ``bf16_tolerance``, f32 within rtol = atol = 2e-4
     and relative L2 under 1e-4, int8 equal without a ``skip_w`` stage and
     within the int8 gate with one), at the chain's band. An argmax head's
@@ -847,6 +912,15 @@ def phase_k2_fuzz(dev, chk: Checks) -> dict:
                     res["failed"].append(tag)
     finally:
         ckp.choose_band = choose
+    # bf16 draws at the slim nets' widths
+    for cin, cout in WIDTH_PAIRS:
+        tag = f"width{cin}x{cout}_bf16"
+        before = len(chk.failed)
+        r = check_chain(tag, width_chain(cin, cout, dev), chk, 0, timed=False)
+        res["cases"] += 1
+        res["features"] |= set(r["features"])
+        if len(chk.failed) > before:
+            res["failed"].append(tag)
     res["features"] = sorted(res["features"])
     emit(res)
     return res
@@ -2693,12 +2767,89 @@ def time_train_step(tr, dev, prune_masks=None) -> dict:
             else 1 - prof["device_ms"] / ms}
 
 
+GATE_RTOL = 1e-4  # how far from its branch point a followed gate may lie
+
+
+@contextlib.contextmanager
+def gates(record=None, follow=None):
+    """Within it ``ops.nn.relu`` and ``ops.nn.max_pool``, where the port's
+    nets branch on a value, either append the branch each call takes to
+    ``record`` (the ReLU's ``x >= 0``, where its gradient passes; the
+    pool's argmax) or take, call by call, the branches of ``follow``
+    recorded on another device, and yield a dict that counts the calls,
+    the elements whose own branch differs and, over the differing
+    elements, the largest distance to the branch point: |x| for a ReLU,
+    own max minus the followed element for a pool, each over the call's
+    max |x|."""
+    import torch.nn.functional as F
+
+    from robocupvision_tpu_torch.ops import nn
+
+    real = nn.relu, nn.max_pool
+    seen = {"calls": 0, "flipped": 0, "worst_gap": 0.0}
+    todo = iter(follow or ())
+
+    def note(differs, gap, scale):
+        seen["calls"] += 1
+        n = int(differs.sum())
+        if n:
+            seen["flipped"] += n
+            seen["worst_gap"] = max(seen["worst_gap"],
+                                    float(gap[differs].max() / scale))
+
+    def relu(x):
+        if record is not None:
+            record.append(("relu", (x >= 0).detach()))
+            return real[0](x)
+        kind, m = next(todo)
+        assert kind == "relu", f"followed {kind} at a relu"
+        m = m.to(x.device)
+        note((x >= 0) != m, x.detach().abs(),
+             x.detach().abs().max().clamp_min(1e-30))
+        return torch.where(m, x, torch.zeros((), dtype=x.dtype,
+                                             device=x.device))
+
+    def max_pool(x, kernel, stride=None):
+        xc = x.permute(0, 3, 1, 2)
+        if record is not None:
+            y, idx = F.max_pool2d(xc, kernel, stride, return_indices=True)
+            record.append(("max_pool", idx.detach()))
+            return y.permute(0, 2, 3, 1)
+        kind, idx = next(todo)
+        assert kind == "max_pool", f"followed {kind} at a max_pool"
+        idx = idx.to(x.device)
+        y = xc.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+        with torch.no_grad():
+            own, own_idx = F.max_pool2d(xc, kernel, stride,
+                                        return_indices=True)
+            note(own_idx != idx, own - y, xc.abs().max().clamp_min(1e-30))
+        return y.permute(0, 2, 3, 1)
+
+    nn.relu, nn.max_pool = relu, max_pool
+    try:
+        yield seen
+    finally:
+        nn.relu, nn.max_pool = real
+
+
 def card_vs_cpu_step(tr, dev) -> dict:
     """One SGD step (momentum 0.9, weight decay 1e-3, lr 0.1) of the
     loop's net and step configuration from its trained params, on a batch
     of 8 with one padded slot and the same augmentation draws and dropout
     masks, on the card and on the CPU: the worst |card - CPU| over
-    rtol 1e-3 of every parameter and running statistic, and the losses."""
+    rtol 1e-3 of every parameter and running statistic, and the losses.
+
+    The CPU step takes the card's branches at every ReLU and max pool
+    (``gates``): the gradient jumps where a ReLU input crosses 0, and at
+    some trained points of these small nets one input of a deep layer lies
+    within f32 rounding of 0, lands on either side on the two devices and
+    moves the first conv's update by more than the tolerance (the CPU alone
+    does the same when the params move at the size of f32 rounding; card
+    training is not bit reproducible, so the point a run reaches varies).
+    Each branch the CPU would take otherwise must lie within
+    ``GATE_RTOL`` of its branch point (``gate_flips``, ``gate_worst_gap``),
+    so a card whose activations differ by more than rounding still fails.
+    The CPU step on its own branches is reported beside it, not held."""
     from robocupvision_tpu_torch.data.device_cache import epoch_batches
     from robocupvision_tpu_torch.models import layers, zoo
     from robocupvision_tpu_torch.ops import color
@@ -2713,25 +2864,33 @@ def card_vs_cpu_step(tr, dev) -> dict:
     gen = torch.Generator().manual_seed(SEED + 60)
     draws = color.AUGMENT_MODES[tr.cfg.augment_mode][0](gen, 8)
     keep = cpu_model.draw_dropout(gen, 8)
-    outs = []
-    for model, d in ((tr.model, dev), (cpu_model, torch.device("cpu"))):
+    cpu, branches = torch.device("cpu"), []
+    outs, seen = [], []
+    for model, d, branch in ((tr.model, dev, gates(record=branches)),
+                             (cpu_model, cpu, gates(follow=branches)),
+                             (cpu_model, cpu, contextlib.nullcontext({}))):
         tx = optim.sgd(0.9, 1e-3)
         params = {k: v.detach().to(d).clone()
                   for k, v in tr.state.params.items()}
         st = tstep.TrainState(params, tx.init(layers.split_params(params)[0]))
         fn = tstep.make_train_step(model, tx, tr.cfg)
-        outs.append(fn(st, x.to(d), t.to(d), m.to(d),
-                       {k: v.to(d) for k, v in draws.items()}, 0.1, None,
-                       None if keep is None
-                       else {k: v.to(d) for k, v in keep.items()}))
-    (gst, gout), (cst, cout) = outs
-    worst, name = -1.0, ""
-    for k, v in cst.params.items():
-        e = float(((gst.params[k].cpu() - v).abs() - 1e-3 * v.abs()).max())
-        if e > worst:
-            worst, name = e, k
+        with branch as counts:
+            outs.append(fn(st, x.to(d), t.to(d), m.to(d),
+                           {k: v.to(d) for k, v in draws.items()}, 0.1, None,
+                           None if keep is None
+                           else {k: v.to(d) for k, v in keep.items()}))
+        seen.append(counts)
+    (gst, gout), (cst, cout), (fst, _) = outs
+    followed = seen[1]
+    card = {k: v.cpu() for k, v in gst.params.items()}
+    worst, name = worst_over_tol(card, cst.params, 1e-3)
     return {"loss": [float(gout["loss"]), float(cout["loss"])],
-            "worst_abs_err_over_rtol": worst, "worst_param": name}
+            "worst_abs_err_over_rtol": worst, "worst_param": name,
+            "gate_calls": followed["calls"], "gate_calls_card": len(branches),
+            "gate_flips": followed["flipped"],
+            "gate_worst_gap": followed["worst_gap"],
+            "own_branches_worst_abs_err_over_rtol":
+                worst_over_tol(card, fst.params, 1e-3)}
 
 
 LEGACY_CLASS_N, LEGACY_SEG_N, LEGACY_LP_N = (128, 48), (96, 40), (32, 12)
@@ -2759,7 +2918,9 @@ def phase_legacy_train(dev, chk: Checks, smi: str) -> list:
     after every epoch, and to 0 in the others. After ``--prune`` every band-pruned weight
     must still be 0. Then each loop's own train step is timed at its
     batch with its prune masks (``time_train_step``) and one SGD step of its net on the card
-    held within rtol = atol = 1e-3 of the CPU's (``card_vs_cpu_step``)."""
+    held within rtol = atol = 1e-3 of the CPU's (``card_vs_cpu_step``, the
+    CPU on the card's ReLU and pool branches, each within ``GATE_RTOL`` of
+    its own)."""
     import shutil
 
     from robocupvision_tpu_torch.cli import classTrainer, labelPropTrain, trainer
@@ -2876,7 +3037,9 @@ def phase_legacy_train(dev, chk: Checks, smi: str) -> list:
                            "batches")
                 chk.expect(step["worst_abs_err_over_rtol"] <= 1e-3
                            and abs(step["loss"][0] - step["loss"][1])
-                           <= 1e-3 * abs(step["loss"][1]),
+                           <= 1e-3 * abs(step["loss"][1])
+                           and step["gate_calls"] == step["gate_calls_card"]
+                           and step["gate_worst_gap"] <= GATE_RTOL,
                            f"legacy {name}: the card's SGD step differs from "
                            f"the CPU's: {step}")
         finally:
@@ -3383,6 +3546,519 @@ def phase_int8_trained(dev, chk: Checks, smi: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Slim nets: structured pruning through the packed graphs, K2 and export
+# ---------------------------------------------------------------------------
+
+SLIM_RATIO = 0.4   # tests/test_slim.py's setting: 24- and 40-wide stages
+
+
+def slim_dicts(model) -> dict:
+    """The flagship's dicts (CPU, the port's layout): ``dense``; ``masked``
+    (``prune_channels`` at ratio 0.4, kept widths rounded up to 8);
+    ``slim`` (``compact(masked)``); and ``slim_odd`` (ratio 0.4, no
+    rounding: odd widths)."""
+    from robocupvision_tpu_torch.ops import slim
+
+    dense = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    groups = slim.channel_groups(model)
+    masked, _ = slim.prune_channels(dense, groups, SLIM_RATIO, round_to=8,
+                                    verbose=False)
+    odd, _ = slim.prune_channels(dense, groups, SLIM_RATIO, round_to=1,
+                                 verbose=False)
+    return {"dense": dense, "masked": masked,
+            "slim": slim.compact(model, masked)[0],
+            "slim_odd": slim.compact(model, odd)[0]}
+
+
+def widths(state) -> list:
+    """The distinct output widths of a dict's conv kernels."""
+    return sorted({int(v.shape[0]) for k, v in state.items()
+                   if k.endswith(".conv.weight") and "upPart" not in k}
+                  | {int(v.shape[1]) for k, v in state.items()
+                     if k.startswith("upPart") and k.endswith("conv.weight")})
+
+
+def tie_rule(got, want, gap, tol: float) -> dict:
+    """Label maps ``got`` against ``want``: the agreement, and the largest
+    top-2 logit gap (of ``want``'s logits) at a mismatch; ``ok`` when every
+    mismatch lies at a gap below ``tol`` (an argmax tie)."""
+    mism = got != want
+    worst = float(gap[mism].max()) if mism.any() else 0.0
+    return {"agreement": 1.0 - float(mism.mean()), "mismatch_max_gap": worst,
+            "ok": worst < tol}
+
+
+def slim_chain_card_ms(call) -> float:
+    """K2's card ms a launch on ``call`` = (x, stages, skips): the
+    ``chain_kernel`` rows of ``profile_calls`` over 10 launches (its warm
+    step and retries); None where the trace holds no device time."""
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+
+    x, stages, skips = call
+    rows = profile_calls(lambda: ckp.fused_conv_chain(x, stages, skips), 10)
+    return None if rows is None else sum(ms for key, _, ms in rows
+                                         if "chain_kernel" in key)
+
+
+def phase_slim(model, dev, chk: Checks, frames, targets, smi: str) -> dict:
+    """The flagship at full width at VGA through ops/slim (``slim_dicts``):
+    the zoo apply of ``masked`` against ``slim`` (f32, TF32 off); every K2
+    chain of one frame of the two-chain and full chain graphs of ``slim``
+    and ``slim_odd``, bf16 and f32, against ``chain_reference``
+    (``check_chain``), K2 launches a frame, and the chain graphs' labels
+    against the plain packed graph of the same dict; int8 of the slim bf16
+    full chain graph against its ``chain_reference`` and float; the main
+    path: the slim bf16 full chain graph served through ``ServingPipeline``
+    and scored by K1, the counters set to 0 just before and read just
+    after; ``export_serving``/``load_serving`` of the slim dict (K2
+    through the artifact), ``export_deployment`` + ``verify_deployment``
+    and the engine; dense, masked and slim timed (K2 card ms alone a chain
+    and in the frame, device fps b1 and b8, served fps b1, analytic
+    MFLOPs); ``tools.structured_prune`` on
+    a saved checkpoint (``--ratio 0.5 --deploy`` and ``--keep 64``); and
+    detect's loop (``--packed --ckpt`` slim) over 8 frames against the slim
+    zoo apply."""
+    from robocupvision_tpu_torch.cli import detect
+    from robocupvision_tpu_torch.export import aot, deploy, netcfg
+    from robocupvision_tpu_torch.export.engine import NativeEngine
+    from robocupvision_tpu_torch.models import packed, zoo
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+    from robocupvision_tpu_torch.ops import metrics, slim
+    from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+    from robocupvision_tpu_torch.ops.cuda_kernels import confusion_count
+    from robocupvision_tpu_torch.tools import structured_prune
+    from robocupvision_tpu_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    dicts = slim_dicts(model)
+    on = {k: {n: t.to(dev) for n, t in v.items()} for k, v in dicts.items()}
+    res = {"phase": "slim", "ratio": SLIM_RATIO, "card": smi,
+           "params": {k: slim.param_count(v) for k, v in dicts.items()},
+           "widths": {k: widths(v) for k, v in dicts.items()},
+           "mflops": {k: sum(zoo.robo_unet_get_computations(
+               model.cfg, v, pruned=True)) / 1e6 for k, v in dicts.items()}}
+    n_eval = 8
+    xs = raw_camera_preprocess(torch.from_numpy(
+        np.concatenate(frames[:n_eval])).to(dev))
+    x0 = xs[:1]
+
+    with torch.no_grad():
+        # (a) the zoo apply: masked == slim (an exact rewrite, f32)
+        ref = {}
+        for k in ("masked", "slim", "slim_odd"):
+            ref[k] = torch.cat([model.apply(on[k], xs[i:i + 1])
+                                for i in range(n_eval)]).float()
+        err = float((ref["masked"] - ref["slim"]).abs().max())
+        agree = float((ref["masked"].argmax(-1) == ref["slim"].argmax(-1))
+                      .float().mean())
+        res["zoo_masked_vs_slim"] = {"max_abs": err, "label_agreement": agree}
+        chk.expect(err <= 1e-4 and agree >= 0.999,
+                   f"slim: zoo apply masked vs slim max abs {err}, "
+                   f"agreement {agree}")
+
+        # (b) K2 on every chain of the slim graphs, and their labels
+        res["chains"], res["graphs"] = [], {}
+        forms = {"chains2": dict(), "chains3": dict(pallas_fold_stem=True,
+                                                    pallas_deep=True)}
+        for name in ("slim", "slim_odd"):
+            ref_labels = ref[name].argmax(-1).cpu().numpy()
+            for dt in (torch.bfloat16, torch.float32):
+                dts = "bf16" if dt == torch.bfloat16 else "f32"
+                plain = packed.build_packed_infer(model, on[name], dt,
+                                                  device=dev)
+                plain_labels = plain.infer(xs).cpu().numpy()
+                for form, kw in forms.items():
+                    pi = packed.build_packed_infer(model, on[name], dt,
+                                                   pallas=True, device=dev,
+                                                   **kw)
+                    tags = []
+                    calls = record_chain_calls(pi, pi.infer, x0, tags)
+                    for tag, call in zip(tags, calls):
+                        r = check_chain(f"{name}_{form}_{tag}_{dts}", call,
+                                        chk, 0, timed=False)
+                        res["chains"].append([r["case"], r["max_abs_err"],
+                                              r.get("label_agreement")])
+                    ckp.fused_conv_chain.launches = 0
+                    pi.infer(x0)
+                    per_frame = ckp.fused_conv_chain.launches
+                    labels = pi.infer(xs).cpu().numpy()
+                    g = {"k2_launches_per_frame": per_frame,
+                         "vs_plain_packed": float((labels == plain_labels)
+                                                  .mean()),
+                         "vs_f32_zoo": float((labels == ref_labels).mean()),
+                         "plain_packed_vs_f32_zoo": float(
+                             (plain_labels == ref_labels).mean())}
+                    res["graphs"][f"{name}_{form}_{dts}"] = g
+                    chk.expect(per_frame == {"chains2": 2, "chains3": 3}[form],
+                               f"slim {name} {form} {dts}: {per_frame} K2 "
+                               "launches a frame")
+                    if dt == torch.float32:
+                        ok = g["vs_plain_packed"] >= 0.999
+                    else:
+                        ok = g["vs_f32_zoo"] >= \
+                            g["plain_packed_vs_f32_zoo"] - 1e-3
+                    chk.expect(ok, f"slim {name} {form} {dts}: labels {g}")
+
+        # (c) int8 of the slim bf16 full chain graph
+        f = packed.build_packed_infer(model, on["slim"], torch.bfloat16,
+                                      pallas=True, device=dev,
+                                      **forms["chains3"])
+        q = packed.quantize_int8(f, x0)
+        q_labels = q.infer(xs).cpu().numpy()
+        ref_q = reference_chains(q).infer(xs).cpu().numpy()
+        del q._chain
+        res["int8"] = {
+            "vs_int8_chain_reference": float((q_labels == ref_q).mean()),
+            "vs_float": float((q_labels == f.infer(xs).cpu().numpy())
+                              .mean())}
+        chk.expect(res["int8"]["vs_int8_chain_reference"] == 1.0
+                   and res["int8"]["vs_float"] >= 0.95,
+                   f"slim: int8 {res['int8']}")
+
+    # (d) the main path: the slim full chain graph served and scored
+    device_fn, host_unpack = camera_packed(f)
+    ckp.fused_conv_chain.launches = 0
+    confusion_count.launches = 0
+    K1_REC.active = True
+    t0 = time.perf_counter()
+    served = serve(f, frames, device_fn, host_unpack)
+    acc = metrics.SegAccum.zero(5)
+    for lab, tgt in zip(served, targets):
+        acc = acc + metrics.seg_batch_stats_host(lab[None], tgt, 5,
+                                                 device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    K1_REC.active = False
+    res["main_path_launches"] = {
+        "fused_conv_chain": ckp.fused_conv_chain.launches,
+        "confusion_count": confusion_count.launches}
+    res["main_path_fps"] = len(frames) / wall
+    chk.expect(res["main_path_launches"] == {
+        "fused_conv_chain": 3 * len(frames), "confusion_count": len(frames)},
+        f"slim: main path launches {res['main_path_launches']}")
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=here, prefix=".chip_smoke_") as tmp:
+        # (e) export: the AOT artifact, the deployment and the engine
+        out = aot.export_serving(tmp, model, on["slim"], hw=VGA,
+                                 dtype=torch.bfloat16, pallas=True)
+        fn = aot.load_serving(out)
+        live = packed.build_packed_infer(model, on["slim"], torch.bfloat16,
+                                         pallas=True, device=dev)
+        with torch.no_grad():
+            want = torch.cat([live.infer_u8(xs[i:i + 1])
+                              for i in range(n_eval)])
+            ckp.fused_conv_chain.launches = 0
+            got = torch.cat([fn(xs[i:i + 1]) for i in range(n_eval)])
+            torch.cuda.synchronize()
+        res["aot"] = {"equal_live": bool(torch.equal(got, want)),
+                      "k2_launches_per_frame":
+                      ckp.fused_conv_chain.launches / n_eval}
+        chk.expect(res["aot"] == {"equal_live": True,
+                                  "k2_launches_per_frame": 2.0},
+                   f"slim: AOT artifact {res['aot']}")
+        dep = os.path.join(tmp, "dep")
+        deploy.export_deployment(dep, model, on["slim"])
+        try:
+            v = deploy.verify_deployment(dep, model, on["slim"], x0)
+        except AssertionError as e:
+            v = str(e)
+        res["verify_deployment_max_abs"] = v
+        chk.expect(isinstance(v, float) and v <= 1e-4,
+                   f"slim: verify_deployment {v}")
+        with torch.no_grad():
+            cfg_out = netcfg.run_cfg(
+                netcfg.parse_cfg(os.path.join(dep, "net.cfg")),
+                np.fromfile(os.path.join(dep, "weights.dat"), "<f4"),
+                x0)[0].cpu()
+        eng = NativeEngine(os.path.join(dep, "net.cfg"),
+                           os.path.join(dep, "weights.dat"))
+        try:
+            eng_out = eng.forward(np.ascontiguousarray(
+                x0[0].cpu().numpy().transpose(2, 0, 1)))
+            consumed = eng.weights_fully_consumed
+        finally:
+            eng.close()
+        diff = float(np.abs(eng_out - cfg_out.numpy().transpose(2, 0, 1))
+                     .max())
+        tie = tie_rule(eng_out.argmax(0), cfg_out.argmax(-1).numpy(),
+                       top2_gap(cfg_out), max(2 * diff, 1e-6))
+        res["engine"] = {"max_abs": diff, "weights_fully_consumed": consumed,
+                         **tie}
+        chk.expect(consumed and tie["ok"],
+                   f"slim: engine vs run_cfg {res['engine']}")
+
+        # (f) tools.structured_prune on a saved flagship checkpoint
+        ck = os.path.join(tmp, "best.weights")
+        checkpoint.save(ck, model.registry, dicts["dense"])
+        tool = {}
+        for mode, extra in (("ratio", ["--ratio", "0.5", "--deploy",
+                                       os.path.join(tmp, "weightsSlim")]),
+                            ("keep", ["--keep", "64"])):
+            tool[mode] = structured_prune.main(
+                ["--checkpoint", ck, "--noScale", "--out",
+                 os.path.join(tmp, f"{mode}.weights")] + extra)
+        res["structured_prune_rc"] = tool
+        chk.expect(tool == {"ratio": 0, "keep": 0},
+                   f"slim: structured_prune exit codes {tool}")
+
+        # (g) detect's loop, --packed on the slim checkpoint
+        sp = os.path.join(tmp, "slim.weights.slim")
+        checkpoint.save(sp, model.registry, dicts["slim"], slim=True)
+        opt = detect.build_parser().parse_args(["--noScale", "--packed",
+                                                "--ckpt", sp])
+        dm = detect.detect_model(opt, 5, dev)
+        labels = detect.detect_frames(
+            detect.make_infer(dm, checkpoint.load_any(sp, dm.registry),
+                              opt.packed), xs.cpu().numpy(), dev)
+        res["detect"] = tie_rule(np.stack(labels),
+                                 ref["slim"].argmax(-1).cpu().numpy(),
+                                 top2_gap(ref["slim"]), 1e-4)
+        chk.expect(res["detect"]["ok"], f"slim: detect {res['detect']}")
+
+    # (h) dense, masked and slim: the full chain graph, bf16, VGA
+    timing = {}
+    for name in ("dense", "masked", "slim", "slim_odd"):
+        pi = packed.build_packed_infer(model, on[name], torch.bfloat16,
+                                       pallas=True, device=dev,
+                                       **forms["chains3"])
+        fn, unpack = camera_packed(pi)
+        t = {"mflops": res["mflops"][name]}
+        tags = []
+        calls = record_chain_calls(pi, pi.infer, x0, tags)
+        t["chain_card_ms"] = {tag: slim_chain_card_ms(call)
+                              for tag, call in zip(tags, calls)}
+        x1 = torch.from_numpy(frames[0]).to(dev)
+        t.update(device_split(lambda: fn(x1), 10))
+        for b in (1, 8):
+            xb = torch.from_numpy(np.concatenate(frames[:b])).to(dev)
+            t[f"device_fps_b{b}"] = b / cuda_ms(lambda: fn(xb),
+                                                10 if b == 1 else 5) * 1e3
+        serve(pi, frames[:4], fn, unpack)
+        t0 = time.perf_counter()
+        serve(pi, frames, fn, unpack)
+        t["served_fps_b1"] = len(frames) / (time.perf_counter() - t0)
+        t.pop("plain_parts_top", None)
+        timing[name] = t
+    res["timing_chains3_bf16"] = timing
+    res["seconds"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+def topk_count(size: int, ratio: float, low_t: int, high_t: int) -> int:
+    """The weights pruner.py's size-adaptive top-k zeroes in a tensor of
+    ``size``: its ratio none below 100 weights, 0.8x below ``low_t`` and
+    1.05x above ``high_t`` (reference model.py:644-672)."""
+    r = 0.0 if size < 100 else (ratio * 0.8 if size < low_t else ratio)
+    if size > high_t:
+        r = ratio * 1.05
+    return int(size * r)
+
+
+PRUNE_SEG_N = (96, 32)     # pruner: train, val frames (120x160)
+PRUNE_STRUCT_N = (64, 16)  # --pruneStruct: its 25 epochs at b8
+
+
+@contextlib.contextmanager
+def train_runs():
+    """Records the Trainer and prune masks of every ``Trainer.train_run``
+    call made inside (train_combo builds its own Trainer)."""
+    from robocupvision_tpu_torch.train.loop import Trainer
+
+    real, seen = Trainer.train_run, []
+
+    def run(self, *a, **kw):
+        seen.append((self, kw.get("prune_masks")))
+        return real(self, *a, **kw)
+
+    Trainer.train_run = run
+    try:
+        yield seen
+    finally:
+        Trainer.train_run = real
+
+
+def phase_prune_clis(dev, chk: Checks, smi: str) -> list:
+    """The two pruning loops at their CLIs' nets and batches on in-memory
+    scenes (``scene_set``; only the data and the epochs are cut), in a
+    temporary working directory, each a main path with the counters set to
+    0 just before and read just after (``counted_run``):
+    ``pruner.prune_iterations`` (PB_FCN planes 32 at 120x160, b8, --iters 2
+    --epochsPerIter 1: three epochs over 96 scenes, validation on 32) from
+    a seeded finetuned checkpoint; after each iteration the pruned weights
+    must still be exactly 0 and each tensor's pruned count the
+    size-adaptive top-k count (``topk_count``); and ``train.train_combo``'s
+    --finetune --pruneStruct 0.5 phase (the flagship at QVGA, b8, its 25
+    epochs over 64 frames of ``eval_set``, validation on 16) from a seeded
+    bestFinetune.weights: the pruned channels must stay 0 through Adam, the
+    .slim sibling must carry the slim marker and fewer params, and its
+    chain graph (f32, K2) label as the dense pruned checkpoint's zoo apply
+    does (>= 0.999). K1 once per validation batch and epoch, no K2. Each
+    loop's own step is then timed (``time_train_step``)."""
+    import glob
+
+    from robocupvision_tpu_torch.cli import pruner
+    from robocupvision_tpu_torch.cli import train as tcli
+    from robocupvision_tpu_torch.data.datasets import legacy_normalize
+    from robocupvision_tpu_torch.data.device_cache import (DeviceCache,
+                                                           num_batches)
+    from robocupvision_tpu_torch.models import packed, zoo
+    from robocupvision_tpu_torch.ops import slim
+    from robocupvision_tpu_torch.train import checkpoint, naming
+
+    def caches(imgs, labs, n_train):
+        return (DeviceCache.from_numpy(imgs[:n_train], labs[:n_train],
+                                       device=dev),
+                DeviceCache.from_numpy(imgs[n_train:], labs[n_train:],
+                                       device=dev))
+
+    t_phase = time.perf_counter()
+    size = (120, 160)
+    rgb, labs = scene_set(sum(PRUNE_SEG_N), SEED + 70, size)
+    seg_sets = caches(legacy_normalize(rgb), labs, PRUNE_SEG_N[0])
+    struct_sets = caches(*eval_set(sum(PRUNE_STRUCT_N), SEED + 71, size,
+                                   paint=True), PRUNE_STRUCT_N[0])
+    results = []
+    here = os.path.dirname(os.path.abspath(__file__))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(dir=here, prefix=".chip_smoke_") as tmp:
+        os.chdir(tmp)
+        try:
+            # --- pruner ----------------------------------------------------
+            pb = zoo.make("pb_fcn", planes=32, num_classes=5, kernel_size=1,
+                          device=dev,
+                          generator=torch.Generator().manual_seed(SEED + 72))
+            checkpoint.save("pth/bestModelSegbothFinetuned.pth", pb.registry,
+                            pb.state_dict())
+            opt = pruner.build_parser().parse_args(
+                ["--iters", "2", "--epochsPerIter", "1"])
+            iters = []
+
+            def on_iter(it, masks, tr):
+                params = tr.params_numpy()
+                moved = sum(int((params[k][m.cpu().numpy()] != 0).sum())
+                            for k, m in masks.items())
+                counts_equal = all(
+                    int(m.sum()) == topk_count(m.numel(), (it + 1) * 0.08,
+                                               1000, 50000)
+                    for m in masks.values())
+                iters.append({"iter": it, "pruned_nonzero": moved,
+                              "pruned": int(sum(int(m.sum())
+                                                for m in masks.values())),
+                              "counts_equal_topk": counts_equal,
+                              "trainer": tr, "masks": masks})
+
+            tee = Tee(sys.stdout)
+            with contextlib.redirect_stdout(tee):
+                best, launches, verified, unequal, wall = counted_run(
+                    lambda: pruner.prune_iterations(opt, *seg_sets, dev,
+                                                    on_iter=on_iter))
+            epochs = sum(range(1, opt.iters + 1)) * opt.epochsPerIter
+            want_k1 = epochs * num_batches(seg_sets[1].n, opt.batchSize)
+            ckpt = "pth/bestModelSegbothFinetunedPruned2.pth"
+            loaded = checkpoint.load_any(ckpt, pb.registry)
+            last = iters[-1]
+            res = {"phase": "prune_clis", "loop": "pruner.prune_iterations",
+                   "family": "pb_fcn", "batch": opt.batchSize,
+                   "input": list(seg_sets[0].images.shape[1:]),
+                   "train_n": seg_sets[0].n, "val_n": seg_sets[1].n,
+                   "epochs": epochs, "best_val_loss": best.get("loss"),
+                   "iterations": [{k: v for k, v in i.items()
+                                   if k not in ("trainer", "masks")}
+                                  for i in iters],
+                   "checkpoint_loads": len(loaded) == len(pb.registry.specs),
+                   "launches": launches, "k1_verified": verified,
+                   "k1_unequal_plain": unequal, "seconds": wall,
+                   "card": smi}
+            res.update(time_train_step(last["trainer"], dev, last["masks"]))
+            emit(res)
+            results.append(res)
+            chk.expect(len(iters) == 2 and all(
+                i["pruned_nonzero"] == 0 and i["counts_equal_topk"]
+                for i in iters), f"prune_clis pruner: {res['iterations']}")
+            chk.expect(res["checkpoint_loads"], f"prune_clis: {ckpt}")
+            chk.expect(launches == {"confusion_count": want_k1,
+                                    "fused_conv_chain": 0,
+                                    "fused_conv3x3_block": 0}
+                       and verified == want_k1 and unequal == 0,
+                       f"prune_clis pruner: launches {launches}, K1 equal "
+                       f"plain on {verified - unequal} of {want_k1}")
+
+            # --- train.py --finetune --pruneStruct 0.5 --------------------
+            topt = tcli.build_parser().parse_args(
+                ["--finetune", "--pruneStruct", "0.5", "--batchSize", "8",
+                 "--chunkEpochs", "0"])
+            s = tcli.Setup.from_opt(topt)
+            flag = zoo.make("robo_unet", device=dev,
+                            generator=torch.Generator().manual_seed(SEED + 73),
+                            **tcli.model_hyper(False, False))
+            checkpoint.save(naming.train_ckpt_name(s.flags, 0),
+                            flag.registry, flag.state_dict())
+            _, masks = slim.prune_channels(
+                flag.state_dict(), slim.channel_groups(flag), 0.5,
+                min_keep=topt.slimMinKeep, round_to=topt.slimRound,
+                verbose=False)
+            tee = Tee(sys.stdout)
+            with train_runs() as seen, contextlib.redirect_stdout(tee):
+                _, launches, verified, unequal, wall = counted_run(
+                    lambda: tcli.train_combo(s, *struct_sets, 0, 1e-5, dev,
+                                             main_done=True))
+            want_k1 = 25 * num_batches(struct_sets[1].n, s.batch_size)
+            slim_paths = glob.glob("checkpoints/bestFinetune*_*.weights.slim")
+            res = {"phase": "prune_clis",
+                   "loop": "train.train_combo --finetune --pruneStruct 0.5",
+                   "family": "robo_unet", "batch": s.batch_size,
+                   "input": list(struct_sets[0].images.shape[1:]),
+                   "train_n": struct_sets[0].n, "val_n": struct_sets[1].n,
+                   "epochs": 25, "slim_checkpoint": slim_paths,
+                   "compacted_line": [ln for ln in tee.text.splitlines()
+                                      if ln.startswith("Compacted")],
+                   "launches": launches, "k1_verified": verified,
+                   "k1_unequal_plain": unequal, "seconds": wall,
+                   "card": smi}
+            ok = len(slim_paths) == 1
+            if ok:
+                dense = checkpoint.load_any(slim_paths[0][:-len(".slim")],
+                                            flag.registry)
+                with np.load(slim_paths[0]) as z:
+                    marked = checkpoint.SLIM_KEY in z.files
+                sl = checkpoint.load_any(slim_paths[0], flag.registry)
+                x = struct_sets[1].images[:8]
+                with torch.no_grad():
+                    want = flag.apply({k: v.to(dev) for k, v in dense.items()},
+                                      x).argmax(-1)
+                    got = packed.build_packed_infer(
+                        flag, {k: v.to(dev) for k, v in sl.items()},
+                        torch.float32, pallas=True, device=dev).infer(x)
+                res.update(
+                    pruned_nonzero=sum(int((dense[k][m] != 0).sum())
+                                       for k, m in masks.items()),
+                    slim_marker=marked,
+                    params=[slim.param_count(dense), slim.param_count(sl)],
+                    slim_chain_graph_vs_dense_zoo=float(
+                        (got.long() == want).float().mean()))
+                ok = (res["pruned_nonzero"] == 0 and marked
+                      and res["params"][1] < res["params"][0]
+                      and res["slim_chain_graph_vs_dense_zoo"] >= 0.999)
+            tr, prune_masks = seen[-1]
+            res.update(time_train_step(tr, dev, prune_masks))
+            emit(res)
+            results.append(res)
+            chk.expect(ok, f"prune_clis --pruneStruct: {res}")
+            chk.expect(launches == {"confusion_count": want_k1,
+                                    "fused_conv_chain": 0,
+                                    "fused_conv3x3_block": 0}
+                       and verified == want_k1 and unequal == 0,
+                       f"prune_clis --pruneStruct: launches {launches}, K1 "
+                       f"equal plain on {verified - unequal} of {want_k1}")
+        finally:
+            os.chdir(cwd)
+    emit({"phase": "prune_clis_done", "seconds": time.perf_counter() - t_phase})
+    return results
+
+
 def step_profile(fn, steps: int) -> dict:
     """``steps`` calls of ``fn`` under ``torch.profiler``: the wall time a
     step (host clock, synchronised), the card's kernel time a step, the
@@ -3683,6 +4359,8 @@ def main() -> int:
     tsr = phase_train_streamed(dev, chk, smi)
     cc = phase_classifier_clis(dev, chk, smi)
     it = phase_int8_trained(dev, chk, smi)
+    sl = phase_slim(model, dev, chk, frames, targets, smi)
+    pc = phase_prune_clis(dev, chk, smi)
     K1_REC.check(chk)
 
     # the main paths' launches; K1's shapes: one (1, 480, 640) map pair
@@ -3699,7 +4377,8 @@ def main() -> int:
         r["launches"] for r in lt] + [
         r["launches"] for r in tv["main_paths"].values()] + [
         tsr["launches"]] + [r["launches"] for r in cc] + [
-        f["launches"] for f in it["families"].values()]
+        f["launches"] for f in it["families"].values()] + [
+        sl["main_path_launches"]] + [r["launches"] for r in pc]
     # K1's entry: the tester's map pair, the case of earlier PRs' entries
     k1m = k1["tester", "random"]
     # K3 has no caller: its entry is the QVGA 64->64 bf16 Conv-block case

@@ -6,15 +6,18 @@ the first N encoder levels) and the finetune decay sweep, Adam with a
 per-epoch cosine LR, the L1 term, best-model selection on (mean class
 accuracy + mean IoU) / 2, ``--bf16``, ``--labSize``, ``--chunkEpochs``,
 ``--resume`` with its markers, and ``--finetune``'s load and its
-unstructured prune-and-finetune phase. The dataset is decoded once and
-kept on the device; each (transfer, decay) combination runs in
-:func:`train_combo`, which takes the train and val ``DeviceCache``.
+prune-and-finetune phase: the reference's unstructured pruning, or with
+``--pruneStruct R`` whole channel groups (ops/slim.py), finetuned under
+their masks and compacted into a ``.slim`` sibling checkpoint. The dataset
+is decoded once and kept on the device; each (transfer, decay)
+combination runs in :func:`train_combo`, which takes the train and val
+``DeviceCache``.
 
     python -m robocupvision_tpu_torch.cli.train --root $DATA
 
 runs on the CUDA card; ``main(argv, device="cpu")`` runs on the CPU.
-``--pruneStruct`` (structured pruning, ROADMAP A.4) and ``--spatial > 1``
-(a spatial mesh, A.7) raise ``NotImplementedError``.
+``--spatial > 1`` (a spatial mesh, ROADMAP A.7) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -67,8 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "exists, continue the killed run from it",
                    action="store_true", default=False)
     p.add_argument("--pruneStruct", help="Structured pruning ratio of the "
-                   "post-finetune phase (not ported: only 0, the reference's "
-                   "unstructured pruning)", type=float, default=0.0)
+                   "post-finetune phase (0 = the reference's unstructured "
+                   "pruning): whole channel groups are zeroed, finetuned "
+                   "under their masks and compacted into a .slim sibling "
+                   "checkpoint", type=float, default=0.0)
     p.add_argument("--slimRound", help="--pruneStruct: round kept widths up "
                    "to a multiple", type=int, default=8)
     p.add_argument("--slimMinKeep", help="--pruneStruct: minimum kept "
@@ -150,12 +155,14 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
                 ) -> Optional[float]:
     """One (transfer, decay) combination of the sweep on the two caches:
     the main training run (unless ``main_done``), its checkpoint, and for
-    ``--finetune`` at transfer 0 the prune-and-finetune phase. ``marker``:
+    ``--finetune`` at transfer 0 the prune-and-finetune phase (structured
+    with ``--pruneStruct``). ``marker``:
     the ``--resume`` marker written once the main phase is durable.
     ``after_chunk(epoch_offset, metrics)`` is called after each chunk's
     prints. Returns the main run's best score (None when ``main_done``)."""
     from robocupvision_tpu_torch.models import zoo
     from robocupvision_tpu_torch.ops import pruning as prune_ops
+    from robocupvision_tpu_torch.ops import slim as slim_ops
     from robocupvision_tpu_torch.train import checkpoint, naming, optim
     from robocupvision_tpu_torch.train.loop import Trainer
     from robocupvision_tpu_torch.train.schedules import CosineAnnealingLR
@@ -237,7 +244,14 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
     if opt.finetune and transfer == 0:
         best_path = naming.train_ckpt_name(s.flags, 0)
         params = checkpoint.load_any(best_path, model.registry)
-        params, masks = prune_ops.prune_threshold(params, model.param_order)
+        structured = opt.pruneStruct > 0
+        if structured:
+            params, masks = slim_ops.prune_channels(
+                params, slim_ops.channel_groups(model), opt.pruneStruct,
+                min_keep=opt.slimMinKeep, round_to=opt.slimRound)
+        else:
+            params, masks = prune_ops.prune_threshold(params,
+                                                      model.param_order)
         tr = Trainer(model, optim.adam(), step_cfg(s, 0.0), train_cache,
                      val_cache, s.batch_size)
         tr.set_params(params)
@@ -257,12 +271,18 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
                 if ms["better"][i]:
                     print("Saving best model")
 
-        prune_resume = f"{path}.resume-prune-{decay:g}.npz" \
+        # the snapshot's name carries the mode: a snapshot of the other
+        # mode must never resume into this one (its params do not keep
+        # this mode's masks, and compact would then find nothing to remove)
+        mode = "pruneS" if structured else "prune"
+        prune_resume = f"{path}.resume-{mode}-{decay:g}.npz" \
             if marker is not None else None
         # near-zero weights zeroed barely move the function: lr/20
-        # (reference train.py:377)
+        # (reference train.py:377); a structured cut removes whole
+        # channels, and recovering needs the finetune's own lr
+        lr_ft = learning_rate if structured else learning_rate / 20
         _, best_params, ms = tr.train_run(
-            25, [learning_rate / 20] * 25, prune_masks=masks,
+            25, [lr_ft] * 25, prune_masks=masks,
             chunk_epochs=chunk_epochs, on_chunk=on_prune_chunk,
             resume_path=prune_resume)
         if prune_resume is not None and os.path.exists(prune_resume):
@@ -283,14 +303,22 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
                                                  prune_pct=prune_pct,
                                                  mflops=mflops)
             checkpoint.save(pruned_path, model.registry, bp)
+            if structured:
+                # the structurally dead channels compacted away: a slim
+                # sibling with real per-layer width cuts
+                slim_params, _ = slim_ops.compact(model, bp)
+                slim_path = pruned_path + ".slim"
+                checkpoint.save(slim_path, model.registry, slim_params,
+                                slim=True)
+                n0 = slim_ops.param_count(bp)
+                n1 = slim_ops.param_count(slim_params)
+                print("Compacted %s: %d -> %d params (%.1f%% fewer)"
+                      % (slim_path, n0, n1, 100.0 * (1 - n1 / n0)))
     return best_loss
 
 
 def main(argv=None, device: DeviceLike = None) -> int:
     opt = build_parser().parse_args(argv)
-    if opt.pruneStruct > 0:
-        raise NotImplementedError("--pruneStruct (structured pruning, "
-                                  "ops/slim) is not ported yet (ROADMAP A.4)")
     if opt.spatial > 1:
         raise NotImplementedError("--spatial > 1 (a spatial mesh) is not "
                                   "ported yet (ROADMAP A.7)")

@@ -62,7 +62,9 @@ activation statistic, and every chain is rebuilt with int8 stages
 
 The packers work on numpy arrays in the JAX package's HWIO layout (their
 arithmetic is layout-bound); ``build_packed_infer`` takes the port's
-state_dict and carries it there with export/torch_io.to_jax_params.
+state_dict and carries it there with export/torch_io.to_jax_params, in
+its slim mode: every width is read from the arrays, so a structurally
+pruned dict (ops/slim.py) builds like a dense one.
 """
 
 from __future__ import annotations
@@ -796,7 +798,7 @@ def build_packed_infer(model: Model, params: Optional[Params] = None,
         raise ValueError("the packed plan needs eff_depth >= 4")
     plan = _robo_unet_plan(cfg)
     state = model.state_dict() if params is None else params
-    np_params = to_jax_params(model.registry, state)
+    np_params = to_jax_params(model.registry, state, slim=True)
     all_blks = [b for lvl in plan.downs for b in lvl] + list(plan.ups) \
         + [plan.head]
     packed = _pack_blocks(np_params, all_blks, dtype, dev)
@@ -936,7 +938,7 @@ def build_packed_pb_fcn(model: Model, params: Optional[Params] = None,
     if not isinstance(cfg, PBFCNCfg) or cfg.classify:
         raise ValueError("the packed PB_FCN graph is the segmentation PB_FCN")
     state = model.state_dict() if params is None else params
-    np_params = to_jax_params(model.registry, state)
+    np_params = to_jax_params(model.registry, state, slim=True)
     packed = _pack_blocks(np_params, _pb_fcn_blks(cfg), dtype, dev)
     plain = {k: v.detach().to(device=dev, dtype=dtype) for k, v in state.items()}
     chains = None
@@ -1068,7 +1070,7 @@ def build_packed_label_prop(model: Model, params: Optional[Params] = None,
         raise ValueError("only the group == f stem (stem_group 4) is ported, "
                          f"got {stem_group}")
     state = model.state_dict() if params is None else params
-    np_params = to_jax_params(model.registry, state)
+    np_params = to_jax_params(model.registry, state, slim=True)
     packed = _pack_blocks(np_params, _LABEL_PROP_BLKS.values(), dtype, dev)
     # the channel-slice skip's classifier half (see _logits_packed), OIHW
     c_pre = np_params["pre.conv.weight"].shape[-1]

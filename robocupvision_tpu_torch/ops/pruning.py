@@ -1,8 +1,9 @@
 """Pruning (the JAX package's ops/pruning.py): the near-zero count that the
 CLIs print, the reference's 1%-of-max threshold pruning that train.py's
-finetune phase runs, the band pruning of the legacy CLIs' ``--prune``, and
-the gradient masking that keeps pruned weights at zero. "Prunable" tensors are the trainable ones with more than one
-dimension, in registry order, as the reference's
+finetune phase runs, the band pruning of the legacy CLIs' ``--prune``, the
+size-adaptive top-k pruning of pruner.py, and the gradient masking that
+keeps pruned weights at zero. "Prunable" tensors are the trainable ones
+with more than one dimension, in registry order, as the reference's
 ``for param in model.parameters(): if param.dim() > 1`` walks them.
 """
 
@@ -13,7 +14,8 @@ from typing import Dict, List, Mapping, Sequence, Tuple
 import numpy as np
 import torch
 
-from robocupvision_tpu_torch.export.torch_io import to_jax_layout
+from robocupvision_tpu_torch.export.torch_io import (from_jax_layout,
+                                                     to_jax_layout)
 from robocupvision_tpu_torch.models.layers import is_weight
 
 
@@ -117,6 +119,42 @@ def prune_band(params: Mapping, registry, lower: float = 73.0,
         p[mask] = 0
         new[name] = torch.from_numpy(p)
         masks[name] = torch.from_numpy(mask)
+    return new, masks
+
+
+def prune_topk(params: Mapping, registry, ratio: float, low_t: int,
+               high_t: int, verbose: bool = True
+               ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """Zero the ``ratio`` smallest |w| of each prunable tensor, the ratio
+    adapted to its size (reference model.py:644-672): none below 100
+    weights, 0.8x below ``low_t``, 1.05x above ``high_t``. The selection
+    is numpy's ``argpartition`` over the tensor flattened in the JAX
+    package's layout (``registry`` gives each tensor's layout), so that
+    ties fall where the JAX package's do. Returns (new params, masks), both
+    CPU tensors, the masks True wherever a weight is now zero."""
+    new = {k: torch.as_tensor(_np(v)) for k, v in params.items()}
+    masks: Dict[str, torch.Tensor] = {}
+    for name in prunable_names(registry.order, params):
+        kind = registry.specs[name].kind
+        p = to_jax_layout(_np(params[name]).copy(), kind)
+        r = ratio
+        size = p.size
+        if size < 100:
+            r = 0.0
+        elif size < low_t:
+            r = ratio * 0.8
+        if size > high_t:
+            r = ratio * 1.05
+        flat = p.reshape(-1)
+        amount = int(flat.size * r)
+        if amount > 0:
+            idx = np.argpartition(np.abs(flat), amount - 1)[:amount]
+            flat[idx] = 0.0
+        if verbose:
+            print("Pruned %d of %d weights (%.3f%%)" % (amount, flat.size, r))
+        p = from_jax_layout(flat.reshape(p.shape), kind)
+        new[name] = torch.from_numpy(p)
+        masks[name] = torch.from_numpy(p == 0.0)
     return new, masks
 
 

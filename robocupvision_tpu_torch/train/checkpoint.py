@@ -6,7 +6,10 @@ loads the other's files.
 registry names, marked with ``MAGIC_KEY``. ``load_any`` reads such a file,
 or a torch pickle of a state_dict (the reference's own ``.pth``, already in
 the port's layout), and returns the port's state_dict, checked against the
-registry's names and shapes.
+registry's names and shapes. A structurally pruned (compacted, ops/slim.py)
+dict is saved with ``slim=True``, which marks the file with ``SLIM_KEY``;
+``load_any`` reads a marked file without the shape guard, and keeps the
+guard for every unmarked one.
 
 ``save_resume`` / ``load_resume`` keep a training run's crash-resume
 snapshot: params, optimizer state, the best score and params so far, the
@@ -34,25 +37,26 @@ SLIM_KEY = "__slim__"  # structurally-pruned dict: per-layer widths differ
 State = Dict[str, torch.Tensor]
 
 
-def save(path: str, reg: Registry, state: State) -> None:
+def save(path: str, reg: Registry, state: State, slim: bool = False) -> None:
     """Write ``state`` (the port's state_dict) to ``path`` as the JAX
-    package's ``.npz`` checkpoint."""
+    package's ``.npz`` checkpoint; ``slim`` marks a structurally pruned
+    dict, whose widths differ from the registry's."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    arrays = dict(to_jax_params(reg, state))
+    arrays = dict(to_jax_params(reg, state, slim=slim))
     arrays[MAGIC_KEY] = np.array(1)
+    if slim:
+        arrays[SLIM_KEY] = np.array(1)
     with open(path, "wb") as f:
         np.savez_compressed(f, **arrays)
 
 
 def _load_npz(path: str, reg: Registry) -> "OrderedDict[str, torch.Tensor]":
     with np.load(path, allow_pickle=False) as z:
-        if SLIM_KEY in z:
-            raise NotImplementedError(
-                f"{path}: structurally-pruned checkpoints are not ported yet")
         missing = [name for name in reg.specs if name not in z]
         if missing:
             raise KeyError(f"{path}: missing {missing[0]}")
-        return from_jax_params(reg, {name: z[name] for name in reg.specs})
+        return from_jax_params(reg, {name: z[name] for name in reg.specs},
+                               slim=SLIM_KEY in z)
 
 
 def _check_state(path: str, reg: Registry, state) -> "OrderedDict[str, torch.Tensor]":

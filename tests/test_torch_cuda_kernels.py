@@ -735,6 +735,55 @@ def test_chain_kernel_fuzz_matches_reference(cuda_device, monkeypatch, seed):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(8, 24), (24, 40), (40, 8), (5, 39),
+                                      (39, 77)])  # chip_smoke.WIDTH_PAIRS
+def test_bf16_chain_kernel_at_slim_widths(cuda_device, cin, cout):
+    """K2 in bf16 at the widths structured pruning gives (8, 24, 40: the
+    mma_nt = 8 tap loop and partial 16-channel k chunks; 5, 39, 77: scalar
+    loads), every stage kind of chip_smoke.width_chain (rbb, dilated
+    bn-relu with an identity skip, relu-only with a 3x3 skip_w, an argmax
+    head), against chain_reference within ``bf16_tolerance``, labels >=
+    0.999. The same chains run in chip_smoke.py's k2_fuzz phase."""
+    import chip_smoke
+
+    x, stages, skips = chip_smoke.width_chain(cin, cout, cuda_device)
+    before = ckp.fused_conv_chain.launches
+    got = ckp.fused_conv_chain(x, stages, skips)
+    torch.cuda.synchronize()
+    assert ckp.fused_conv_chain.launches == before + 1
+    _assert_chain_close(got, ckp.chain_reference(x, stages, skips), "bf16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("round_to", [8, 1])
+def test_chain_kernel_on_slim_flagship(cuda_device, dt, round_to):
+    """Every K2 chain of a slim flagship (prune_channels at ratio 0.4, then
+    compact) at QVGA, two-chain and full-chain graphs, against
+    chain_reference."""
+    import chip_smoke
+
+    from robocupvision_tpu_torch.ops import slim
+
+    model = zoo.make("robo_unet", device="cpu",
+                     generator=torch.Generator().manual_seed(8))
+    masked, _ = slim.prune_channels(model.state_dict(),
+                                    slim.channel_groups(model), 0.4,
+                                    round_to=round_to, verbose=False)
+    state, _ = slim.compact(model, masked)
+    model = model.to(cuda_device)
+    x = _randn(31, (1, 120, 160, 3), torch.float32, cuda_device)
+    for kw in (dict(), dict(pallas_fold_stem=True, pallas_deep=True)):
+        pi = packed.build_packed_infer(model, state, _DT[dt], pallas=True,
+                                       device=cuda_device, **kw)
+        calls = chip_smoke.record_chain_calls(pi, pi.infer, x)
+        assert len(calls) == (3 if kw else 2)
+        for cx, stages, skips in calls:
+            _assert_chain_close(ckp.fused_conv_chain(cx, stages, skips),
+                                ckp.chain_reference(cx, stages, skips), dt)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 @pytest.mark.parametrize("case", ["flagship_stem", "pb_fcn_down_dil",
                                   "pb_fcn_up_head"])

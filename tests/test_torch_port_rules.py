@@ -60,15 +60,16 @@ def test_port_imports_no_pil_at_module_level(path):
 
 
 def _entry_points():
-    from robocupvision_tpu_torch.cli import (classTrainer, classVal,
+    from robocupvision_tpu_torch.cli import (classTrainer, classVal, detect,
                                              labelPropTrain, objDetEval,
-                                             test, testDumper, tester, train,
-                                             trainer, validLabelProp,
+                                             pruner, test, testDumper, tester,
+                                             train, trainer, validLabelProp,
                                              verifyDeploy)
     from robocupvision_tpu_torch.data.device_cache import DeviceCache
     from robocupvision_tpu_torch.data.streaming import StreamingBatches
     from robocupvision_tpu_torch.models import packed, zoo
     from robocupvision_tpu_torch.ops import metrics
+    from robocupvision_tpu_torch.tools import structured_prune
     from robocupvision_tpu_torch.utils.serving import ServingPipeline
 
     cpu_model = zoo.make("robo_unet", device="cpu")
@@ -104,6 +105,11 @@ def _entry_points():
         "zoo.make(bnn)": lambda: zoo.make("bnn"),
         "verifyDeploy.main": lambda: verifyDeploy.main(["--dir", "weights"]),
         "testDumper.main": lambda: testDumper.main([]),
+        "pruner.main": lambda: pruner.main([]),
+        "detect.main": lambda: detect.main([]),
+        "structured_prune.main": lambda: structured_prune.main(
+            ["--checkpoint", "in.weights", "--out", "out.slim", "--ratio",
+             "0.5"]),
     }
 
 
@@ -121,7 +127,8 @@ def _entry_points():
                                   "train.main", "classVal.main",
                                   "objDetEval.main", "StreamingBatches",
                                   "zoo.make(bnn)", "verifyDeploy.main",
-                                  "testDumper.main"])
+                                  "testDumper.main", "pruner.main",
+                                  "detect.main", "structured_prune.main"])
 def test_entry_points_raise_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point runs there")

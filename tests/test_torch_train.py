@@ -583,8 +583,7 @@ def test_train_cli_finetune_prunes(data_root, tmp_path, monkeypatch, capsys):
     assert pruned, os.listdir("checkpoints")
 
 
-@pytest.mark.parametrize("flags", [["--pruneStruct", "0.5"],
-                                   ["--spatial", "2"]])
+@pytest.mark.parametrize("flags", [["--spatial", "2"]])
 def test_train_cli_unported_flags_raise(flags):
     with pytest.raises(NotImplementedError):
         _cli(flags)
