@@ -67,7 +67,16 @@ the launch counters set to 0 just before it and read just after:
     dense, masked and slim graphs timed side by side;
   - the pruning loops (``prune_clis``): pruner's ``prune_iterations``
     (PB_FCN, b8, 120x160) and train.py's --finetune --pruneStruct phase
-    (``train_combo``, the flagship at QVGA, b8), validation on K1.
+    (``train_combo``, the flagship at QVGA, b8), validation on K1;
+  - optical flow (``optflow``): the Farneback port (``optflow_torch``) on
+    the card against the CPU on textured scenes under four affine motions
+    at 120x160 and 240x320, its ms, card ms and launches a pair;
+    validLabelProp's --optFlow --jaxFlow loop (``flow_and_score``, K1 a
+    pair), test.py --lProp's ``evaluate`` (the flagship at 120x160 over
+    4-frame sequences, the Farneback port as its flow pair, K1 a
+    sequence) and make_lp_images' ``lp_images`` (PB_FCN, LabelProp), each
+    held to the same loop on the CPU; ``device_busy_span_us`` around one
+    served flagship frame beside ``device_split``'s card ms.
 K2's int8 stages are held against the int8 ``chain_reference`` on every
 chain of the five families (VGA b1, bf16 and f32) and on one stage per
 feature, and K2 against ``chain_reference`` on random chains with random
@@ -182,6 +191,8 @@ K1_PATH_CASES = [
     ("legacy_seg_val", (32, 120, 160), torch.int64, torch.int32),
     ("legacy_finetune_val", (8, 120, 160), torch.int64, torch.int32),
     ("legacy_lp_val", (16, 120, 160), torch.int64, torch.int32),
+    ("flow_baseline", (2, 120, 160), torch.int64, torch.int32),
+    ("lprop_eval", (4, 120, 160), torch.int64, torch.int32),
     ("b8_vga", (8, *VGA), torch.int32, torch.int32),
 ]
 K1_DISTRIBUTIONS = ("random", "frame")
@@ -3547,6 +3558,330 @@ def phase_int8_trained(dev, chk: Checks, smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# optical flow: the Farneback port, validLabelProp's flow baseline, test.py
+# --lProp's chain, make_lp_images' loop, the profiler's busy span
+# ---------------------------------------------------------------------------
+
+# tests/test_objmetrics_optflow.py:147-148: (dx, dy, degrees)
+FLOW_MOTIONS = ((3, 1, 0.0), (-2, 2, 0.0), (1, -1, 1.5), (5, 0, 0.0))
+FLOW_SIZES = ((120, 160), (240, 320))  # the CLIs' and --noScale's sizes
+FLOW_PAIRS, LPROP_SEQS, LP_IMAGE_PAIRS = 16, 4, 8
+# the card's Farneback against the CPU's on the same pair: endpoint
+# difference (px) median and p90, warped labels equal
+FLOW_ENVELOPE = {"median_px": 1e-4, "p90_px": 1e-3, "labels_equal": 0.999}
+
+
+def textured_scene(rng, h: int, w: int):
+    """``draw_scene``'s frame with a smooth random texture blended in, so
+    that the flow has structure to follow -> (RGB (h, w, 3) float32 in
+    [0, 1], labels int32)."""
+    rgb, lab = draw_scene(rng, h, w)
+    tex = torch.nn.functional.avg_pool2d(
+        torch.from_numpy(rng.random((1, 1, h + 6, w + 6))), 7, stride=1)
+    rgb = np.clip(0.6 * rgb + 0.4 * tex[0, 0].numpy()[..., None], 0, 1)
+    return rgb.astype(np.float32), lab
+
+
+def gray_u8(rgb):
+    """LPDataSet's gray frame of an RGB frame in [0, 1]."""
+    return (np.clip(rgb @ np.array([0.299, 0.587, 0.114]), 0, 1)
+            * 255).astype(np.uint8)
+
+
+def affine_warp(img, dx: float, dy: float, ang: float):
+    """cv2.warpAffine of the uint8 image ``img`` (h, w) by
+    cv2.getRotationMatrix2D((w / 2, h / 2), ang, 1) plus the shift (dx,
+    dy), bilinear, borders replicated, in PyTorch on the host."""
+    h, w = img.shape
+    a, b = np.cos(np.radians(ang)), np.sin(np.radians(ang))
+    cx, cy = w / 2, h / 2
+    m = np.array([[a, b, (1 - a) * cx - b * cy + dx],
+                  [-b, a, b * cx + (1 - a) * cy + dy], [0, 0, 1]])
+    yy, xx = np.mgrid[0:h, 0:w]
+    src = np.linalg.inv(m) @ np.stack([xx.ravel(), yy.ravel(),
+                                       np.ones(h * w)])
+    grid = np.stack([2 * src[0] / (w - 1) - 1, 2 * src[1] / (h - 1) - 1],
+                    -1).reshape(1, h, w, 2)
+    out = torch.nn.functional.grid_sample(
+        torch.from_numpy(img.astype(np.float32))[None, None],
+        torch.from_numpy(grid.astype(np.float32)), mode="bilinear",
+        padding_mode="border", align_corners=True)[0, 0].numpy()
+    return np.clip(np.round(out), 0, 255).astype(np.uint8)
+
+
+def lp_sequences(n: int, seed: int, size, len_seq: int):
+    """``n`` LabelProp sequences as LPDataSet gives them: a textured scene
+    moving 2 pixels right a frame (as tests/synth_data.py's sequences
+    move) -> YUV-normalized images (n, len_seq, h, w, 3) float32, labels
+    (n, len_seq, h, w) int32 and gray frames (n, len_seq, h, w) uint8."""
+    from robocupvision_tpu_torch.data.datasets import _cv2_rgb2yuv
+    from robocupvision_tpu_torch.ops.color import (MEAN_SYNTHETIC,
+                                                   STD_SYNTHETIC)
+
+    rng = np.random.default_rng(seed)
+    rgb, lab = zip(*(textured_scene(rng, *size) for _ in range(n)))
+    rgb = np.stack([np.roll(np.stack(rgb), 2 * t, axis=2)
+                    for t in range(len_seq)], axis=1)
+    labs = np.stack([np.roll(np.stack(lab), 2 * t, axis=2)
+                     for t in range(len_seq)], axis=1)
+    yuv = (_cv2_rgb2yuv(rgb) - np.asarray(MEAN_SYNTHETIC, np.float32)) \
+        / np.asarray(STD_SYNTHETIC, np.float32)
+    return yuv.astype(np.float32), labs, gray_u8(rgb)
+
+
+def flow_envelope(dev, chk: Checks) -> dict:
+    """``optflow_torch`` on the card against the same function on the CPU,
+    on textured scenes under the four affine motions at both sizes: the
+    endpoint difference (median, p90, max) and the share of labels warped
+    equal (``warp_labels_torch`` along each side's flow); for the pure
+    shifts, the card's median flow inside the frame beside the shift."""
+    from robocupvision_tpu_torch.ops.optflow import (optflow_torch,
+                                                     warp_labels_torch)
+
+    out = {}
+    for size in FLOW_SIZES:
+        rng = np.random.default_rng(SEED + 21)
+        rows = []
+        for dx, dy, ang in FLOW_MOTIONS:
+            rgb, lab = textured_scene(rng, *size)
+            img = gray_u8(rgb)
+            img2 = affine_warp(img, dx, dy, ang)
+            card = optflow_torch(torch.from_numpy(img).to(dev),
+                                 torch.from_numpy(img2).to(dev))
+            cpu = optflow_torch(img, img2)
+            epe = torch.linalg.vector_norm(card.cpu() - cpu, dim=-1).numpy()
+            same = float((warp_labels_torch(torch.from_numpy(lab).to(dev),
+                                            card).cpu().numpy()
+                          == warp_labels_torch(lab, cpu).numpy()).mean())
+            inner = card.cpu().numpy()[16:-16, 16:-16].reshape(-1, 2)
+            rows.append({"motion": [dx, dy, ang],
+                         "epe_median": float(np.median(epe)),
+                         "epe_p90": float(np.quantile(epe, 0.9)),
+                         "epe_max": float(epe.max()),
+                         "labels_equal": same,
+                         "finite": bool(torch.isfinite(card).all()),
+                         "shape_ok": tuple(card.shape) == size + (2,),
+                         "median_flow": np.median(inner, 0).tolist()})
+        tag = "%dx%d" % size
+        out[tag] = rows
+        for r in rows:
+            chk.expect(r["finite"] and r["shape_ok"],
+                       f"optflow {tag} {r['motion']}: flow not finite or "
+                       "not (H, W, 2)")
+            chk.expect(r["epe_median"] <= FLOW_ENVELOPE["median_px"]
+                       and r["epe_p90"] <= FLOW_ENVELOPE["p90_px"]
+                       and r["labels_equal"] >= FLOW_ENVELOPE["labels_equal"],
+                       f"optflow {tag} {r['motion']}: card vs CPU {r} "
+                       f"outside {FLOW_ENVELOPE}")
+            if r["motion"][2] == 0:
+                err = np.abs(np.subtract(r["median_flow"], r["motion"][:2]))
+                chk.expect(bool((err < 1.0).all()),
+                           f"optflow {tag} {r['motion']}: median flow "
+                           f"{r['median_flow']} is not the shift")
+    return out
+
+
+def flow_costs(dev) -> dict:
+    """The Farneback's ms a pair on the card (CUDA events) and, from the
+    profiler, its device launches and card ms a pair, at both sizes."""
+    from robocupvision_tpu_torch.ops.optflow import optflow_torch
+
+    out = {}
+    for size in FLOW_SIZES:
+        rng = np.random.default_rng(SEED + 22)
+        img = gray_u8(textured_scene(rng, *size)[0])
+        a = torch.from_numpy(img).to(dev)
+        b = torch.from_numpy(affine_warp(img, 3, 1, 0.0)).to(dev)
+        rows = profile_calls(lambda: optflow_torch(a, b), 3)
+        out["%dx%d" % size] = {
+            "ms_per_pair": cuda_ms(lambda: optflow_torch(a, b), 20),
+            "launches_per_pair": (sum(n for _, n, _ in rows)
+                                  if rows else None),
+            "card_ms_per_pair": sum(ms for _, _, ms in rows) if rows else None,
+            "top_kernels": [[k[:50], n, ms] for k, n, ms in sorted(
+                rows or (), key=lambda r: -r[2])[:4]]}
+    return out
+
+
+def phase_optflow(nets, frames, dev, chk: Checks, smi: str) -> dict:
+    """The optical-flow paths on the card, each main path a counted run:
+    validLabelProp's ``--optFlow --jaxFlow`` loop (``flow_and_score`` with
+    ``optflow_torch`` / ``warp_labels_torch``, 1 K1 launch a pair), test.py
+    ``--lProp``'s ``evaluate`` (the flagship at 120x160, BN statistics
+    drawn so that its maps hold every class, over 4-frame sequences, the
+    Farneback port passed in as its flow pair; 1 K1 launch a sequence) and make_lp_images' ``lp_images``
+    (PB_FCN and LabelProp, planes 32; no kernel), each held to the same
+    loop on the CPU; the card's Farneback against the CPU's
+    (``flow_envelope``) and its costs; ``device_busy_span_us`` around one
+    served flagship frame beside ``device_split``'s card ms."""
+    import importlib
+
+    from robocupvision_tpu_torch.cli import test, validLabelProp
+    from robocupvision_tpu_torch.cli.train import model_hyper
+    from robocupvision_tpu_torch.models import packed, zoo
+    from robocupvision_tpu_torch.ops.metrics import seg_finalize
+    from robocupvision_tpu_torch.ops.optflow import (optflow_torch,
+                                                     warp_labels_torch)
+    from robocupvision_tpu_torch.tools import make_lp_images
+    from robocupvision_tpu_torch.train.step import StepCfg
+    from robocupvision_tpu_torch.utils.profiling import device_busy_span_us
+
+    t0 = time.perf_counter()
+    res = {"phase": "optflow", "nvidia_smi": smi, "envelope": FLOW_ENVELOPE}
+    for mod in ("cv2", "sklearn"):
+        try:
+            res[mod] = importlib.import_module(mod).__version__
+        except ImportError:
+            res[mod] = None
+    res["card_vs_cpu"] = flow_envelope(dev, chk)
+    res["costs"] = flow_costs(dev)
+    size = FLOW_SIZES[0]
+
+    # --- validLabelProp --optFlow --jaxFlow's loop -------------------------
+    _, labs, grays = lp_sequences(FLOW_PAIRS, SEED + 23, size, 2)
+    card_maps, cpu_maps = {}, {}
+    (acc, n), launches, verified, unequal, secs = counted_run(
+        lambda: validLabelProp.flow_and_score(
+            optflow_torch, warp_labels_torch,
+            ((torch.from_numpy(la).to(dev), torch.from_numpy(g).to(dev))
+             for la, g in zip(labs, grays)), 5,
+            on_mask=card_maps.__setitem__, device=dev))
+    cpu_acc, _ = validLabelProp.flow_and_score(
+        optflow_torch, warp_labels_torch, zip(labs, grays), 5,
+        on_mask=cpu_maps.__setitem__, device="cpu")
+    out_size = 1.0 / (size[0] * size[1])
+    fin, cpu_fin = (seg_finalize(a, out_size) for a in (acc, cpu_acc))
+    same = float(np.mean([(card_maps[i] == cpu_maps[i]).mean()
+                          for i in range(n)]))
+    diff = max(abs(float(fin[k]) - float(cpu_fin[k]))
+               for k in ("pixel_acc", "mean_class_acc", "mean_iou"))
+    res["flow_baseline"] = {
+        "pairs": FLOW_PAIRS, "images": n, "launches": launches,
+        "k1_verified": verified, "k1_unequal_plain": unequal,
+        "ms_per_pair": secs / FLOW_PAIRS * 1000,
+        "metric_line": metric_line(fin), "cpu_metric_line": metric_line(cpu_fin),
+        "max_abs_diff_vs_cpu": diff, "maps_equal_cpu": same}
+    chk.expect(n == 2 * FLOW_PAIRS and launches == {
+        "confusion_count": FLOW_PAIRS, "fused_conv_chain": 0,
+        "fused_conv3x3_block": 0},
+        f"flow baseline: {n} images, launches {launches}")
+    chk.expect(verified == FLOW_PAIRS and unequal == 0,
+               f"flow baseline: K1 {unequal} of {verified} calls != plain")
+    chk.expect(same >= 0.999 and diff <= 1e-2,
+               f"flow baseline vs CPU: maps equal {same}, metrics {diff}")
+
+    # --- test.py --lProp's evaluate on the flagship at 120x160 -------------
+    imgs, labs, grays = lp_sequences(LPROP_SEQS, SEED + 24, size, test.LEN_SEQ)
+    model = zoo.make("robo_unet", device=dev,
+                     generator=torch.Generator().manual_seed(SEED + 25),
+                     **model_hyper(False, False))
+    rng = np.random.default_rng(SEED + 25)
+    for k, t in model.state_dict().items():  # BN statistics: varied maps
+        if k.endswith(".running_mean"):
+            t.copy_(torch.from_numpy(rng.standard_normal(t.shape)))
+        elif k.endswith(".running_var"):
+            t.copy_(torch.from_numpy(0.05 + 0.05 * rng.random(t.shape)))
+    cpu_model = zoo.make("robo_unet", device="cpu", **model_hyper(False, False))
+    cpu_model.load_state_dict(model.state_dict())
+    cfg = StepCfg(num_classes=5, class_weights=(1, 10, 30, 5, 2),
+                  out_size=out_size)
+    warped = {"card": [], "cpu": []}
+
+    def batches(d):
+        for x, la, g in zip(imgs, labs, grays):
+            g = torch.from_numpy(g).to(d) if d == dev else g
+            yield (torch.from_numpy(x).to(d), torch.from_numpy(la).to(d),
+                   torch.ones((test.LEN_SEQ,), device=d), g)
+
+    def recording_warp(tag):
+        def warp(lab, flow):
+            warped[tag].append(warp_labels_torch(lab, flow))
+            return warped[tag][-1]
+        return warp
+
+    card, launches, verified, unequal, secs = counted_run(
+        lambda: test.evaluate(model, batches(dev), cfg, test.THRESHOLDS,
+                              test.D_THRESHOLDS, flow=optflow_torch,
+                              warp=recording_warp("card")))
+    cpu = test.evaluate(cpu_model, batches("cpu"), cfg, test.THRESHOLDS,
+                        test.D_THRESHOLDS, flow=optflow_torch,
+                        warp=recording_warp("cpu"))
+    same = float(np.mean([(a.cpu() == b).float().mean().item()
+                          for a, b in zip(warped["card"], warped["cpu"])]))
+    diff = max(abs(a - b) for a, b in zip(
+        test.metric_values(0.0, card, out_size),
+        test.metric_values(0.0, cpu, out_size)))
+    rows = {k: float(np.abs(card[k] - cpu[k]).max())
+            for k in ("iou", "dist", "iou_lp", "dist_lp")}
+    res["lprop"] = {
+        "flow_pair": "optflow_torch / warp_labels_torch",
+        "sequences": LPROP_SEQS, "frames": LPROP_SEQS * test.LEN_SEQ,
+        "launches": launches, "k1_verified": verified,
+        "k1_unequal_plain": unequal, "seconds": secs,
+        "metric_line": test.metric_line(0.0, card, out_size),
+        "cpu_metric_line": test.metric_line(0.0, cpu, out_size),
+        "max_abs_diff_vs_cpu": diff, "rows_max_abs_diff_vs_cpu": rows,
+        "iou_lp": card["iou_lp"].tolist(), "dist_lp": card["dist_lp"].tolist(),
+        "propagated_maps_equal_cpu": same,
+        "classes_seen": int(len(torch.unique(torch.stack(warped["card"]))))}
+    print("test.py --lProp chain: flow pair optflow_torch / "
+          "warp_labels_torch on the card", flush=True)
+    chk.expect(launches == {"confusion_count": LPROP_SEQS,
+                            "fused_conv_chain": 0, "fused_conv3x3_block": 0},
+               f"--lProp evaluate: launches {launches}")
+    chk.expect(verified == LPROP_SEQS and unequal == 0,
+               f"--lProp evaluate: K1 {unequal} of {verified} calls != plain")
+    chk.expect(len(warped["card"]) == LPROP_SEQS * test.LEN_SEQ
+               and same >= 0.999 and diff <= 1e-3,
+               f"--lProp evaluate vs CPU: propagated maps equal {same}, "
+               f"metric line off by {diff}")
+
+    # --- make_lp_images' loop ----------------------------------------------
+    imgs, labs, _ = lp_sequences(LP_IMAGE_PAIRS, SEED + 26, size, 2)
+    seg = zoo.make("pb_fcn", planes=32, num_classes=5, kernel_size=1,
+                   device=dev, generator=torch.Generator().manual_seed(SEED + 27))
+    lp = nets["label_prop"]
+    cpu_nets = []
+    for net, kw in ((seg, dict(kernel_size=1)), (lp, {})):
+        c = zoo.make(net.family, planes=32, num_classes=5, device="cpu", **kw)
+        c.load_state_dict(net.state_dict())
+        cpu_nets.append(c)
+    maps, launches, _, _, secs = counted_run(
+        lambda: make_lp_images.lp_images(seg, lp, zip(imgs, labs)))
+    cpu_maps = make_lp_images.lp_images(*cpu_nets, zip(imgs, labs))
+    agree = [float(np.mean([(a[j] == b[j]).mean()
+                            for a, b in zip(maps, cpu_maps)])) for j in (0, 1)]
+    res["make_lp_images"] = {
+        "pairs": LP_IMAGE_PAIRS, "launches": launches,
+        "ms_per_pair": secs / LP_IMAGE_PAIRS * 1000,
+        "seg_agree_cpu": agree[0], "lp_agree_cpu": agree[1],
+        "classes_seen": int(len(np.unique(np.stack([m for p in maps
+                                                    for m in p]))))}
+    chk.expect(len(maps) == LP_IMAGE_PAIRS and min(agree) >= 0.999,
+               f"make_lp_images vs CPU: agreement {agree}")
+
+    # --- device_busy_span_us around one served flagship frame -------------
+    pib = packed.build_packed_infer(nets["flagship"], None, torch.bfloat16,
+                                    device=dev, pallas=True,
+                                    pallas_fold_stem=True, pallas_deep=True)
+    fnb, _ = camera_packed(pib)
+    xb = torch.from_numpy(frames[0]).to(dev)
+    fnb(xb)
+    busy = device_busy_span_us(lambda: fnb(xb), 1)
+    split = device_split(lambda: fnb(xb), 1)
+    res["busy_span"] = {"device_busy_span_ms": None if busy is None
+                        else busy / 1e3,
+                        "device_split_ms": split["device_ms"]}
+    chk.expect(busy is not None and split["device_ms"] is not None
+               and 0.5 <= busy / 1e3 / split["device_ms"] <= 1.2,
+               f"device_busy_span_us {busy} us vs device_split "
+               f"{split['device_ms']} ms")
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------------
 # Slim nets: structured pruning through the packed graphs, K2 and export
 # ---------------------------------------------------------------------------
 
@@ -4361,6 +4696,7 @@ def main() -> int:
     it = phase_int8_trained(dev, chk, smi)
     sl = phase_slim(model, dev, chk, frames, targets, smi)
     pc = phase_prune_clis(dev, chk, smi)
+    of = phase_optflow(nets, frames, dev, chk, smi)
     K1_REC.check(chk)
 
     # the main paths' launches; K1's shapes: one (1, 480, 640) map pair
@@ -4378,7 +4714,9 @@ def main() -> int:
         r["launches"] for r in tv["main_paths"].values()] + [
         tsr["launches"]] + [r["launches"] for r in cc] + [
         f["launches"] for f in it["families"].values()] + [
-        sl["main_path_launches"]] + [r["launches"] for r in pc]
+        sl["main_path_launches"]] + [r["launches"] for r in pc] + [
+        of[k]["launches"] for k in ("flow_baseline", "lprop",
+                                    "make_lp_images")]
     # K1's entry: the tester's map pair, the case of earlier PRs' entries
     k1m = k1["tester", "random"]
     # K3 has no caller: its entry is the QVGA 64->64 bf16 Conv-block case

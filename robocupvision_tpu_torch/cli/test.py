@@ -15,8 +15,12 @@ thresholds {1.25, 2.5, 5, 10, 20} (x2 at VGA). Scores go through
     python -m robocupvision_tpu_torch.cli.test --root $DATA --noScale --UNet
 
 runs on the CUDA card; ``main(argv, device="cpu")`` runs on the CPU.
-``--lProp`` (Farneback-warped predictions) needs the port of
-ops/optflow and raises ``NotImplementedError``.
+``--lProp`` evaluates the first checkpoint on the LabelProp val sequences
+instead (four frames a batch) and scores label propagation too: frame 0's
+prediction is frame 1's warped along the Farneback flow, each later
+frame's the previous propagated map warped along the flow back to it; the
+CLI runs cv2's Farneback on the host (``ops/optflow.py``; cv2 must be
+installed), and ``evaluate`` takes any flow and warp pair.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import argparse
 import glob
 import os
 import sys
-from typing import Iterable, Sequence, Tuple
+from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +38,7 @@ from robocupvision_tpu_torch.device import DeviceLike, resolve_device
 
 THRESHOLDS = (0.75, 0.5, 0.25, 0.1, 0.05)
 D_THRESHOLDS = (1.25, 2.5, 5, 10, 20)
+LEN_SEQ = 4  # --lProp: frames a LabelProp sequence
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -47,7 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
                     ("--topCam", "Use Top Camera images only"),
                     ("--bottomCam", "Use Bottom Camera images only"),
                     ("--transfer", "Evaluate transfer checkpoints"),
-                    ("--lProp", "Test label propagation (not ported yet)")]:
+                    ("--lProp", "Test label propagation")]:
         p.add_argument(flag, help=h, action="store_true", default=False)
     p.add_argument("--root", type=str,
                    default=os.environ.get("ROBOCUP_DATA", "../../Data/RoboCup"))
@@ -60,15 +65,23 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def evaluate(model, batches: Iterable[Tuple[torch.Tensor, torch.Tensor,
-                                            torch.Tensor]], cfg,
+def evaluate(model, batches: Iterable[tuple], cfg,
              thresholds: Sequence[float] = THRESHOLDS,
-             d_thresholds: Sequence[float] = D_THRESHOLDS) -> dict:
+             d_thresholds: Sequence[float] = D_THRESHOLDS,
+             flow: Optional[Callable] = None,
+             warp: Optional[Callable] = None) -> dict:
     """One net over ``batches`` of (imgs, labels, sample_mask) on the
     model's device (``epoch_batches``), as test.py's loop scores them:
     returns {"acc": the host SegAccum, "loss": the mean batch loss,
     "batches", "images": the valid images, "iou", "dist": the object-level
-    (precision + recall) / 2 per threshold, averaged over the images}."""
+    (precision + recall) / 2 per threshold, averaged over the images}.
+
+    With ``flow`` and ``warp`` (``--lProp``), each batch is a sequence
+    (imgs, labels, sample_mask, grays) whose (B, H, W) uint8 grays are in
+    the form ``flow`` takes; the predictions are propagated along it
+    (``pred_lp[0] = warp(pred[1], flow(g0, g1))``, ``pred_lp[i] =
+    warp(pred_lp[i-1], flow(g_i, g_{i-1}))``) and scored the same way into
+    "iou_lp" and "dist_lp"."""
     from robocupvision_tpu_torch.ops import objmetrics
     from robocupvision_tpu_torch.ops.labels import mask_label_table
     from robocupvision_tpu_torch.ops.metrics import SegAccum, to_host
@@ -80,7 +93,8 @@ def evaluate(model, batches: Iterable[Tuple[torch.Tensor, torch.Tensor,
     acc = SegAccum.zero(cfg.num_classes)
     tot_loss, n_batches, img_cnt = 0.0, 0, 0
     rec_prec = np.zeros((2, len(thresholds)))
-    for imgs, tgt, mask in batches:
+    rec_prec_lp = np.zeros((2, len(thresholds)))
+    for imgs, tgt, mask, *grays in batches:
         out = step(imgs, tgt, mask)
         acc = acc + to_host(out["acc"])
         tot_loss += float(out["loss"])
@@ -90,13 +104,29 @@ def evaluate(model, batches: Iterable[Tuple[torch.Tensor, torch.Tensor,
         tgt = table[tgt.cpu().numpy()][valid]
         img_cnt += pred.shape[0]
         # (C, B, H, W) per-class masks
+        mask_tgt = (tgt[None] == classes).astype(np.int64)
         rec_prec += objmetrics.get_prec_recall_multi(
-            (pred[None] == classes).astype(np.int64),
-            (tgt[None] == classes).astype(np.int64), thresholds, d_thresholds)
+            (pred[None] == classes).astype(np.int64), mask_tgt, thresholds,
+            d_thresholds)
+        if flow is not None:
+            g = grays[0]
+            src = out["pred"][torch.as_tensor(valid, device=imgs.device)]
+            pred_lp = [warp(src[1], flow(g[0], g[1]))]
+            for i in range(1, pred.shape[0]):
+                pred_lp.append(warp(pred_lp[-1], flow(g[i], g[i - 1])))
+            pred_lp = np.stack([np.asarray(torch.as_tensor(p).cpu())
+                                for p in pred_lp])
+            rec_prec_lp += objmetrics.get_prec_recall_multi(
+                (pred_lp[None] == classes).astype(np.int64), mask_tgt,
+                thresholds, d_thresholds)
     rec_prec /= max(img_cnt, 1)
-    return {"acc": acc, "loss": tot_loss / max(n_batches, 1),
-            "batches": n_batches, "images": img_cnt, "iou": rec_prec[0],
-            "dist": rec_prec[1]}
+    res = {"acc": acc, "loss": tot_loss / max(n_batches, 1),
+           "batches": n_batches, "images": img_cnt, "iou": rec_prec[0],
+           "dist": rec_prec[1]}
+    if flow is not None:
+        rec_prec_lp /= max(img_cnt, 1)
+        res.update(iou_lp=rec_prec_lp[0], dist_lp=rec_prec_lp[1])
+    return res
 
 
 def metric_values(prune: float, res: dict, out_size: float) -> tuple:
@@ -119,16 +149,13 @@ def metric_line(prune: float, res: dict, out_size: float) -> str:
 def main(argv=None, device: DeviceLike = None) -> int:
     opt = build_parser().parse_args(argv)
     dev = resolve_device(device)
-    if opt.lProp:
-        raise NotImplementedError(
-            "--lProp needs the port's ops/optflow (cv2 and the Farneback "
-            "port, ROADMAP.md A.6), which is not ported yet")
 
     from robocupvision_tpu_torch.cli.train import model_hyper
-    from robocupvision_tpu_torch.data.datasets import SSYUVDataset
+    from robocupvision_tpu_torch.data.datasets import LPDataSet, SSYUVDataset
     from robocupvision_tpu_torch.data.device_cache import (DeviceCache,
                                                            epoch_batches)
     from robocupvision_tpu_torch.models import zoo
+    from robocupvision_tpu_torch.ops import optflow
     from robocupvision_tpu_torch.ops.pruning import count_zero_weights
     from robocupvision_tpu_torch.train import checkpoint, naming
     from robocupvision_tpu_torch.train.step import StepCfg
@@ -166,6 +193,8 @@ def main(argv=None, device: DeviceLike = None) -> int:
                            ("NoLine", opt.noLine)]:
         if not enabled:
             weights_path = [p for p in weights_path if token not in p]
+    if opt.lProp:
+        weights_path = weights_path[:1]
 
     num_classes = flags.num_classes
     weights = [1, 2, 6, 3, 2] if opt.useDice else [1, 10, 30, 5, 2]
@@ -180,11 +209,26 @@ def main(argv=None, device: DeviceLike = None) -> int:
                   compute_dtype="bfloat16" if opt.bf16 else "float32")
     batch_size = opt.batchSize or (16 if (opt.finetune or opt.noScale) else 64)
 
-    ds = SSYUVDataset(opt.root, lab_size, False, opt.finetune, camera)
-    if len(ds) == 0:
-        print(f"No data found under {opt.root}")
-        return -1
-    cache = DeviceCache.from_numpy(*ds.load_all(), device=dev)
+    if opt.lProp:
+        lp = LPDataSet(opt.root, train=False, img_size=lab_size,
+                       finetune=opt.finetune, len_seq=LEN_SEQ)
+        if len(lp) == 0:
+            print(f"No LabelProp data under {opt.root}")
+            return -1
+
+        def batches():
+            for si in range(len(lp)):
+                imgs, labs, grays = lp[si]
+                yield (torch.from_numpy(imgs).to(dev),
+                       torch.from_numpy(labs).to(dev),
+                       torch.ones((imgs.shape[0],), dtype=torch.float32,
+                                  device=dev), grays)
+    else:
+        ds = SSYUVDataset(opt.root, lab_size, False, opt.finetune, camera)
+        if len(ds) == 0:
+            print(f"No data found under {opt.root}")
+            return -1
+        cache = DeviceCache.from_numpy(*ds.load_all(), device=dev)
 
     for w_path in weights_path:
         if not os.path.exists(w_path):
@@ -203,13 +247,22 @@ def main(argv=None, device: DeviceLike = None) -> int:
         print([round(c) for c in comp])
         print(round(sum(comp)))
 
-        res = evaluate(model, epoch_batches(cache, batch_size), cfg,
-                       THRESHOLDS, d_thresholds)
+        if opt.lProp:
+            res = evaluate(model, batches(), cfg, THRESHOLDS, d_thresholds,
+                           flow=optflow.optflow_cv2,
+                           warp=optflow.update_labels_cv2)
+        else:
+            res = evaluate(model, epoch_batches(cache, batch_size), cfg,
+                           THRESHOLDS, d_thresholds)
         prune = count_zero_weights(state, model.param_order)
         print(metric_line(prune, res, out_size))
         print("Normal")
         print("IoU:", res["iou"])
         print("Dist:", res["dist"])
+        if opt.lProp:
+            print("LP")
+            print("IoU:", res["iou_lp"])
+            print("Dist:", res["dist_lp"])
     return 0
 
 

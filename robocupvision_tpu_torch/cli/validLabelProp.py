@@ -14,8 +14,15 @@ first val pair); scores go through ``seg_batch_stats`` (kernel K1 on CUDA).
     python -m robocupvision_tpu_torch.cli.validLabelProp --packed --pallas
 
 runs on the CUDA card; ``main(argv, device="cpu")`` runs the plain
-PyTorch path on the CPU. ``--optFlow``/``--jaxFlow`` (the optical-flow
-baseline) need a later slice of the port and raise ``NotImplementedError``.
+PyTorch path on the CPU. ``--optFlow`` scores the classical baseline
+instead of the net (no checkpoint is loaded and no ``weightsLP`` written):
+each frame's prediction is the other frame's labels warped along the
+Farneback flow between them, by cv2 on the host (``ops/optflow.py``
+``optflow_cv2`` / ``update_labels_cv2``; cv2 must be installed), or with
+``--jaxFlow`` by the Farneback port on the device (``optflow_torch`` /
+``warp_labels_torch``); the loop is ``flow_and_score``. The flow
+baselines time nothing: their latency line prints 0, as the JAX CLI's
+does.
 """
 
 from __future__ import annotations
@@ -42,9 +49,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--finetuned", action="store_true", default=False)
     p.add_argument("--pruned", action="store_true", default=False)
     p.add_argument("--optFlow", action="store_true", default=False,
-                   help="the optical-flow baseline (not ported yet)")
+                   help="score the optical-flow baseline (cv2 Farneback) "
+                   "instead of the net")
     p.add_argument("--jaxFlow", action="store_true", default=False,
-                   help="with --optFlow: the Farneback port (not ported yet)")
+                   help="with --optFlow: the Farneback port on the device "
+                   "instead of cv2 (ops/optflow.optflow_torch)")
     p.add_argument("--packed", action="store_true", default=False,
                    help="lane-packed LP inference graph (exact rewrite)")
     p.add_argument("--pallas", action="store_true", default=False,
@@ -92,6 +101,35 @@ def serve_and_score(infer: Callable,
     return acc, t_total, n
 
 
+def flow_and_score(flow: Callable, warp: Callable,
+                   pairs: Iterable[Tuple[object, object]],
+                   num_classes: int = NUM_CLASSES,
+                   on_mask: Optional[Callable[[int, np.ndarray], None]] = None,
+                   device: DeviceLike = None) -> Tuple[SegAccum, int]:
+    """The optical-flow baseline over ``pairs`` of (labels (2, H, W) int,
+    grays (2, H, W) uint8), arrays or tensors as ``flow`` and ``warp``
+    take them: each frame's prediction is the other frame's labels warped
+    along the flow from it (``warp(labels[1], flow(grays[1], grays[0]))``,
+    then the other way), stacked as an int64 (2, H, W) pair and scored
+    against the pair's labels with ``seg_batch_stats`` on ``device``.
+    ``on_mask(i, labels)`` sees every predicted (H, W) map in order.
+    Returns (host accumulator, images scored)."""
+    dev = resolve_device(device)
+    acc = SegAccum.zero(num_classes)
+    n = 0
+    for labs, grays in pairs:
+        pred = torch.stack([
+            torch.as_tensor(warp(labs[1], flow(grays[1], grays[0]))),
+            torch.as_tensor(warp(labs[0], flow(grays[0], grays[1])))
+        ]).to(torch.int64)
+        if on_mask is not None:
+            for j, labels in enumerate(pred.cpu().numpy()):
+                on_mask(n + j, labels)
+        n += 2
+        acc = acc + seg_batch_stats_host(pred, labs, num_classes, device=dev)
+    return acc, n
+
+
 def main(argv=None, device: DeviceLike = None) -> int:
     opt = build_parser().parse_args(argv)
     dev = resolve_device(device)
@@ -101,14 +139,11 @@ def main(argv=None, device: DeviceLike = None) -> int:
     from robocupvision_tpu_torch.export import deploy
     from robocupvision_tpu_torch.models import packed as packed_mod
     from robocupvision_tpu_torch.models import zoo
+    from robocupvision_tpu_torch.ops import optflow
     from robocupvision_tpu_torch.ops.labels import colorize
     from robocupvision_tpu_torch.ops.metrics import seg_finalize
     from robocupvision_tpu_torch.train import checkpoint
 
-    if opt.optFlow or opt.jaxFlow:
-        raise NotImplementedError(
-            "--optFlow and --jaxFlow need the port's ops/optflow (cv2 and the "
-            "Farneback port, ROADMAP.md A.6), which is not ported yet")
     if opt.int8 and not (opt.packed and opt.pallas):
         print("--int8 requires --packed --pallas")
         return -1
@@ -125,43 +160,60 @@ def main(argv=None, device: DeviceLike = None) -> int:
         return -1
     out_size = 1.0 / (IMG_SIZE[0] * IMG_SIZE[1])
 
-    model = zoo.make("label_prop", num_classes=NUM_CLASSES, planes=32,
-                     device=dev)
-    path = "pth/bestModelLP" + fine_str + prune_str + ".pth"
-    print(f"Loading {path}")
-    model.load_state_dict(checkpoint.load_any(path, model.registry))
-    deploy.export_deployment("./weightsLP", model)
-
-    if opt.packed:
-        # f32: the packed graph's labels stay those of the plain graph but
-        # for argmax ties; --pallas runs the three fused chains (K2 on CUDA)
-        pk = dict(pallas=True, pallas_fold_stem=True, pallas_mid=True) \
-            if opt.pallas else {}
-        pi = packed_mod.build_packed_label_prop(model, None, torch.float32,
-                                                device=dev, **pk)
-        if opt.int8:
-            imgs0, labs0, _ = ds[0]
-            calib, _ = build_lp_pairs(imgs0[None], labs0[None], NUM_CLASSES)
-            pi = packed_mod.quantize_int8(pi, calib)
-        infer = pi.infer
-    else:
-        def infer(x):
-            return torch.argmax(model(x), dim=-1)
-
     def write_mask(i, labels):
         from PIL import Image
 
         Image.fromarray(colorize(labels, NUM_CLASSES)).save(
             os.path.join(out_dir, "%d.png" % i))
 
-    def pairs():
-        for i in range(len(ds)):
-            imgs, labs, _ = ds[i]
-            yield build_lp_pairs(imgs[None], labs[None], NUM_CLASSES)
+    if opt.optFlow:
+        def frames():
+            for i in range(len(ds)):
+                _, labs, grays = ds[i]
+                if opt.jaxFlow:
+                    yield (torch.from_numpy(labs).to(dev),
+                           torch.from_numpy(grays).to(dev))
+                else:
+                    yield labs, grays
 
-    with torch.no_grad():
-        acc, t_total, img_cnt = serve_and_score(infer, pairs(), NUM_CLASSES,
-                                                on_mask=write_mask, device=dev)
+        pair = (optflow.optflow_torch, optflow.warp_labels_torch) \
+            if opt.jaxFlow else (optflow.optflow_cv2, optflow.update_labels_cv2)
+        acc, img_cnt = flow_and_score(*pair, frames(), NUM_CLASSES,
+                                      on_mask=write_mask, device=dev)
+        t_total = 0.0
+    else:
+        model = zoo.make("label_prop", num_classes=NUM_CLASSES, planes=32,
+                         device=dev)
+        path = "pth/bestModelLP" + fine_str + prune_str + ".pth"
+        print(f"Loading {path}")
+        model.load_state_dict(checkpoint.load_any(path, model.registry))
+        deploy.export_deployment("./weightsLP", model)
+
+        if opt.packed:
+            # f32: the packed graph's labels stay those of the plain graph
+            # but for argmax ties; --pallas runs the three fused chains (K2
+            # on CUDA)
+            pk = dict(pallas=True, pallas_fold_stem=True, pallas_mid=True) \
+                if opt.pallas else {}
+            pi = packed_mod.build_packed_label_prop(model, None, torch.float32,
+                                                    device=dev, **pk)
+            if opt.int8:
+                imgs0, labs0, _ = ds[0]
+                calib, _ = build_lp_pairs(imgs0[None], labs0[None], NUM_CLASSES)
+                pi = packed_mod.quantize_int8(pi, calib)
+            infer = pi.infer
+        else:
+            def infer(x):
+                return torch.argmax(model(x), dim=-1)
+
+        def pairs():
+            for i in range(len(ds)):
+                imgs, labs, _ = ds[i]
+                yield build_lp_pairs(imgs[None], labs[None], NUM_CLASSES)
+
+        with torch.no_grad():
+            acc, t_total, img_cnt = serve_and_score(
+                infer, pairs(), NUM_CLASSES, on_mask=write_mask, device=dev)
 
     fin = seg_finalize(acc, out_size)
     print("Validation Pixel Acc: %.2f Mean Class Acc: %.2f Mean IoU: %.2f"

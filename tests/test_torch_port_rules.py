@@ -69,7 +69,7 @@ def _entry_points():
     from robocupvision_tpu_torch.data.streaming import StreamingBatches
     from robocupvision_tpu_torch.models import packed, zoo
     from robocupvision_tpu_torch.ops import metrics
-    from robocupvision_tpu_torch.tools import structured_prune
+    from robocupvision_tpu_torch.tools import make_lp_images, structured_prune
     from robocupvision_tpu_torch.utils.serving import ServingPipeline
 
     cpu_model = zoo.make("robo_unet", device="cpu")
@@ -110,6 +110,9 @@ def _entry_points():
         "structured_prune.main": lambda: structured_prune.main(
             ["--checkpoint", "in.weights", "--out", "out.slim", "--ratio",
              "0.5"]),
+        "validLabelProp.flow_and_score":
+            lambda: validLabelProp.flow_and_score(None, None, []),
+        "make_lp_images.main": lambda: make_lp_images.main([]),
     }
 
 
@@ -128,7 +131,9 @@ def _entry_points():
                                   "objDetEval.main", "StreamingBatches",
                                   "zoo.make(bnn)", "verifyDeploy.main",
                                   "testDumper.main", "pruner.main",
-                                  "detect.main", "structured_prune.main"])
+                                  "detect.main", "structured_prune.main",
+                                  "validLabelProp.flow_and_score",
+                                  "make_lp_images.main"])
 def test_entry_points_raise_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point runs there")

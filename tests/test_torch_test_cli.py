@@ -6,7 +6,9 @@ count, the checkpoint family name and the hyperparameter table; then
 ``test.main`` for ``--UNet`` and ``--v2`` on a synthetic root
 (tests/synth_data.py) at 48x64, from checkpoints the port wrote, whose
 printed metric line, op counts and IoU/Dist arrays must match the JAX
-CLI's on the same checkpoint within 1e-3."""
+CLI's on the same checkpoint within 1e-3; and ``--lProp`` (label
+propagation along cv2's Farneback flow over LabelProp sequences) the same
+way."""
 
 import os
 import re
@@ -20,7 +22,7 @@ import jax.numpy as jnp
 import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
-from synth_data import make_dataset_root  # noqa: E402
+from synth_data import make_dataset_root, make_lp_tree  # noqa: E402
 
 from robocupvision_tpu.cli import test as jtest  # noqa: E402
 from robocupvision_tpu.cli import train as jtrain  # noqa: E402
@@ -234,7 +236,38 @@ def test_test_main_matches_jax(root, tmp_path, monkeypatch, capsys, flag, unet,
         np.testing.assert_allclose(got[key][0], want[key][0], atol=1e-3)
 
 
-def test_lprop_raises(root, tmp_path, monkeypatch):
+def test_lprop_raises(tmp_path, monkeypatch, capsys):
+    """``--lProp``, which raised before its slice was ported, against the
+    JAX CLI on a LabelProp tree (two val sequences of four frames at
+    48x64) from a flagship checkpoint the port wrote: the first checkpoint
+    only, its metric line and its ``Normal`` and ``LP`` IoU/Dist rows
+    within 1e-3 (cv2's Farneback on both sides)."""
+    root = str(tmp_path / "robocup")
+    make_lp_tree(root, size=(48, 64), n_seq=2, seq_len=5, seed=4)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttest.main(["--root", root, "--lProp"], device="cpu")
+    model = tzoo.make("robo_unet", device="cpu",
+                      generator=torch.Generator().manual_seed(7),
+                      **ttrain.model_hyper(False, False))
+    rng = np.random.default_rng(8)
+    state = model.state_dict()
+    for k, t in state.items():  # BN statistics from numpy: varied maps
+        if k.endswith(".running_mean"):
+            t.copy_(torch.from_numpy(rng.standard_normal(t.shape).astype(np.float32)))
+        elif k.endswith(".running_var"):
+            t.copy_(torch.from_numpy((0.05 + 0.05 * rng.random(t.shape)).astype(np.float32)))
+    checkpoint.save("checkpoints/best.weights", model.registry, state)
+    argv = ["--root", root, "--labSize", "48", "64", "--lProp"]
+    assert jtest.main(argv) == 0
+    jout = capsys.readouterr().out
+    assert ttest.main(argv, device="cpu") == 0
+    out = capsys.readouterr().out
+    assert out.count("###### Testing") == 1 and "Testing checkpoints/best.weights" in out
+    lines = out.splitlines()
+    assert lines[-6:-3] == ["Normal"] + lines[-5:-3] and lines[-3] == "LP"
+    got = [_numbers(ln) for ln in lines if ln.startswith(("[Validate]", "IoU:", "Dist:"))]
+    want = [_numbers(ln) for ln in jout.splitlines()
+            if ln.startswith(("[Validate]", "IoU:", "Dist:"))]
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert len(g) == len(w) > 0
+        np.testing.assert_allclose(g, w, atol=1e-3)

@@ -6,8 +6,8 @@ dataset items and the frame-pair inputs equal, the printed metrics within
 run), the mask PNGs equal on all but 1e-4 of the pixels (argmax ties of the
 f32 packed graphs), ``--packed --pallas --int8`` within 1e-3 of the JAX
 CLI's ``--int8`` run (masks equal on >= 0.999 of the pixels), the
-``weightsLP/`` export byte-identical, and the flags of later slices raising
-``NotImplementedError``."""
+``weightsLP/`` export byte-identical, and the optical-flow baselines
+(``--optFlow``, ``--optFlow --jaxFlow``) against the JAX CLI's."""
 
 import os
 import re
@@ -128,28 +128,68 @@ def test_serve_and_score_counts_every_image():
 
 
 @pytest.mark.parametrize("flag", [["--optFlow"], ["--optFlow", "--jaxFlow"],
-                                  ["--packed", "--pallas", "--int8"]])
-def test_unported_flags_raise(env, monkeypatch, capsys, flag):
-    """``--optFlow``/``--jaxFlow`` (a later slice) raise; ``--int8``, now
-    ported, runs (calibrated on the first val pair) and matches the JAX
-    CLI's ``--int8`` run: metrics within 1e-3, masks equal on >= 0.999 of
-    the pixels, the same ``weightsLP`` export."""
-    monkeypatch.chdir(env["work"])
+                                  ["--packed", "--pallas", "--int8"],
+                                  ["--jaxFlow"]])
+def test_unported_flags_raise(env, monkeypatch, capsys, tmp_path, flag):
+    """The flags that raised before their slice was ported, now each held to
+    the JAX CLI's run with the same flags. ``--optFlow`` (cv2's Farneback)
+    and ``--optFlow --jaxFlow`` (the Farneback port against the JAX one),
+    run from an empty working directory: no checkpoint read, no
+    ``weightsLP`` written, metrics within 1e-3, masks equal on >= 0.999 of
+    the pixels, the latency line 0 as in the JAX CLI. ``--int8``
+    (calibrated on the first val pair) within 1e-3 of the JAX CLI's
+    ``--int8`` run, masks equal on >= 0.999 of the pixels, the same
+    ``weightsLP`` export. ``--jaxFlow`` alone serves the net, as the JAX
+    CLI does."""
+    flow = "--optFlow" in flag
+    monkeypatch.chdir(tmp_path if flow else env["work"])
     flags = ["--root", env["root"]] + flag
-    if "--int8" not in flag:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            validLabelProp.main(flags, device="cpu")
-        return
     assert jvalid.main(flags) == 0
-    ref = _metrics(capsys.readouterr().out)
-    ref_masks, ref_weights = _masks(8), _weights()
+    jout = capsys.readouterr().out
+    ref = _metrics(jout)
+    ref_masks = _masks(8)
+    ref_weights = None if flow else _weights()
     assert validLabelProp.main(flags, device="cpu") == 0
     out = capsys.readouterr().out
     assert len(_metrics(out)) == 3
     np.testing.assert_allclose(_metrics(out), ref, atol=1e-3)
     for got, want in zip(_masks(8), ref_masks):
         assert np.mean(np.any(got != want, axis=-1)) <= 1e-3
-    assert _weights() == ref_weights
+    if flow:
+        assert "Loading" not in out and not os.path.exists("weightsLP")
+        assert float(out.splitlines()[-1]) == float(jout.splitlines()[-1]) == 0
+    else:
+        assert _weights() == ref_weights
+
+
+def test_flow_and_score_counts_every_image():
+    """The flow loop chip_smoke.py drives, on in-memory pairs with a flow
+    and a warp given as functions: each frame's prediction is the other
+    frame's labels warped along the flow from it, every map seen in order,
+    scored as int64 maps against the pair's labels."""
+    rng = np.random.default_rng(5)
+    labs = rng.integers(0, 3, (3, 2, 16, 16)).astype(np.int32)
+    grays = rng.integers(0, 256, (3, 2, 16, 16), dtype=np.uint8)
+    calls = []
+
+    def flow(a, b):
+        calls.append((a, b))
+        return None
+
+    seen = []
+    acc, n = validLabelProp.flow_and_score(
+        flow, lambda lab, _: lab, zip(labs, grays), 3,
+        on_mask=lambda i, m: seen.append((i, m)), device="cpu")
+    assert n == 6 and [i for i, _ in seen] == list(range(6))
+    np.testing.assert_array_equal(np.stack([m for _, m in seen]),
+                                  labs[:, ::-1].reshape(6, 16, 16))
+    assert seen[0][1].dtype == np.int64
+    assert len(calls) == 6
+    for (a, b), (c, d), g in zip(calls[::2], calls[1::2], grays):
+        for got, want in ((a, g[1]), (b, g[0]), (c, g[0]), (d, g[1])):
+            np.testing.assert_array_equal(got, want)
+    assert float(acc.img_cnt) == 6
+    assert float(acc.correct) == float((labs[:, 0] == labs[:, 1]).sum() * 2)
 
 
 def test_int8_needs_the_chain_graph(env, monkeypatch, capsys):
