@@ -76,7 +76,16 @@ the launch counters set to 0 just before it and read just after:
     4-frame sequences, the Farneback port as its flow pair, K1 a
     sequence) and make_lp_images' ``lp_images`` (PB_FCN, LabelProp), each
     held to the same loop on the CPU; ``device_busy_span_us`` around one
-    served flagship frame beside ``device_split``'s card ms.
+    served flagship frame beside ``device_split``'s card ms;
+  - the mesh (``mesh``, parallel/mesh.py): ``Trainer(mesh=make_mesh())``
+    at world 1 over NCCL (the flagship at QVGA, b64, 3 SGD epochs,
+    validation on K1) against the same run without a mesh, then two ranks
+    of a gloo group on the one card: the data-parallel SGD step and
+    Trainer, K1 on each rank's validation batches, the streamed epoch
+    with ``sharding=``, 8 VGA frames served data-parallel through K2
+    (bf16 full chain graph and int8) and gathered, and on a 1 x 2 spatial
+    mesh an SGD step at VGA and ``train_combo`` with ``--spatial 2``, each
+    held to one process.
 K2's int8 stages are held against the int8 ``chain_reference`` on every
 chain of the five families (VGA b1, bf16 and f32) and on one stage per
 feature, and K2 against ``chain_reference`` on random chains with random
@@ -93,6 +102,7 @@ fps phase splits each graph's card time into K2 and the plain parts with
     python3 chip_smoke.py --compare-chains PATH_A PATH_B
     python3 chip_smoke.py --time-chains
     python3 chip_smoke.py --time-k1
+    python3 chip_smoke.py --mesh
 
 save K2's outputs on every f32 chain of the five families (on the inputs
 of the dump INPUTS when given), and compare two such dumps bit for bit (a
@@ -102,7 +112,8 @@ chain and single-stage case; and print K1's costs on the maps the main
 paths give it (``K1_PATH_CASES``, recorded by ``K1Recorder`` in every
 path's counted run) at two label distributions: its card time alone, its
 device launches a call, its CUDA-event time, its bytes bound and the
-``torch.bincount`` yardstick (the same lines ``phase_k1`` prints).
+``torch.bincount`` yardstick (the same lines ``phase_k1`` prints); and
+run the mesh phase alone after the build.
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi reports them, and the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if
@@ -193,6 +204,7 @@ K1_PATH_CASES = [
     ("legacy_lp_val", (16, 120, 160), torch.int64, torch.int32),
     ("flow_baseline", (2, 120, 160), torch.int64, torch.int32),
     ("lprop_eval", (4, 120, 160), torch.int64, torch.int32),
+    ("mesh_spatial_val", (2, 240, 640), torch.int64, torch.int32),
     ("b8_vga", (8, *VGA), torch.int32, torch.int32),
 ]
 K1_DISTRIBUTIONS = ("random", "frame")
@@ -470,6 +482,8 @@ class K1Recorder:
     def install(self) -> None:
         from robocupvision_tpu_torch.ops import metrics
 
+        if self.fn is not None:
+            return
         self.fn = metrics.confusion_count
         metrics.confusion_count = self
 
@@ -4394,6 +4408,537 @@ def phase_prune_clis(dev, chk: Checks, smi: str) -> list:
     return results
 
 
+# ---------------------------------------------------------------------------
+# The mesh: data-parallel and spatial training and serving
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_N, MESH_VAL_N, MESH_EPOCHS, MESH_BATCH = 256, 120, 3, 64
+MESH_QVGA = (120, 160)
+MESH_TOL = {"loss": 1e-4, "rtol": 2e-3, "atol": 2e-5}  # test_train_step's
+
+
+def mesh_data():
+    """The mesh phase's seeded frames at QVGA: train, then val."""
+    imgs, labs = eval_set(MESH_TRAIN_N + MESH_VAL_N, SEED + 90, MESH_QVGA,
+                          paint=True)
+    return ((imgs[:MESH_TRAIN_N], labs[:MESH_TRAIN_N]),
+            (imgs[MESH_TRAIN_N:], labs[MESH_TRAIN_N:]))
+
+
+def mesh_trainer(dev, mesh, data):
+    """train.py's flagship (model_hyper) at QVGA, b64, SGD (momentum 0.5),
+    class weights, L1 1e-6, the step's augmentation, on ``mesh`` (None:
+    one process), from seeded weights."""
+    from robocupvision_tpu_torch.cli import train
+    from robocupvision_tpu_torch.data.device_cache import DeviceCache
+    from robocupvision_tpu_torch.models import zoo
+    from robocupvision_tpu_torch.train import optim
+    from robocupvision_tpu_torch.train import step as tstep
+    from robocupvision_tpu_torch.train.loop import Trainer
+
+    model = zoo.make("robo_unet", device=dev,
+                     generator=torch.Generator().manual_seed(SEED + 91),
+                     **train.model_hyper(False, False))
+    cfg = tstep.StepCfg(num_classes=5, class_weights=(1, 10, 30, 10, 2),
+                        l1_decay=1e-6,
+                        out_size=1.0 / (MESH_QVGA[0] * MESH_QVGA[1]))
+    caches = [DeviceCache.from_numpy(*d, device=dev) for d in data]
+    tr = Trainer(model, optim.sgd(momentum=0.5), cfg, *caches, MESH_BATCH,
+                 seed=SEED + 92, mesh=mesh)
+    tr.init()
+    return tr
+
+
+def mesh_curve(tr) -> dict:
+    """MESH_EPOCHS train epochs, each with its validation (K1)."""
+    losses, vals = [], []
+    for _ in range(MESH_EPOCHS):
+        losses.append(tr.train_epoch(1e-2).loss)
+        v = tr.valid_epoch()
+        vals.append([float(v[k]) for k in ("loss", "pixel_acc",
+                                             "mean_class_acc", "mean_iou",
+                                             "score")])
+    return {"train_loss": losses, "val": vals}
+
+
+def params_digest(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(params):
+        h.update(params[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def max_abs_diff(a, b) -> float:
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in b)
+
+
+def timed_steps(one, steps: int = 10) -> float:
+    """ms a call of ``one`` (host clock, synchronised) after two."""
+    for _ in range(2):
+        one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        one()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+class CollectiveClock:
+    """Host time inside a mesh's collectives (``all_reduce_``,
+    ``all_gather``): with gloo on a card it includes the copies to and
+    from the host, and so the wait for the card's queued work."""
+
+    def __init__(self, mesh) -> None:
+        self.seconds, self.calls = 0.0, 0
+        for name in ("all_reduce_", "all_gather"):
+            fn = getattr(mesh, name)
+
+            def timed(*a, _fn=fn, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.seconds += time.perf_counter() - t0
+                    self.calls += 1
+
+            setattr(mesh, name, timed)
+
+
+def mesh_step_pair(dev, mesh, model, batch, dt="float32"):
+    """One plain-SGD step (lr 1e-2, momentum 0.5) of ``model`` on the
+    seeded ``batch`` (imgs, labels, mask) by one process and on ``mesh``
+    (this rank's block at full height; the step cuts its rows):
+    (worst excess over rtol, param, loss, one-process loss, mesh step fn,
+    its args)."""
+    from robocupvision_tpu_torch.data.device_cache import shard_rows
+    from robocupvision_tpu_torch.train import optim
+    from robocupvision_tpu_torch.train import step as tstep
+
+    imgs, labs, mask = batch
+    cfg = tstep.StepCfg(num_classes=5, class_weights=(1, 10, 30, 10, 2),
+                        l1_decay=1e-6, augment=False, compute_dtype=dt,
+                        out_size=1.0 / (imgs.shape[1] * imgs.shape[2]))
+    tx = optim.sgd(momentum=0.5)
+    one, out1 = tstep.make_train_step(model, tx, cfg)(
+        tstep.init_state(model, tx), imgs, labs, mask, None, 1e-2)
+    fn = tstep.make_train_step(model, tx, cfg, mesh=mesh)
+    args = (shard_rows(mesh, imgs), shard_rows(mesh, labs),
+            shard_rows(mesh, mask, fill=0.0), None, 1e-2)
+    st0 = tstep.init_state(model, tx)
+    st, out = fn(st0, *args)
+    worst, name = worst_over_tol(st.params, one.params, MESH_TOL["rtol"])
+    return worst, name, float(out["loss"]), float(out1["loss"]), \
+        (lambda: fn(st0, *args)), st.params
+
+
+class HostFrames:
+    """A host dataset over seeded frames (``__getitem__`` -> (img, label))."""
+
+    def __init__(self, imgs, labs) -> None:
+        self.imgs, self.labs = imgs, labs
+
+    def __len__(self) -> int:
+        return len(self.imgs)
+
+    def __getitem__(self, i):
+        return self.imgs[i], self.labs[i]
+
+
+def mesh_rank(rank: int, port: int, workdir: str, results,
+              device: str = "cuda:0"):
+    """One of two ranks of a gloo group on the one card (``phase_mesh``):
+    everything it measures, or its traceback, goes to ``results``."""
+    import traceback
+
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        dist.init_process_group("gloo", rank=rank, world_size=2,
+                                init_method=f"tcp://127.0.0.1:{port}")
+        results.put((rank, True, mesh_rank_work(torch.device(device),
+                                                workdir)))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def mesh_rank_work(dev, workdir: str) -> dict:
+    """``mesh_rank``'s measurements on ``dev`` (see ``phase_mesh``)."""
+    import torch.distributed as dist
+
+    from robocupvision_tpu_torch.cli import train
+    from robocupvision_tpu_torch.data.device_cache import (DeviceCache,
+                                                           epoch_batches)
+    from robocupvision_tpu_torch.models import packed, zoo
+    from robocupvision_tpu_torch.ops import cuda_packed as ckp
+    from robocupvision_tpu_torch.parallel.mesh import (batch_sharding,
+                                                       make_mesh)
+
+    K1_REC.install()
+    mesh = make_mesh(device=dev)  # 2 x 1, the caller's gloo group
+    out = {"backend": mesh.backend, "stage": mesh.stage,
+           "coords": mesh.coords, "probe": {}}
+    # which collectives gloo takes on CUDA tensors without the staging
+    for name, call in (
+            ("all_reduce", lambda t: dist.all_reduce(t)),
+            ("all_gather", lambda t: dist.all_gather(
+                [torch.empty_like(t) for _ in range(2)], t)),
+            ("broadcast", lambda t: dist.broadcast(t, 0))):
+        try:
+            call(torch.ones(4, device=dev))
+            torch.cuda.synchronize()
+            out["probe"][name] = "ok"
+        except Exception as e:  # noqa: BLE001 - recorded, not hidden
+            out["probe"][name] = f"{type(e).__name__}: {str(e)[:120]}"
+
+    data = mesh_data()
+    tr = mesh_trainer(dev, mesh, data)
+    # 1. one SGD step at b64 QVGA (32 a rank) against one process
+    batch = next(epoch_batches(tr.train_cache, MESH_BATCH))
+    mask = batch[2].clone()
+    mask[-3:] = 0
+    worst, name, loss, loss1, again, _ = mesh_step_pair(
+        dev, mesh, tr.model, (batch[0], batch[1], mask))
+    out["sgd_step"] = {"worst_abs_err_over_rtol": worst, "param": name,
+                       "loss": loss, "one_process_loss": loss1}
+    clock = CollectiveClock(mesh)
+    out["step_ms_2ranks"] = timed_steps(again)
+    out["collective_host_share"] = clock.seconds * 1e3 / 12 / \
+        out["step_ms_2ranks"] if clock.calls else None
+    out["collective_calls_per_step"] = clock.calls / 12
+
+    # 2. the Trainer's 3 epochs, validation on K1 each epoch
+    curve, launches, verified, unequal, wall = counted_run(
+        lambda: mesh_curve(tr))
+    out["trainer"] = {"curve": curve, "launches": launches,
+                      "k1_verified": verified, "k1_unequal_plain": unequal,
+                      "seconds": wall,
+                      "params_digest": params_digest(tr.state.params)}
+
+    # 3. the streamed epoch with the mesh's sharding, against one process
+    stream_data = HostFrames(*[a[:128] for a in data[0]])
+    one = mesh_trainer(dev, None, data)
+    tr_s = mesh_trainer(dev, mesh, data)
+    (ls, ls1), launches_s, _, _, wall_s = counted_run(
+        lambda: (tr_s.train_epoch_streamed(1e-2, stream_data).loss,
+                 one.train_epoch_streamed(1e-2, stream_data).loss))
+    out["streamed"] = {"loss": ls, "one_process_loss": ls1,
+                       "launches": launches_s,
+                       "max_abs_param_diff": max_abs_diff(
+                           tr_s.state.params, one.state.params),
+                       "params_digest": params_digest(tr_s.state.params)}
+    del tr, one, tr_s
+
+    # 4. data-parallel serving: 8 VGA frames, 4 a rank, gathered
+    net = zoo.make("robo_unet", no_scale=True, device=dev,
+                   generator=torch.Generator().manual_seed(SEED))
+    pi = packed.build_packed_infer(net, None, torch.bfloat16, pallas=True,
+                                   pallas_fold_stem=True, pallas_deep=True,
+                                   device=dev)
+    x = torch.from_numpy(np.random.default_rng(SEED + 93).standard_normal(
+        (8, *VGA, 3)).astype(np.float32)).to(dev)
+    q = packed.quantize_int8(pi, x[:1])
+    sh = batch_sharding(mesh, None)
+    served = {}
+    for tag, graph in (("bf16", pi), ("int8", q)):
+        whole = graph.infer(x)
+        ckp.fused_conv_chain.launches = 0
+        labels = sh.gather(graph.infer(sh.local(x)))
+        torch.cuda.synchronize()
+        launches = ckp.fused_conv_chain.launches
+        # one process at the ranks' batch, and both with cuDNN off (the
+        # plain parts' algorithms may depend on the batch)
+        per_rank = torch.cat([graph.infer(x[i:i + 4]) for i in (0, 4)])
+        with torch.backends.cudnn.flags(enabled=False):
+            whole_nc = graph.infer(x)
+            labels_nc = sh.gather(graph.infer(sh.local(x)))
+        served[tag] = {
+            "equal_one_process_b8": bool(torch.equal(labels, whole)),
+            "agree_one_process_b8": float((labels == whole).float().mean()),
+            "equal_one_process_b4": bool(torch.equal(labels, per_rank)),
+            "equal_one_process_b8_cudnn_off": bool(torch.equal(labels_nc,
+                                                              whole_nc)),
+            "launches": launches}
+    out["serving"] = served
+    del pi, q, net
+
+    # 5. the spatial axis: 1 x 2 at VGA
+    mesh2 = make_mesh(spatial=2, device=dev)
+    flag = zoo.make("robo_unet", no_scale=True, device=dev,
+                    generator=torch.Generator().manual_seed(SEED + 94),
+                    **train.model_hyper(False, False))
+    vi, vl = eval_set(4, SEED + 95, VGA, paint=True)
+    vb = (torch.from_numpy(vi[:2]).to(dev),
+          torch.from_numpy(vl[:2]).long().to(dev),
+          torch.ones(2, device=dev))
+    worst2, name2, loss2, loss21, again2, _ = mesh_step_pair(
+        dev, mesh2, flag, vb)
+    out["spatial_step"] = {"worst_abs_err_over_rtol": worst2, "param": name2,
+                           "loss": loss2, "one_process_loss": loss21,
+                           "step_ms": timed_steps(again2, 3)}
+    opt = train.build_parser().parse_args(
+        ["--noScale", "--epochs", "1", "--batchSize", "2", "--spatial", "2",
+         "--chunkEpochs", "1"])
+    s = train.Setup.from_opt(opt)
+    caches = [DeviceCache.from_numpy(vi[a:a + 2], vl[a:a + 2], device=dev)
+              for a in (0, 2)]
+    printed = io.StringIO()
+    cwd = os.getcwd()
+    os.chdir(workdir)
+    try:
+        with contextlib.redirect_stdout(printed):
+            (best, launches2, verified2, unequal2, wall2) = counted_run(
+                lambda: train.train_combo(s, *caches, 0, 1e-6, dev,
+                                          mesh=mesh2))
+        mesh2.barrier()
+        ck = os.path.exists("checkpoints/bestVGA.weights") or any(
+            f.endswith(".weights") for f in os.listdir("checkpoints"))
+    finally:
+        os.chdir(cwd)
+    out["spatial_train_combo"] = {
+        "best": best, "launches": launches2, "k1_verified": verified2,
+        "k1_unequal_plain": unequal2, "seconds": wall2,
+        "checkpoint_written": ck,
+        "epoch_lines": [l for l in printed.getvalue().splitlines()
+                        if l.startswith("[Epoch")]}
+    out["k1_seen"] = list(K1_REC.seen.items())
+    return out
+
+
+def phase_mesh(dev, chk: Checks, smi: str) -> dict:
+    """The mesh (``parallel/mesh.py``), cuDNN deterministic throughout.
+    World 1 over NCCL on the card: three epochs of ``Trainer(mesh=
+    make_mesh())`` (the flagship at QVGA, b64, SGD, the step's
+    augmentation, validation on K1 each epoch) against the same run with
+    ``mesh=None``: loss curve, validation metrics and params equal (the
+    max abs difference, expected 0). Then two ranks of a gloo group on the
+    one card (NCCL refuses two ranks on one card; gloo's collectives are
+    staged through the host), spawned: one SGD step at b64 (32 a rank)
+    held to one process at tests/test_train_step.py's tolerances, the
+    Trainer's curve held to world 1's at rtol 1e-3, params bit-equal
+    across ranks, K1 on each rank's validation batches equal to its plain
+    count, the streamed epoch with ``sharding=``, 8 VGA frames served
+    data-parallel through the full chain graph (bf16) and int8 (K2 on 4
+    a rank), the gathered labels equal to one process's at the ranks'
+    batch (b4) and, with cuDNN off, at b8 (cuDNN's algorithms for the
+    plain parts depend on the batch: with it on, the bf16 labels agree
+    with b8's on >= 0.999), and on a 1 x 2 spatial mesh an SGD step at
+    VGA (b2) held to one process and ``train_combo`` with ``--spatial 2``
+    for one step. Times: ms a step at world 1 with and without the mesh
+    and at 2 ranks (host clock), and the collectives' share of a step
+    (host time inside the mesh's collectives, at 2 ranks the host copies
+    included; at world 1 also NCCL's kernels in ``torch.profiler``)."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    import torch.distributed as dist
+
+    from robocupvision_tpu_torch.data.device_cache import epoch_batches
+    from robocupvision_tpu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    res = {"phase": "mesh", "card": smi}
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        data = mesh_data()
+        mesh = make_mesh(device=dev)
+        res["world1"] = {"backend": mesh.backend, "device": str(mesh.device),
+                         "shape": mesh.shape}
+        tr0 = mesh_trainer(dev, None, data)
+        curve0 = mesh_curve(tr0)
+        tr1 = mesh_trainer(dev, mesh, data)
+        curve1, launches, verified, unequal, wall = counted_run(
+            lambda: mesh_curve(tr1))
+        diff = max_abs_diff(tr1.state.params, tr0.state.params)
+        curve_diff = max(abs(a - b) for a, b in zip(
+            curve1["train_loss"] + sum(curve1["val"], []),
+            curve0["train_loss"] + sum(curve0["val"], [])))
+        vnb = -(-MESH_VAL_N // MESH_BATCH)
+        res["world1"].update(
+            {"curve": curve1, "launches": launches, "k1_verified": verified,
+             "k1_unequal_plain": unequal, "seconds": wall,
+             "max_abs_param_diff_vs_no_mesh": diff,
+             "max_abs_curve_diff_vs_no_mesh": curve_diff})
+        chk.expect(diff <= 1e-5 and curve_diff <= 1e-5,
+                   f"mesh world 1: differs from no mesh by {diff} (params), "
+                   f"{curve_diff} (curve)")
+        chk.expect(launches == {"confusion_count": MESH_EPOCHS * vnb,
+                                "fused_conv_chain": 0,
+                                "fused_conv3x3_block": 0}
+                   and verified == MESH_EPOCHS * vnb and unequal == 0,
+                   f"mesh world 1: launches {launches}, K1 equal to plain on "
+                   f"{verified - unequal} of {MESH_EPOCHS * vnb}")
+        chk.expect(curve1["train_loss"][-1] < curve1["train_loss"][0],
+                   f"mesh world 1: the loss does not fall: {curve1}")
+        # a step alone, with and without the mesh
+        batch = next(epoch_batches(tr0.train_cache, MESH_BATCH))
+        _, _, _, _, mesh_one, _ = mesh_step_pair(dev, mesh, tr0.model, batch)
+        from robocupvision_tpu_torch.train import optim
+        from robocupvision_tpu_torch.train import step as tstep
+
+        cfg = tstep.StepCfg(num_classes=5, class_weights=(1, 10, 30, 10, 2),
+                            l1_decay=1e-6, augment=False,
+                            out_size=1.0 / (MESH_QVGA[0] * MESH_QVGA[1]))
+        tx = optim.sgd(momentum=0.5)
+        plain = tstep.make_train_step(tr0.model, tx, cfg)
+        st0 = tstep.init_state(tr0.model, tx)
+        res["world1"]["step_ms_no_mesh"] = timed_steps(
+            lambda: plain(st0, *batch, None, 1e-2))
+        clock = CollectiveClock(mesh)
+        res["world1"]["step_ms_mesh"] = timed_steps(mesh_one)
+        res["world1"]["collective_host_share"] = clock.seconds * 1e3 / 12 \
+            / res["world1"]["step_ms_mesh"]
+        res["world1"]["collective_calls_per_step"] = clock.calls / 12
+        prof = step_profile(mesh_one, 3)
+        res["world1"]["profile"] = prof
+        from torch.profiler import ProfilerActivity
+        from torch.profiler import profile as tprofile
+
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as p:
+            for _ in range(3):
+                mesh_one()
+            torch.cuda.synchronize()
+        kern = [e for e in p.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        tot = sum(e.self_device_time_total for e in kern)
+        nccl = sum(e.self_device_time_total for e in kern
+                   if "nccl" in e.key.lower())
+        res["world1"]["nccl_device_share"] = nccl / tot if tot else None
+        res["world1"]["nccl_device_us_per_step"] = nccl / 3
+        del tr0, tr1, plain, st0
+        dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = det
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # two ranks of a gloo group on the one card
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    with tempfile.TemporaryDirectory() as workdir:
+        os.makedirs(os.path.join(workdir, "checkpoints"))
+        procs = [ctx.Process(target=mesh_rank, daemon=True,
+                             args=(r, port, workdir, results,
+                                   str(dev)))
+                 for r in range(2)]
+        for pr in procs:
+            pr.start()
+        ranks, errors = {}, []
+        try:
+            for _ in procs:
+                rank, ok, value = results.get(timeout=400)
+                if ok:
+                    ranks[rank] = value
+                else:
+                    errors.append(f"rank {rank}: {value}")
+        except queue.Empty:
+            errors.append("a rank did not answer within 400 s")
+        for pr in procs:
+            pr.join(timeout=60)
+            if pr.is_alive():
+                pr.terminate()
+                pr.join(timeout=10)
+    chk.expect(not errors and len(ranks) == 2,
+               "mesh 2 ranks failed:\n" + "\n".join(errors))
+    res["ranks"] = {}
+    if len(ranks) == 2:
+        for rank, r in sorted(ranks.items()):
+            for key, n in r.pop("k1_seen"):
+                K1_REC.seen[key] = K1_REC.seen.get(key, 0) + n
+            res["ranks"][rank] = r
+            sg, sp = r["sgd_step"], r["spatial_step"]
+            for tag, st in (("sgd_step b64", sg), ("spatial_step VGA", sp)):
+                chk.expect(st["worst_abs_err_over_rtol"] <= MESH_TOL["atol"]
+                           and abs(st["loss"] - st["one_process_loss"])
+                           <= MESH_TOL["loss"],
+                           f"mesh rank {rank}: the {tag} differs from one "
+                           f"process: {st}")
+            t = r["trainer"]
+            nb = -(-MESH_VAL_N // MESH_BATCH)
+            chk.expect(np.allclose(t["curve"]["train_loss"],
+                                   curve1["train_loss"], rtol=1e-3, atol=0),
+                       f"mesh rank {rank}: the curve {t['curve']} is not "
+                       f"world 1's {curve1} within rtol 1e-3")
+            chk.expect(t["launches"]["confusion_count"] == MESH_EPOCHS * nb
+                       and t["k1_verified"] == MESH_EPOCHS * nb
+                       and t["k1_unequal_plain"] == 0,
+                       f"mesh rank {rank}: K1 on the validation batches: {t}")
+            stm = r["streamed"]
+            chk.expect(abs(stm["loss"] - stm["one_process_loss"])
+                       <= 1e-3 * abs(stm["one_process_loss"]),
+                       f"mesh rank {rank}: streamed epoch {stm}")
+            for tag, sv in r["serving"].items():
+                chk.expect(sv["equal_one_process_b4"]
+                           and sv["equal_one_process_b8_cudnn_off"]
+                           and sv["agree_one_process_b8"] >= 0.999
+                           and sv["launches"] > 0,
+                           f"mesh rank {rank}: {tag} serving {sv}")
+            tc = r["spatial_train_combo"]
+            chk.expect(tc["launches"]["confusion_count"] == 1
+                       and tc["k1_unequal_plain"] == 0
+                       and len(tc["epoch_lines"]) == 2
+                       and (tc["checkpoint_written"] or rank),
+                       f"mesh rank {rank}: train_combo --spatial 2: {tc}")
+        for key in ("trainer", "streamed"):
+            digests = {r[key]["params_digest"] for r in ranks.values()}
+            res[f"{key}_params_bit_equal_across_ranks"] = len(digests) == 1
+            chk.expect(len(digests) == 1,
+                       f"mesh: {key} params differ across ranks")
+    res["launches"] = main_path_launches_mesh(res)
+    res["phase_s"] = time.perf_counter() - t_phase
+    emit(res)
+    return res
+
+
+def mesh_only() -> int:
+    """The kernels built, then the mesh phase alone; exit 1 if it failed."""
+    from robocupvision_tpu_torch.csrc import build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.build_all()
+    K1_REC.install()
+    chk = Checks()
+    phase_mesh(torch.device("cuda"), chk, smi_line())
+    print(smi_line(), flush=True)
+    if chk.failed:
+        print("chip_smoke --mesh FAILED:\n  " + "\n  ".join(chk.failed),
+              file=sys.stderr, flush=True)
+        return 1
+    return 0
+
+
+def main_path_launches_mesh(res) -> dict:
+    """The mesh phase's main-path launches: world 1's counted run and every
+    rank's trainer, spatial train_combo and served frames."""
+    tot = dict(res.get("world1", {}).get("launches", {}))
+    for r in res.get("ranks", {}).values():
+        for part in (r["trainer"]["launches"],
+                     r["spatial_train_combo"]["launches"]):
+            for k, v in part.items():
+                tot[k] = tot.get(k, 0) + v
+        for sv in r["serving"].values():
+            tot["fused_conv_chain"] = tot.get("fused_conv_chain", 0) + \
+                sv["launches"]
+    return tot
+
+
 def step_profile(fn, steps: int) -> dict:
     """``steps`` calls of ``fn`` under ``torch.profiler``: the wall time a
     step (host clock, synchronised), the card's kernel time a step, the
@@ -4626,6 +5171,8 @@ def main() -> int:
         return time_k1()
     if sys.argv[1:2] == ["--compare-chains"]:
         return compare_chain_outputs(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--mesh"]:
+        return mesh_only()
     from robocupvision_tpu_torch.csrc import build
     from robocupvision_tpu_torch.ops.cuda_kernels import fused_conv3x3_block
 
@@ -4697,6 +5244,7 @@ def main() -> int:
     sl = phase_slim(model, dev, chk, frames, targets, smi)
     pc = phase_prune_clis(dev, chk, smi)
     of = phase_optflow(nets, frames, dev, chk, smi)
+    ms = phase_mesh(dev, chk, smi)
     K1_REC.check(chk)
 
     # the main paths' launches; K1's shapes: one (1, 480, 640) map pair
@@ -4716,7 +5264,7 @@ def main() -> int:
         f["launches"] for f in it["families"].values()] + [
         sl["main_path_launches"]] + [r["launches"] for r in pc] + [
         of[k]["launches"] for k in ("flow_baseline", "lprop",
-                                    "make_lp_images")]
+                                    "make_lp_images")] + [ms["launches"]]
     # K1's entry: the tester's map pair, the case of earlier PRs' entries
     k1m = k1["tester", "random"]
     # K3 has no caller: its entry is the QVGA 64->64 bf16 Conv-block case

@@ -16,14 +16,22 @@ combination runs in :func:`train_combo`, which takes the train and val
     python -m robocupvision_tpu_torch.cli.train --root $DATA
 
 runs on the CUDA card; ``main(argv, device="cpu")`` runs on the CPU.
-``--spatial > 1`` (a spatial mesh, ROADMAP A.7) raises
-``NotImplementedError``.
+
+In a process group of more than one rank (``torchrun --standalone
+--nproc-per-node N -m robocupvision_tpu_torch.cli.train ...``, or a group
+the caller set up), or with ``--spatial S``, training runs on
+``parallel.mesh.make_mesh(spatial=S)``: data-parallel over N / S ranks,
+each image's rows split over S. Rank 0 alone prints and writes the
+checkpoints and resume markers; one process with ``--spatial > 1`` fails
+the mesh's precondition (the world size must be a multiple of S).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import os
 import sys
 from typing import Callable, Optional, Tuple
@@ -54,8 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
                    default=os.environ.get("ROBOCUP_DATA", "../../Data/RoboCup"))
     p.add_argument("--epochs", help="Override epoch count", type=int, default=None)
     p.add_argument("--batchSize", help="Override batch size", type=int, default=None)
-    p.add_argument("--spatial", help="Spatial mesh axis size (not ported: "
-                   "only 1)", type=int, default=1)
+    p.add_argument("--spatial", help="Spatial mesh axis size (image-height "
+                   "sharding)", type=int, default=1)
     p.add_argument("--bf16", help="bfloat16 compute (f32 master weights)",
                    action="store_true", default=False)
     p.add_argument("--labSize", help="Override working resolution H W "
@@ -151,15 +159,16 @@ def step_cfg(s: Setup, l1_decay: float):
 def train_combo(s: Setup, train_cache, val_cache, transfer: int,
                 decay: float, device: DeviceLike = None,
                 marker: Optional[str] = None, main_done: bool = False,
-                after_chunk: Optional[Callable[[int, dict], None]] = None
-                ) -> Optional[float]:
+                after_chunk: Optional[Callable[[int, dict], None]] = None,
+                mesh=None) -> Optional[float]:
     """One (transfer, decay) combination of the sweep on the two caches:
     the main training run (unless ``main_done``), its checkpoint, and for
     ``--finetune`` at transfer 0 the prune-and-finetune phase (structured
     with ``--pruneStruct``). ``marker``:
     the ``--resume`` marker written once the main phase is durable.
     ``after_chunk(epoch_offset, metrics)`` is called after each chunk's
-    prints. Returns the main run's best score (None when ``main_done``)."""
+    prints. ``mesh``: both phases train on it, and only its rank 0 writes
+    files. Returns the main run's best score (None when ``main_done``)."""
     from robocupvision_tpu_torch.models import zoo
     from robocupvision_tpu_torch.ops import pruning as prune_ops
     from robocupvision_tpu_torch.ops import slim as slim_ops
@@ -169,6 +178,7 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
 
     opt = s.opt
     dev = resolve_device(device)
+    writes = mesh is None or mesh.is_main
     no_tf32()  # without --bf16 the convs and matmuls train in f32
     epochs = s.epochs
     learning_rate = opt.lr
@@ -188,7 +198,7 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
         tr = Trainer(model, optim.adam(), step_cfg(s, decay), train_cache,
                      val_cache, s.batch_size,
                      multipliers=optim.transfer_multipliers(
-                         model.param_order, transfer))
+                         model.param_order, transfer), mesh=mesh)
         tr.init()
         if opt.finetune:
             load_path = naming.train_load_name(s.flags)
@@ -220,7 +230,7 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
                     print("Saving best model")
                     print(np.array_str(ms["conf"][i], precision=2,
                                        suppress_small=True))
-            if chunk_best is not None:
+            if chunk_best is not None and writes:
                 checkpoint.save(path, model.registry, chunk_best)
             if after_chunk is not None:
                 after_chunk(off, ms)
@@ -230,11 +240,11 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
         best_loss, best_params, ms = tr.train_run(
             epochs, lrs, chunk_epochs=chunk_epochs, on_chunk=on_chunk,
             resume_path=resume_path)
-        if resume_path is not None and os.path.exists(resume_path):
+        if writes and resume_path is not None and os.path.exists(resume_path):
             os.remove(resume_path)  # run completed; snapshot obsolete
-        if best_params is not None:
+        if best_params is not None and writes:
             checkpoint.save(path, model.registry, best_params)
-        if marker is not None:
+        if marker is not None and writes:
             # the main phase is durable: a restart during the prune phase
             # must not train it again
             with open(marker, "w") as f:
@@ -242,6 +252,8 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
 
     # post-finetune pruning phase (train.py:375-388)
     if opt.finetune and transfer == 0:
+        if mesh is not None:
+            mesh.barrier()  # rank 0 has written the best checkpoint
         best_path = naming.train_ckpt_name(s.flags, 0)
         params = checkpoint.load_any(best_path, model.registry)
         structured = opt.pruneStruct > 0
@@ -253,7 +265,7 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
             params, masks = prune_ops.prune_threshold(params,
                                                       model.param_order)
         tr = Trainer(model, optim.adam(), step_cfg(s, 0.0), train_cache,
-                     val_cache, s.batch_size)
+                     val_cache, s.batch_size, mesh=mesh)
         tr.set_params(params)
         print("Finetuning")
 
@@ -285,9 +297,10 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
             25, [lr_ft] * 25, prune_masks=masks,
             chunk_epochs=chunk_epochs, on_chunk=on_prune_chunk,
             resume_path=prune_resume)
-        if prune_resume is not None and os.path.exists(prune_resume):
+        if writes and prune_resume is not None \
+                and os.path.exists(prune_resume):
             os.remove(prune_resume)
-        if best_params is not None:
+        if best_params is not None and writes:
             if len(ms) and np.any(ms["better"]):
                 # the share of the epoch that produced best_params: the file
                 # name is an API (train/naming.py)
@@ -317,16 +330,42 @@ def train_combo(s: Setup, train_cache, val_cache, transfer: int,
     return best_loss
 
 
+def _world() -> int:
+    """The ranks of the process group (or of torchrun's environment)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
 def main(argv=None, device: DeviceLike = None) -> int:
     opt = build_parser().parse_args(argv)
-    if opt.spatial > 1:
-        raise NotImplementedError("--spatial > 1 (a spatial mesh) is not "
-                                  "ported yet (ROADMAP A.7)")
     s = Setup.from_opt(opt)
     if s.flags.num_classes <= 1:
         print("You need to have at least one non-background class!")
         return -1
-    dev = resolve_device(device)
+    mesh = None
+    if _world() > 1 or opt.spatial > 1:
+        from robocupvision_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(spatial=opt.spatial, device=device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
+    with contextlib.ExitStack() as quiet:
+        if mesh is not None:
+            if mesh.is_main:
+                print(f"mesh: data={mesh.shape['data']} "
+                      f"spatial={mesh.shape['spatial']}")
+            else:  # the other ranks print nothing
+                quiet.enter_context(contextlib.redirect_stdout(io.StringIO()))
+        return _run(opt, s, dev, mesh)
+
+
+def _run(opt, s: Setup, dev: torch.device, mesh) -> int:
+    """main's sweep on ``dev`` (and ``mesh``)."""
+    writes = mesh is None or mesh.is_main
 
     from robocupvision_tpu_torch.data.datasets import SSYUVDataset
     from robocupvision_tpu_torch.data.device_cache import DeviceCache
@@ -389,16 +428,18 @@ def main(argv=None, device: DeviceLike = None) -> int:
                     print(f"Skipping completed main phase transfer={transfer} "
                           f"decay={decay:g} (resume marker)")
             best = train_combo(s, train_cache, val_cache, transfer, decay, dev,
-                               marker=marker, main_done=main_done)
+                               marker=marker, main_done=main_done, mesh=mesh)
             if best is not None:
                 best_loss_final = best
-            if marker is not None:
+            if marker is not None and writes:
                 with open(marker, "w") as f:
                     f.write(f"done {float(best_loss_final)!r}")
                 if marker not in done_markers:
                     done_markers.append(marker)
+    if mesh is not None:
+        mesh.barrier()  # every rank has read the markers
     for m in done_markers:  # whole sweep finished; a fresh rerun retrains
-        if os.path.exists(m):
+        if writes and os.path.exists(m):
             os.remove(m)
     return 0
 

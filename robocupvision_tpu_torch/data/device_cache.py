@@ -6,6 +6,14 @@ once on the host and kept on the card, and each epoch is cut into batches
 there. The last batch is padded to the batch size, and a (B,) mask marks
 the padded samples, which every loss and metric of the port ignores, so a
 partial batch counts as the reference's variable-size one would.
+
+On a mesh (parallel/mesh.py) every rank keeps the whole set and cuts its
+own samples out of each global batch (``shard_rows``). The JAX package
+shards the cache's memory over the data axis instead; the batches, and so
+the results, are the same. A replicated cache costs every card the whole
+set (a RoboCup set of a few thousand QVGA frames is a few hundred MB in
+f32); a set larger than one card's memory is streamed instead
+(data/streaming.py, whose ``sharding`` reads only the rank's samples).
 """
 
 from __future__ import annotations
@@ -72,3 +80,21 @@ def epoch_batches(cache: DeviceCache, batch_size: int,
         idx = order[b * batch_size:(b + 1) * batch_size]
         yield (cache.images[idx], cache.labels[idx],
                mask[b * batch_size:(b + 1) * batch_size])
+
+
+def shard_rows(mesh, x: torch.Tensor, fill=None) -> torch.Tensor:
+    """This rank's block of the leading dim of a global batch ``x`` (the
+    batch itself, its sample mask, its draws or keep masks) on ``mesh``'s
+    data axis. A batch the axis does not divide is first padded to a
+    multiple of it with copies of row 0, or with ``fill`` (0 for the
+    sample mask, which so marks the pad rows), which is exact: a row
+    the mask marks 0 adds nothing to a loss, a statistic or a metric."""
+    parts = mesh.shape["data"]
+    pad = -x.shape[0] % parts
+    if pad:
+        rows = x[:1].expand((pad,) + tuple(x.shape[1:])) if fill is None \
+            else torch.full((pad,) + tuple(x.shape[1:]), fill,
+                            dtype=x.dtype, device=x.device)
+        x = torch.cat([x, rows])
+    size = x.shape[0] // parts
+    return x[mesh.data_index * size:(mesh.data_index + 1) * size]

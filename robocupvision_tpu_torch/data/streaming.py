@@ -52,7 +52,8 @@ class StreamingBatches:
                  rng: Optional[np.random.Generator] = None,
                  prefetch: int = 2, sharding=None,
                  device_transform: Optional[Callable] = None,
-                 process_index: int = 0, process_count: int = 1,
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None,
                  device: DeviceLike = None):
         """``rng``: the epoch's shuffle (None: the dataset's order).
         ``prefetch``: batches the producer may run ahead.
@@ -66,10 +67,31 @@ class StreamingBatches:
         epoch permutation; every process yields the same number of batches
         (a short shard ends in all-padding batches). ``batch_size`` is the
         per-process batch. ``device``: ``cuda`` unless the caller passes
-        another. ``sharding`` (a mesh's data axis) is not ported."""
+        another.
+
+        ``sharding``: a ``parallel.mesh`` sharding whose dim 0 lies on the
+        mesh's data axis. Each rank is then a process of the stream: its
+        data coordinate and the data axis's size are ``process_index`` and
+        ``process_count`` (explicit ones that differ raise), its batches are
+        its shard of the global batch (``batch_size`` samples of the
+        global ``batch_size * data``: global rows ``index::data``), and
+        they land on the mesh's device unless ``device`` names it."""
         if sharding is not None:
-            raise NotImplementedError("sharded streaming needs the mesh, "
-                                      "which is not ported yet (ROADMAP A.7)")
+            mesh = sharding.mesh
+            if sharding.dims.get(0) != "data":
+                raise ValueError("a stream's sharding splits dim 0 over "
+                                 "the mesh's data axis")
+            for name, given, own in (
+                    ("process_index", process_index, mesh.data_index),
+                    ("process_count", process_count, mesh.shape["data"])):
+                if given is not None and given != own:
+                    raise ValueError(f"{name}={given}, but the sharding's "
+                                     f"mesh gives {own}")
+            process_index, process_count = mesh.data_index, mesh.shape["data"]
+            if device is None:
+                device = mesh.device
+        process_index = 0 if process_index is None else process_index
+        process_count = 1 if process_count is None else process_count
         if not 0 <= process_index < process_count:
             raise ValueError(f"process_index {process_index} of "
                              f"{process_count}")

@@ -22,7 +22,11 @@ statistics (leaving out the samples :func:`bn_stats_mask` marks padded)
 and writes its new running statistics into the dict ``train_mode`` yields
 (the JAX package threads that dict through as ``mut``), every
 :func:`dropout2d` site drops channels and every :func:`dropout` site
-elements by the keep mask and rate ``train_mode`` was given for it. The
+elements by the keep mask and rate ``train_mode`` was given for it. Inside
+:func:`mesh_context` the blocks run as one rank of a
+``parallel.mesh.Mesh``: train-mode BN takes its statistics over the whole
+mesh, and on a spatial axis :func:`conv`, :func:`tconv` and
+:func:`max_pool` compute the rank's rows of their outputs. The
 op orders (its model.py:105-199, 256-267, 403-414):
   conv_block:        conv -> ReLU -> BN        (BN after ReLU!)
   conv_pool_simple:  conv -> BN -> ReLU
@@ -187,6 +191,8 @@ _BN_SAMPLE_MASK: contextvars.ContextVar = contextvars.ContextVar(
     "bn_sample_mask", default=None)
 # {dropout site: (keep mask, p)} of the train-mode forward
 _DROPS: contextvars.ContextVar = contextvars.ContextVar("drops", default=None)
+# the mesh a forward runs on (parallel/mesh.py Context), or None
+_MESH: contextvars.ContextVar = contextvars.ContextVar("mesh", default=None)
 
 
 @contextlib.contextmanager
@@ -218,18 +224,60 @@ def bn_stats_mask(mask: Optional[torch.Tensor]) -> Iterator[None]:
         _BN_SAMPLE_MASK.reset(token)
 
 
+@contextlib.contextmanager
+def mesh_context(mesh, height: Optional[int] = None) -> Iterator[None]:
+    """Run the blocks as one rank of ``mesh`` (a ``parallel.mesh.Mesh``;
+    None: on one device): train-mode BN takes its statistics over the
+    whole mesh, and on a spatial axis :func:`conv`, :func:`tconv` and
+    :func:`max_pool` compute this rank's rows of their outputs from its
+    rows of the input, whose global height is ``height``."""
+    ctx = None
+    if mesh is not None:
+        from robocupvision_tpu_torch.parallel import mesh as pmesh
+
+        ctx = pmesh.context(mesh, height)
+    token = _MESH.set(ctx)
+    try:
+        yield
+    finally:
+        _MESH.reset(token)
+
+
+def _rows():
+    """The spatial rows of the forward, or None off a spatial axis."""
+    ctx = _MESH.get()
+    return None if ctx is None else ctx.rows
+
+
 # ---- block applications -------------------------------------------------------
 
 
 def conv(p: Params, name: str, x, stride=1, padding=0, dilation=1):
+    rows = _rows()
+    if rows is not None:
+        return rows.conv2d(x, p[name + ".weight"], p.get(name + ".bias"),
+                           stride, padding, dilation)
     return nn.conv2d(x, p[name + ".weight"], p.get(name + ".bias"),
                      stride=stride, padding=padding, dilation=dilation)
 
 
 def tconv(p: Params, name: str, x, stride=2, padding=1, output_padding=1):
+    rows = _rows()
+    if rows is not None:
+        return rows.conv_transpose2d(x, p[name + ".weight"],
+                                     p.get(name + ".bias"), stride, padding,
+                                     output_padding)
     return nn.conv_transpose2d(x, p[name + ".weight"], p.get(name + ".bias"),
                                stride=stride, padding=padding,
                                output_padding=output_padding)
+
+
+def max_pool(x, kernel, stride=None):
+    """:func:`ops.nn.max_pool`, on this rank's rows on a spatial axis."""
+    rows = _rows()
+    if rows is not None:
+        return rows.max_pool(x, kernel, stride)
+    return nn.max_pool(x, kernel, stride)
 
 
 def bn(p: Params, name: str, x):
@@ -238,9 +286,11 @@ def bn(p: Params, name: str, x):
         return nn.batch_norm(x, p[name + ".weight"], p[name + ".bias"],
                              p[name + ".running_mean"],
                              p[name + ".running_var"])
+    ctx = _MESH.get()
     y, rm, rv = nn.batch_norm_train(
         x, p[name + ".weight"], p[name + ".bias"], p[name + ".running_mean"],
-        p[name + ".running_var"], sample_mask=_BN_SAMPLE_MASK.get())
+        p[name + ".running_var"], sample_mask=_BN_SAMPLE_MASK.get(),
+        reduce=None if ctx is None else ctx.mesh.all_reduce_sum)
     mut[name + ".running_mean"] = rm
     mut[name + ".running_var"] = rv
     return y
@@ -349,7 +399,7 @@ def level_down_def(r: Registry, name: str, cin: int, cout: int, levels: int,
 def level_down(p, name, x, levels, do_pool, pool):
     if pool:
         if do_pool:
-            x = nn.max_pool(x, 2, 2)
+            x = max_pool(x, 2, 2)
             levels -= 1
         levels = max(levels, 1)
         x = conv_block(p, name + ".layers.Conv0", x, 1, 3)
@@ -373,6 +423,9 @@ def ult_classifier(p, name, x, size: int, pool: bool = False):
     (AdaptiveAvgPool2d(1)), then Dropout2d at site ``name`` in train
     mode."""
     if pool:
+        if _rows() is not None:
+            raise ValueError("a global mean over H, W has no form on a "
+                             "spatial axis")
         x = dropout2d(nn.adaptive_avg_pool_1(x), name)
     return conv(p, name + ".layers.Class", x, padding=size // 2)
 
@@ -391,5 +444,5 @@ def classifier_def(r: Registry, name: str, cin: int, n_class: int,
 
 def classifier(p, name, x, pool_size: int, kernel: int):
     if pool_size > 1:
-        x = nn.max_pool(x, pool_size, pool_size)
+        x = max_pool(x, pool_size, pool_size)
     return conv(p, join(name, "classifier"), x, padding=kernel // 2)

@@ -22,10 +22,15 @@ def _one_hot(targets: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 def cross_entropy_2d(logits: torch.Tensor, targets: torch.Tensor,
                      class_weights: Optional[torch.Tensor] = None,
-                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     mask: Optional[torch.Tensor] = None,
+                     mesh=None) -> torch.Tensor:
     """Pixel-wise weighted NLL over log_softmax (CrossEntropyLoss2d): torch
     NLLLoss(weight, reduction='mean'), sum(w[t] * nll) / sum(w[t]). A label
-    outside [0, C) drops out of the numerator and the denominator."""
+    outside [0, C) drops out of the numerator and the denominator.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): the rank's share of the global
+    loss, its own numerator over the denominator summed over the mesh
+    (without gradient); the shares sum to the loss of the global batch."""
     num_classes = logits.shape[-1]
     logp = torch.log_softmax(logits.float(), dim=-1)
     oh = _one_hot(targets, num_classes)
@@ -37,23 +42,32 @@ def cross_entropy_2d(logits: torch.Tensor, targets: torch.Tensor,
     pw = (w * oh).sum(dim=-1)
     if mask is not None:
         pw = pw * torch.as_tensor(mask, device=logits.device).float()
-    return (nll * pw).sum() / torch.clamp_min(pw.sum(), 1e-12)
+    den = pw.sum()
+    if mesh is not None:
+        den = mesh.sum(den)
+    return (nll * pw).sum() / torch.clamp_min(den, 1e-12)
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
                   class_weights: Optional[torch.Tensor] = None,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  mesh=None) -> torch.Tensor:
     """Classification CE (torch.nn.CrossEntropyLoss) over (N, C) logits
-    and (N,) targets, with class weights and an (N,) sample mask."""
-    return cross_entropy_2d(logits, targets, class_weights, mask)
+    and (N,) targets, with class weights and an (N,) sample mask; ``mesh``
+    as in :func:`cross_entropy_2d`."""
+    return cross_entropy_2d(logits, targets, class_weights, mask, mesh)
 
 
 def dice_loss(logits: torch.Tensor, targets: torch.Tensor,
               class_weights: torch.Tensor, mask: Optional[torch.Tensor] = None,
-              eps: float = 1e-7) -> torch.Tensor:
+              eps: float = 1e-7, mesh=None) -> torch.Tensor:
     """Class-weighted Sørensen-Dice loss (reference model.py:5-43). The
     weights are renormalized to sum to C; one class uses the sigmoid with
-    (pos, neg) channels, in the reference's channel order."""
+    (pos, neg) channels, in the reference's channel order.
+
+    ``mesh``: the intersection and cardinality are summed over the mesh
+    (differentiably), and each rank returns the global loss over the
+    mesh's size, its share."""
     num_classes = logits.shape[-1]
     w = torch.as_tensor(class_weights, device=logits.device).float()
     w = w / w.sum() * w.shape[0]
@@ -72,7 +86,11 @@ def dice_loss(logits: torch.Tensor, targets: torch.Tensor,
     axes = tuple(range(probas.dim() - 1))  # reduce all but the class axis
     intersection = (probas * one_hot).sum(dim=axes)
     cardinality = (probas + one_hot).sum(dim=axes)
-    return 1.0 - torch.mean(2.0 * w * intersection / (cardinality + eps))
+    if mesh is not None:
+        both = mesh.all_reduce_sum(torch.stack([intersection, cardinality]))
+        intersection, cardinality = both[0], both[1]
+    loss = 1.0 - torch.mean(2.0 * w * intersection / (cardinality + eps))
+    return loss if mesh is None else loss / mesh.size
 
 
 def l1_regularization(params: Union[Mapping[str, torch.Tensor],

@@ -12,7 +12,7 @@ Conventions (reference train.py:136-164):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,12 +49,16 @@ class SegAccum:
 
 def seg_batch_stats(pred_cls, targets, num_classes: int,
                     sample_mask=None, impl: str = "auto",
-                    device: DeviceLike = None) -> SegAccum:
+                    device: DeviceLike = None,
+                    conf_reduce: Optional[Callable] = None) -> SegAccum:
     """Per-batch contribution; ``pred_cls``/``targets`` are (B, H, W) int
     maps (tensors or arrays), moved to ``device`` (``cuda`` unless the caller
     passes another). ``sample_mask`` (B,) zeroes padded samples in every
     statistic. ``impl``: "auto" (the K1 kernel on CUDA tensors, the plain
-    count on CPU tensors) or "einsum" (the plain one-hot count anywhere)."""
+    count on CPU tensors) or "einsum" (the plain one-hot count anywhere).
+    ``conf_reduce``: applied to the per-image (B, C, C) counts before
+    anything is derived from them (a sum over the ranks that hold the
+    rows of each image, on a spatial mesh)."""
     dev = resolve_device(device)
     pred = torch.as_tensor(pred_cls, device=dev)
     tgt = torch.as_tensor(targets, device=dev)
@@ -67,6 +71,8 @@ def seg_batch_stats(pred_cls, targets, num_classes: int,
         conf_img = confusion_count_plain(pred, tgt, num_classes)
     else:
         raise ValueError(f"impl must be 'auto' or 'einsum', got {impl!r}")
+    if conf_reduce is not None:
+        conf_img = conf_reduce(conf_img)
     inter = torch.diagonal(conf_img, dim1=1, dim2=2)
     pred_cnt = conf_img.sum(dim=2)
     lab_cnt = conf_img.sum(dim=1)

@@ -8,7 +8,8 @@ torch-layout weights (what the port's modules store).
 - ``batch_norm``        eval mode: the running statistics as one f32
                         affine, result in the input dtype.
 - ``batch_norm_train``  train mode: the batch statistics (padded samples
-                        masked out) and the new running statistics.
+                        masked out, summed over a mesh's ranks with
+                        ``reduce``) and the new running statistics.
 - ``relu``, ``max_pool``, ``avg_pool``, ``adaptive_avg_pool_1``.
 - ``linear``            w (in, out), as the JAX package stores it.
 - ``pixel_shuffle``     torch.nn.PixelShuffle on the NCHW view.
@@ -27,7 +28,7 @@ copy and returns channels-last, so the permute back is a view too.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -75,7 +76,9 @@ def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                      running_mean: torch.Tensor, running_var: torch.Tensor,
                      momentum: float = 0.1, eps: float = 1e-5,
-                     sample_mask: Optional[torch.Tensor] = None
+                     sample_mask: Optional[torch.Tensor] = None,
+                     reduce: Optional[Callable[[torch.Tensor],
+                                               torch.Tensor]] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Train-mode BatchNorm2d over the channel (last) axis, as the JAX
     package's ``batch_norm(train=True)`` computes it: batch statistics in
@@ -83,20 +86,32 @@ def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     its unbiased form for the running variance, torch's momentum.
     ``sample_mask`` (N,) leaves padded samples out of the statistics, and an
     all-padding batch leaves the running statistics as they were.
+    ``reduce``: a differentiable sum over the ranks of a mesh (the mesh's
+    ``all_reduce_sum``), which makes the statistics those of the global
+    batch: the sums of x and x^2 and the sample count go through it in one
+    call.
 
     Returns (y at x's dtype, new running mean, new running var); the
     running statistics carry no gradient."""
     xf = x.float()
     axes = tuple(range(x.dim() - 1))
-    if sample_mask is not None:
-        m = torch.as_tensor(sample_mask, device=x.device).float().reshape(
-            (-1,) + (1,) * (x.dim() - 1))
+    if sample_mask is not None or reduce is not None:
+        m = torch.ones(x.shape[0], device=x.device) if sample_mask is None \
+            else torch.as_tensor(sample_mask, device=x.device).float()
+        m = m.reshape((-1,) + (1,) * (x.dim() - 1))
         per_sample = 1
         for a in axes[1:]:
             per_sample *= x.shape[a]
-        n = torch.clamp_min(m.sum() * per_sample, 1.0)
-        mean = (xf * m).sum(dim=axes) / n
-        var = (xf.square() * m).sum(dim=axes) / n - mean.square()
+        s1 = (xf * m).sum(dim=axes)
+        s2 = (xf.square() * m).sum(dim=axes)
+        cnt = m.sum() * per_sample
+        if reduce is not None:
+            c = s1.shape[0]
+            tot = reduce(torch.cat([s1, s2, cnt.reshape(1)]))
+            s1, s2, cnt = tot[:c], tot[c:2 * c], tot[2 * c].detach()
+        n = torch.clamp_min(cnt, 1.0)
+        mean = s1 / n
+        var = s2 / n - mean.square()
         unbiased = var * (n / torch.clamp_min(n - 1.0, 1.0))
     else:
         mean = xf.mean(dim=axes)
@@ -108,8 +123,8 @@ def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     with torch.no_grad():
         new_rm = (1.0 - momentum) * running_mean + momentum * mean
         new_rv = (1.0 - momentum) * running_var + momentum * unbiased
-        if sample_mask is not None:
-            valid = m.sum() > 0
+        if sample_mask is not None or reduce is not None:
+            valid = cnt > 0
             new_rm = torch.where(valid, new_rm, running_mean)
             new_rv = torch.where(valid, new_rv, running_var)
     inv = torch.rsqrt(var + eps) * gamma.float()

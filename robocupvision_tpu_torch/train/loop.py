@@ -12,6 +12,14 @@ never an alias of the live params), and ``train_run`` fetches the metrics
 once a chunk of epochs. ``train_epoch_streamed`` trains an epoch from a
 host dataset through a prefetching stream instead of the device cache. Script-specific control flow (sweeps, the prune
 phase) lives in the CLI, as in the reference.
+
+With a ``mesh`` (parallel/mesh.py) the Trainer is one rank of a
+data-parallel (and spatially partitioned) run: every rank seeds the same
+generator and draws the permutation, the augmentation draws and the
+keep masks of the global batch, then takes its own samples of it
+(``shard_rows``), so that a mesh run is the one-process run at the same
+seed; the train step sums the gradients over the mesh, and validation
+sums an epoch's metrics over it once.
 """
 
 from __future__ import annotations
@@ -24,12 +32,13 @@ import torch
 
 from robocupvision_tpu_torch.data.device_cache import (DeviceCache,
                                                        epoch_batches,
-                                                       num_batches, shuffle)
+                                                       num_batches,
+                                                       shard_rows, shuffle)
 from robocupvision_tpu_torch.data.streaming import StreamingBatches
 from robocupvision_tpu_torch.models import layers as L
 from robocupvision_tpu_torch.models.zoo import Model
 from robocupvision_tpu_torch.ops import color
-from robocupvision_tpu_torch.ops.metrics import (seg_finalize,
+from robocupvision_tpu_torch.ops.metrics import (SegAccum, seg_finalize,
                                                  seg_finalize_tensors)
 from robocupvision_tpu_torch.ops.pruning import near_zero_fraction
 from robocupvision_tpu_torch.train import checkpoint as ckpt
@@ -48,6 +57,14 @@ def _host(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
+def _each(fn, tree):
+    """``fn`` on each tensor of a dict of draws or keep masks (or None)."""
+    return None if tree is None else {k: fn(v) for k, v in tree.items()}
+
+
+_ACC = ("conf", "iou_sum", "lab_cnts", "correct", "img_cnt")
+
+
 class Trainer:
     def __init__(self, model: Model, tx: optim.GradientTransform,
                  cfg: tstep.StepCfg, train_cache: Optional[DeviceCache],
@@ -61,10 +78,16 @@ class Trainer:
         ``draw_dropout(n)`` (``Model.draw_dropout`` at the current
         batch's (H, W)) draw from it, and a caller may replace them with
         draws of its own. The streamed epoch's host shuffle draws from a
-        numpy generator seeded once with ``seed``."""
-        if mesh is not None:
-            raise NotImplementedError("data-parallel training over a mesh is "
-                                      "not ported yet (ROADMAP A.7)")
+        numpy generator seeded once with ``seed``.
+
+        ``mesh``: a ``parallel.mesh.Mesh`` whose device is the model's;
+        the caches are the whole sets on every rank (``shard_rows``
+        takes the rank's samples of each batch) and ``batch_size`` the
+        global batch."""
+        if mesh is not None and torch.device(mesh.device) != model.device:
+            raise ValueError(f"the mesh's device {mesh.device} is not the "
+                             f"model's {model.device}")
+        self.mesh = mesh
         self.model = model
         self.tx = tx
         self.cfg = cfg
@@ -77,8 +100,9 @@ class Trainer:
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self._host_rng: Optional[np.random.Generator] = None
         self._batch_hw = None  # the (H, W) of the batch being drawn for
-        self.train_step = tstep.make_train_step(model, tx, cfg, multipliers)
-        self.eval_step = tstep.make_eval_step(model, cfg)
+        self.train_step = tstep.make_train_step(model, tx, cfg, multipliers,
+                                                mesh=mesh)
+        self.eval_step = tstep.make_eval_step(model, cfg, mesh=mesh)
         draw_augment, _ = color.AUGMENT_MODES[cfg.augment_mode]
         self.draw_perm = lambda n: shuffle(self.gen, n)
         self.draw_augment = lambda n: draw_augment(self.gen, n)
@@ -88,9 +112,18 @@ class Trainer:
 
     # -- state ------------------------------------------------------------------
 
+    def _replicate(self, state: tstep.TrainState) -> tstep.TrainState:
+        """On a mesh, rank 0's state on every rank."""
+        if self.mesh is None:
+            return state
+        from robocupvision_tpu_torch.parallel.mesh import replicate_state
+
+        return tstep.TrainState(replicate_state(self.mesh, state.params),
+                                replicate_state(self.mesh, state.opt_state))
+
     def init(self) -> None:
         """Start from the model's own weights with a fresh optimizer."""
-        self.state = tstep.init_state(self.model, self.tx)
+        self.state = self._replicate(tstep.init_state(self.model, self.tx))
 
     def _to_device(self, params: Mapping) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device, torch.float32).clone()
@@ -103,9 +136,11 @@ class Trainer:
         dev = self._to_device(params)
         if self.state is None or reset_opt:
             trainable, _ = L.split_params(dev)
-            self.state = tstep.TrainState(dev, self.tx.init(trainable))
+            self.state = self._replicate(
+                tstep.TrainState(dev, self.tx.init(trainable)))
         else:
-            self.state = tstep.TrainState(dev, self.state.opt_state)
+            self.state = self._replicate(
+                tstep.TrainState(dev, self.state.opt_state))
 
     def params_numpy(self) -> Dict[str, np.ndarray]:
         return _host(self.state.params)
@@ -118,17 +153,38 @@ class Trainer:
 
     # -- epochs -----------------------------------------------------------------
 
-    def _steps(self, batches, lr: float, masks) -> Dict[str, torch.Tensor]:
+    def _steps(self, batches, lr: float, masks,
+               strided: bool = False) -> Dict[str, torch.Tensor]:
         """A train step on each (imgs, targets, sample_mask) batch; the
-        metrics summed on the device."""
+        metrics summed on the device. On a mesh a batch is the global one
+        (the rank takes its block), or with ``strided`` already the
+        rank's: rows ``data_index::data`` of the global batch, as a
+        sharded stream yields them. The draws and keep masks are drawn
+        for the global batch either way, and cut as its rows."""
+        mesh = self.mesh
         tot: Dict[str, torch.Tensor] = {}
         for imgs, tgt, mask in batches:
             n = mask.shape[0]
+            local = None
+            if mesh is not None and strided:
+                parts = mesh.shape["data"]
+                n *= parts
+
+                def local(t, i=mesh.data_index, parts=parts):
+                    return t[i::parts]
+            elif mesh is not None:
+                def local(t):
+                    return shard_rows(mesh, t)
+
+                imgs, tgt = local(imgs), local(tgt)
+                mask = shard_rows(mesh, mask, fill=0.0)
             self._batch_hw = tuple(imgs.shape[1:3])
             draws = self.draw_augment(n) if self.cfg.augment else None
+            drops = self.draw_dropout(n)
+            if local is not None:
+                draws, drops = _each(local, draws), _each(local, drops)
             self.state, out = self.train_step(self.state, imgs, tgt, mask,
-                                              draws, lr, masks,
-                                              self.draw_dropout(n))
+                                              draws, lr, masks, drops)
             tot = out if not tot else {k: tot[k] + out[k] for k in tot}
         return tot
 
@@ -166,17 +222,32 @@ class Trainer:
         seeded once from the Trainer's seed (the device generator is left
         to the draws). ``device_transform``: ``(imgs, labels) -> (imgs,
         labels)`` on the card after the copy (e.g. uint8 frames
-        normalized there)."""
+        normalized there). On a mesh the stream takes the mesh's data
+        sharding: each rank reads only its samples, ``batch_size / data``
+        a batch."""
         assert self.state is not None
         rng = None
         if shuffle:
             if self._host_rng is None:
                 self._host_rng = np.random.default_rng(self.seed)
             rng = self._host_rng
-        stream = StreamingBatches(dataset, self.batch_size, rng,
+        batch, sharding = self.batch_size, None
+        if self.mesh is not None:
+            from robocupvision_tpu_torch.parallel.mesh import sample_sharding
+
+            parts = self.mesh.shape["data"]
+            if batch % parts:
+                raise ValueError(f"batch {batch} is not divisible by the "
+                                 f"mesh data axis ({parts}): a sharded "
+                                 f"stream reads batch / {parts} samples a "
+                                 f"rank")
+            batch //= parts
+            sharding = sample_sharding(self.mesh)
+        stream = StreamingBatches(dataset, batch, rng, sharding=sharding,
                                   device_transform=device_transform,
                                   device=self.device)
-        tot = self._steps(stream, lr, self._masks(prune_masks))
+        tot = self._steps(stream, lr, self._masks(prune_masks),
+                          strided=sharding is not None)
         return self._epoch_result(tot, len(stream))
 
     def _valid(self, params) -> Optional[Dict]:
@@ -184,11 +255,36 @@ class Trainer:
         (``acc`` a SegAccum; for ``ce`` ``conf``, ``correct``,
         ``img_cnt``), or None for an empty set."""
         tot = None
+        mesh = self.mesh
         for imgs, tgt, mask in epoch_batches(self.val_cache, self.batch_size):
+            if mesh is not None:
+                imgs, tgt = shard_rows(mesh, imgs), shard_rows(mesh, tgt)
+                mask = shard_rows(mesh, mask, fill=0.0)
             out = self.eval_step(imgs, tgt, mask, params)
             out.pop("pred", None)
             tot = out if tot is None else {k: tot[k] + out[k] for k in tot}
+        if tot is not None and mesh is not None:
+            tot = self._mesh_sum(tot)
         return tot
+
+    def _mesh_sum(self, tot: Dict) -> Dict:
+        """An epoch's validation sums over the mesh, in one all-reduce.
+        The counts of a spatial rank other than 0 are left out: the eval
+        step summed each image's counts over its spatial ranks already."""
+        mesh = self.mesh
+        acc = tot.get("acc")
+        keys = [k for k in tot if k != "acc"]
+        vals = [tot[k] for k in keys] + \
+            ([getattr(acc, f) for f in _ACC] if acc is not None else [])
+        own = torch.tensor(0.0 if mesh.spatial_index else 1.0,
+                           device=self.device)
+        vals = [v if k == "loss" else v * own
+                for k, v in zip(keys + list(_ACC), vals)]
+        summed = mesh.all_reduce_flat(vals)
+        out = dict(zip(keys, summed))
+        if acc is not None:
+            out["acc"] = SegAccum(*summed[len(keys):])
+        return out
 
     def valid_epoch(self) -> Dict:
         """The mean loss and the segmentation metrics of ``seg_finalize``
@@ -292,7 +388,11 @@ class Trainer:
         best_params = {k: v.clone() for k, v in self.state.params.items()}
         start_chunk = 0
         any_better = False
-        if resume_path is not None and ckpt.exists(resume_path):
+        resume = resume_path is not None and ckpt.exists(resume_path)
+        if self.mesh is not None:
+            # every rank has looked before rank 0 writes the first snapshot
+            self.mesh.barrier()
+        if resume:
             (params, opt_state, bs0, bp0, rng, start_chunk,
              meta) = ckpt.load_resume(resume_path)
             if meta["epochs"] != epochs or meta["chunks"] != chunks:
@@ -320,7 +420,8 @@ class Trainer:
             parts.append(ms)
             improved = bool(ms["better"].any())
             any_better = any_better or improved
-            if resume_path is not None:
+            if resume_path is not None and (self.mesh is None
+                                            or self.mesh.is_main):
                 ckpt.save_resume(resume_path, self.state.params,
                                  self.state.opt_state, float(best_score),
                                  best_params, self.gen.get_state(), ci + 1,

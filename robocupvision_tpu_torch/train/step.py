@@ -90,11 +90,12 @@ def _class_weights(cfg: StepCfg, device) -> Optional[torch.Tensor]:
 
 
 def _loss(cfg: StepCfg, logits: torch.Tensor, targets: torch.Tensor,
-          mask, w: Optional[torch.Tensor]) -> torch.Tensor:
+          mask, w: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
     """The task loss over (N, H, W, C) logits (``ce``: (N, C)) with class
-    weights ``w``, ``mask`` (N,) expanded to a per-pixel mask."""
+    weights ``w``, ``mask`` (N,) expanded to a per-pixel mask; on a
+    ``mesh`` this rank's share of the global batch's loss."""
     if cfg.loss == "ce":
-        return losses.cross_entropy(logits, targets, w, mask)
+        return losses.cross_entropy(logits, targets, w, mask, mesh)
     pixel_mask = None
     if mask is not None:
         m = torch.as_tensor(mask, device=logits.device).float()
@@ -103,8 +104,9 @@ def _loss(cfg: StepCfg, logits: torch.Tensor, targets: torch.Tensor,
     if cfg.loss == "dice":
         return losses.dice_loss(logits, targets, w if w is not None else
                                 torch.ones(cfg.num_classes,
-                                           device=logits.device), pixel_mask)
-    return losses.cross_entropy_2d(logits, targets, w, pixel_mask)
+                                           device=logits.device), pixel_mask,
+                                mesh=mesh)
+    return losses.cross_entropy_2d(logits, targets, w, pixel_mask, mesh)
 
 
 def _check(cfg: StepCfg) -> None:
@@ -131,12 +133,14 @@ def _dots_policy(ctx, op, *args, **kwargs):
         else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _make_forward(model: Model, cfg: StepCfg):
-    """forward(leaves, bn_state, x, sample_mask, dropout) -> (logits, mut):
-    the train-mode forward, under ``cfg.remat``'s checkpoint.
+def _make_forward(model: Model, cfg: StepCfg, mesh=None):
+    """forward(leaves, bn_state, x, sample_mask, dropout, height) ->
+    (logits, mut): the train-mode forward, under ``cfg.remat``'s
+    checkpoint, as one rank of ``mesh`` (``height``: the input's global
+    height).
 
     The forward enters the train-mode contexts itself (BN's sample mask,
-    train mode with the dropout keep masks) from its arguments: a
+    the mesh, train mode with the dropout keep masks) from its arguments: a
     checkpoint's recompute runs inside autograd's backward, after any
     context around the step has exited, and would otherwise recompute BN
     in eval mode, without the mask or the drops. The running statistics
@@ -147,9 +151,9 @@ def _make_forward(model: Model, cfg: StepCfg):
         assert cfg.loss == "ce2d", "packed training supports the ce2d path"
         maps = packed_mod.build_train_pack_maps(model)
 
-    def forward(leaves, bn_state, x, sample_mask, dropout):
+    def forward(leaves, bn_state, x, sample_mask, dropout, height):
         p = {**leaves, **bn_state}
-        with L.bn_stats_mask(sample_mask):
+        with L.bn_stats_mask(sample_mask), L.mesh_context(mesh, height):
             if maps is not None:
                 return packed_mod.packed_train_apply(maps, p, x)
             return model.apply(p, x, train=True, dropout=dropout)
@@ -170,8 +174,27 @@ def _flat_logits(cfg: StepCfg, logits: torch.Tensor) -> torch.Tensor:
         else logits
 
 
+def _spatial(mesh) -> bool:
+    return mesh is not None and mesh.shape["spatial"] > 1
+
+
+def _check_mesh(cfg: StepCfg, mesh) -> None:
+    if _spatial(mesh) and (cfg.packed or cfg.loss == "ce"):
+        raise ValueError("a spatial mesh splits the rows of the plain "
+                         "segmentation forward: not the packed graph, not "
+                         "the classification loss")
+
+
+def _rows(mesh, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This spatial rank's rows of ``t`` along ``dim``."""
+    from robocupvision_tpu_torch.parallel.mesh import local_rows
+
+    return local_rows(t, mesh.shape["spatial"], mesh.spatial_index, dim)
+
+
 def make_train_step(model: Model, tx: optim.GradientTransform, cfg: StepCfg,
-                    multipliers: Optional[Mapping[str, float]] = None):
+                    multipliers: Optional[Mapping[str, float]] = None,
+                    mesh=None):
     """Returns step(state, imgs, targets, sample_mask, draws, lr,
     prune_masks=None, dropout=None) -> (new state, metrics) for a batch on
     the model's device.
@@ -184,13 +207,23 @@ def make_train_step(model: Model, tx: optim.GradientTransform, cfg: StepCfg,
     ``metrics``: 0-d tensors ``loss`` (task loss plus the L1 term),
     ``reg``, ``correct`` (right pixels, or samples for ``ce``, of the real
     samples) and ``img_cnt``, on the device. The new state holds new
-    tensors; the old one is left as it was."""
+    tensors; the old one is left as it was.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``): the step of one rank. It takes
+    this rank's samples of the global batch at full height (with their
+    draws and keep masks), augments them, and on a spatial axis keeps its
+    own rows. The loss is its share of the global loss, the L1 term enters
+    on rank 0 alone, and one all-reduce a step sums the gradients and the
+    metrics over the mesh; the optimizer then runs alike on every rank,
+    and the metrics are the global batch's."""
     _check(cfg)
-    forward = _make_forward(model, cfg)
+    _check_mesh(cfg, mesh)
+    forward = _make_forward(model, cfg, mesh)
     nb, nr, ng, nl = cfg.mask_flags
     weights = _class_weights(cfg, model.device)
     _, augment = color.AUGMENT_MODES[cfg.augment_mode]
     classify = cfg.loss == "ce"
+    spatial = _spatial(mesh)
 
     def step(state: TrainState, imgs, targets, sample_mask, draws, lr,
              prune_masks: Optional[Mapping[str, torch.Tensor]] = None,
@@ -204,23 +237,46 @@ def make_train_step(model: Model, tx: optim.GradientTransform, cfg: StepCfg,
         targets = labels.mask_label(targets, nb, nr, ng, nl)
         if cfg.packed:
             targets = packed_mod.pack_targets(targets)
+        height = imgs.shape[1]
+        if spatial:
+            # augmented at full height (a vertical flip moves rows between
+            # ranks), then cut; an element dropout mask is cut as well
+            imgs, targets = _rows(mesh, imgs), _rows(mesh, targets)
+            if dropout is not None:
+                dropout = {k: _rows(mesh, v) if v.shape[1] > 1 else v
+                           for k, v in dropout.items()}
         trainable, bn_state = L.split_params(state.params)
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in trainable.items()}
         x = imgs.to(torch.bfloat16) if cfg.compute_dtype == "bfloat16" \
             else imgs
         with torch.enable_grad():
-            logits, mut = forward(leaves, bn_state, x, sample_mask, dropout)
+            logits, mut = forward(leaves, bn_state, x, sample_mask, dropout,
+                                  height)
             logits = _flat_logits(cfg, logits)
-            task = _loss(cfg, logits, targets, sample_mask, weights)
+            task = _loss(cfg, logits, targets, sample_mask, weights, mesh)
             reg = torch.zeros((), device=logits.device)
             if cfg.l1_decay:
                 reg = cfg.l1_decay * losses.l1_regularization(leaves)
-            total = task + reg
+            # on a mesh the L1 term enters the summed loss once
+            total = task + reg if mesh is None or mesh.is_main else task
             # a param the forward does not reach (the segmentation head of
             # a net trained to classify) gets a zero gradient, as in JAX
             grads = torch.autograd.grad(total, list(leaves.values()),
                                         materialize_grads=True)
+        with torch.no_grad():
+            pred = torch.argmax(logits.detach(), dim=-1)
+            m = torch.as_tensor(sample_mask, device=pred.device).float()
+            correct = ((pred == targets).float()
+                       * m.reshape((-1,) + (1,) * (targets.dim() - 1))).sum()
+            img_cnt = m.sum()
+            total = total.detach()
+            if mesh is not None:
+                # a sample is counted by its spatial rank 0 alone
+                if mesh.spatial_index:
+                    img_cnt = torch.zeros_like(img_cnt)
+                *grads, total, correct, img_cnt = mesh.all_reduce_flat(
+                    list(grads) + [total, correct, img_cnt])
         grads = dict(zip(leaves, grads))
         if prune_masks is not None:
             grads = mask_gradients(grads, prune_masks)
@@ -229,37 +285,47 @@ def make_train_step(model: Model, tx: optim.GradientTransform, cfg: StepCfg,
                                              trainable)
             new_trainable = optim.apply_updates(trainable, direction, lr,
                                                 multipliers)
-            pred = torch.argmax(logits.detach(), dim=-1)
-            m = torch.as_tensor(sample_mask, device=pred.device).float()
-            correct = ((pred == targets).float()
-                       * m.reshape((-1,) + (1,) * (targets.dim() - 1))).sum()
-            out = {"loss": total.detach(), "reg": reg.detach(),
-                   "correct": correct, "img_cnt": m.sum()}
+            out = {"loss": total, "reg": reg.detach(),
+                   "correct": correct, "img_cnt": img_cnt}
         return TrainState({**new_trainable, **bn_state, **mut},
                           opt_state), out
 
     return step
 
 
-def make_eval_step(model: Model, cfg: StepCfg):
+def make_eval_step(model: Model, cfg: StepCfg, mesh=None):
     """Returns step(imgs, targets, sample_mask, params=None) -> {"loss",
     "acc" (a SegAccum of tensors on the model's device), "pred"} for a
     batch already on the model's device, with ``params`` (the train loop's)
     or the model's own weights; for ``ce``: {"loss", "conf" (C, C),
-    "correct", "img_cnt"}."""
+    "correct", "img_cnt"}.
+
+    ``mesh``: the step of one rank on its samples at full height (its own
+    rows on a spatial axis): ``loss`` is its share (the L1 term on rank 0
+    alone) and the counts are its own, to be summed over the mesh (the
+    train loop sums an epoch's once); on a spatial axis the per-image
+    confusion counts are summed over the image's ranks first, so the
+    per-image IoU is the whole image's, and the counts of spatial ranks
+    other than 0 are to be left out of that sum."""
     _check(cfg)
+    _check_mesh(cfg, mesh)
     nb, nr, ng, nl = cfg.mask_flags
     weights = _class_weights(cfg, model.device)
+    spatial = _spatial(mesh)
 
     @torch.no_grad()
     def step(imgs, targets, sample_mask, params: Optional[Params] = None):
         p = model.flat() if params is None else params
         targets = labels.mask_label(targets, nb, nr, ng, nl)
+        height = imgs.shape[1]
+        if spatial:
+            imgs, targets = _rows(mesh, imgs), _rows(mesh, targets)
         if cfg.compute_dtype == "bfloat16":
             imgs = imgs.to(torch.bfloat16)
-        logits = _flat_logits(cfg, model.apply(p, imgs))
-        loss = _loss(cfg, logits, targets, sample_mask, weights)
-        if cfg.l1_decay:
+        with L.mesh_context(mesh, height):
+            logits = _flat_logits(cfg, model.apply(p, imgs))
+        loss = _loss(cfg, logits, targets, sample_mask, weights, mesh)
+        if cfg.l1_decay and (mesh is None or mesh.is_main):
             trainable, _ = L.split_params(p)
             loss = loss + cfg.l1_decay * losses.l1_regularization(trainable)
         pred = torch.argmax(logits, dim=-1)
@@ -268,8 +334,10 @@ def make_eval_step(model: Model, cfg: StepCfg):
                 pred, targets, cfg.num_classes, sample_mask)
             return {"loss": loss, "conf": conf, "correct": correct,
                     "img_cnt": torch.as_tensor(sample_mask).float().sum()}
-        acc = metrics.seg_batch_stats(pred, targets, cfg.num_classes,
-                                      sample_mask, device=pred.device)
+        acc = metrics.seg_batch_stats(
+            pred, targets, cfg.num_classes, sample_mask, device=pred.device,
+            conf_reduce=(lambda c: mesh.sum(c, "spatial")) if spatial
+            else None)
         return {"loss": loss, "acc": acc, "pred": pred}
 
     return step

@@ -69,6 +69,7 @@ def _entry_points():
     from robocupvision_tpu_torch.data.streaming import StreamingBatches
     from robocupvision_tpu_torch.models import packed, zoo
     from robocupvision_tpu_torch.ops import metrics
+    from robocupvision_tpu_torch.parallel import mesh
     from robocupvision_tpu_torch.tools import make_lp_images, structured_prune
     from robocupvision_tpu_torch.utils.serving import ServingPipeline
 
@@ -113,6 +114,7 @@ def _entry_points():
         "validLabelProp.flow_and_score":
             lambda: validLabelProp.flow_and_score(None, None, []),
         "make_lp_images.main": lambda: make_lp_images.main([]),
+        "make_mesh": lambda: mesh.make_mesh(),
     }
 
 
@@ -133,7 +135,7 @@ def _entry_points():
                                   "testDumper.main", "pruner.main",
                                   "detect.main", "structured_prune.main",
                                   "validLabelProp.flow_and_score",
-                                  "make_lp_images.main"])
+                                  "make_lp_images.main", "make_mesh"])
 def test_entry_points_raise_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point runs there")

@@ -194,14 +194,6 @@ def test_concurrent_streams_under_a_short_switch_interval():
         assert got[k] == list(np.random.default_rng(k).permutation(37)), k
 
 
-def test_sharding_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A.7"):
-        StreamingBatches(IdDataset(4), 2, sharding=object(), device="cpu")
-    with pytest.raises(ValueError):
-        StreamingBatches(IdDataset(4), 2, process_index=2, process_count=2,
-                         device="cpu")
-
-
 # ---- Trainer.train_epoch_streamed --------------------------------------------
 
 

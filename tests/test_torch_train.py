@@ -384,13 +384,9 @@ def test_prune_masks_keep_pruned_weights_at_zero():
 
 
 def test_unported_step_options_raise():
-    """The mesh stays unported; packed training refuses what the JAX
-    package's asserts refuse (``pool``), and an unknown remat mode is a
-    ValueError."""
+    """Packed training refuses what the JAX package's asserts refuse
+    (``pool``), and an unknown remat mode is a ValueError."""
     tm = zoo.make("robo_unet", device="cpu", **small_hyper())
-    with pytest.raises(NotImplementedError):
-        loop.Trainer(tm, optim.adam(), tstep.StepCfg(num_classes=5), None,
-                     None, 4, mesh=object())
     unet = zoo.make("robo_unet", device="cpu", **VARIANTS["unet"])
     with pytest.raises(AssertionError):
         tstep.make_train_step(unet, optim.adam(),
@@ -581,12 +577,6 @@ def test_train_cli_finetune_prunes(data_root, tmp_path, monkeypatch, capsys):
     pruned = [f for f in os.listdir("checkpoints")
               if f.startswith("bestFinetune") and "_" in f]
     assert pruned, os.listdir("checkpoints")
-
-
-@pytest.mark.parametrize("flags", [["--spatial", "2"]])
-def test_train_cli_unported_flags_raise(flags):
-    with pytest.raises(NotImplementedError):
-        _cli(flags)
 
 
 def test_train_cli_rejects_all_background(capsys):
