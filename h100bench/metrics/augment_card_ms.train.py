@@ -1,0 +1,9 @@
+"""Card milliseconds a train step in ``step.augment`` (the augmentation,
+the label remap): the card's time between the span's two timing events
+(the program's span, traced segment)."""
+
+from h100bench import program_spans
+
+
+def read(run):
+    return program_spans.per_span(run, "step.augment", lambda s: s.card_ms)

@@ -87,6 +87,7 @@ from robocupvision_tpu_torch.models.zoo import (LabelPropCfg, Model,
 from robocupvision_tpu_torch.ops import cuda_packed as ckp
 from robocupvision_tpu_torch.ops import nn
 from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+from robocupvision_tpu_torch.utils import profiling
 
 Params = Dict[str, torch.Tensor]
 NpParams = Dict[str, np.ndarray]
@@ -401,17 +402,20 @@ class _PackedBase:
         ``collect[tag]`` (ops/cuda_packed.chain_stats). With ``op`` set
         (a graph that export/aot.py traces) the call goes through the
         ``torch.library`` op instead, one graph node a chain, to the same
-        launch."""
-        x, skips = x.contiguous(), [s.contiguous() for s in skips]
-        col = self.chains.get("collect")
-        if col is not None:
-            outs, stats = ckp.chain_stats(x, stages, skips,
-                                          pct=self.chains.get("collect_pct"))
-            col.setdefault(tag, []).extend(stats)
-            return outs
-        if self.chains.get("op"):
-            return ckp.fused_conv_chain_op(x, stages, skips)
-        return ckp.fused_conv_chain(x, stages, skips)
+        launch. While the tracer records, the call is a ``k2.chain`` span
+        tagged ``tag`` and adds one to the counter ``k2.chains``."""
+        with profiling.span("k2.chain", tag=tag):
+            profiling.count("k2.chains")
+            x, skips = x.contiguous(), [s.contiguous() for s in skips]
+            col = self.chains.get("collect")
+            if col is not None:
+                outs, stats = ckp.chain_stats(
+                    x, stages, skips, pct=self.chains.get("collect_pct"))
+                col.setdefault(tag, []).extend(stats)
+                return outs
+            if self.chains.get("op"):
+                return ckp.fused_conv_chain_op(x, stages, skips)
+            return ckp.fused_conv_chain(x, stages, skips)
 
     # -- block interpreter --------------------------------------------------
 

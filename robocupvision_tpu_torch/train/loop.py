@@ -44,6 +44,7 @@ from robocupvision_tpu_torch.ops.pruning import near_zero_fraction
 from robocupvision_tpu_torch.train import checkpoint as ckpt
 from robocupvision_tpu_torch.train import optim
 from robocupvision_tpu_torch.train import step as tstep
+from robocupvision_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -109,6 +110,7 @@ class Trainer:
         self.draw_dropout = lambda n: model.draw_dropout(self.gen, n,
                                                          self._batch_hw)
         self.state: Optional[tstep.TrainState] = None
+        self.epoch = 0   # train epochs begun: the req of an epoch's spans
 
     # -- state ------------------------------------------------------------------
 
@@ -160,7 +162,14 @@ class Trainer:
         (the rank takes its block), or with ``strided`` already the
         rank's: rows ``data_index::data`` of the global batch, as a
         sharded stream yields them. The draws and keep masks are drawn
-        for the global batch either way, and cut as its rows."""
+        for the global batch either way, and cut as its rows. A
+        ``train.epoch`` span."""
+        self.epoch += 1
+        with profiling.span("train.epoch", req=self.epoch):
+            return self._step_each(batches, lr, masks, strided)
+
+    def _step_each(self, batches, lr: float, masks,
+                   strided: bool) -> Dict[str, torch.Tensor]:
         mesh = self.mesh
         tot: Dict[str, torch.Tensor] = {}
         for imgs, tgt, mask in batches:
@@ -253,7 +262,12 @@ class Trainer:
     def _valid(self, params) -> Optional[Dict]:
         """The eval step's outputs summed over the val set on the device
         (``acc`` a SegAccum; for ``ce`` ``conf``, ``correct``,
-        ``img_cnt``), or None for an empty set."""
+        ``img_cnt``), or None for an empty set. A ``train.valid_epoch``
+        span."""
+        with profiling.span("train.valid_epoch", req=self.epoch):
+            return self._valid_sums(params)
+
+    def _valid_sums(self, params) -> Optional[Dict]:
         tot = None
         mesh = self.mesh
         for imgs, tgt, mask in epoch_batches(self.val_cache, self.batch_size):

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
@@ -38,6 +39,7 @@ from robocupvision_tpu_torch.models.zoo import Model
 from robocupvision_tpu_torch.ops import color, labels, losses, metrics
 from robocupvision_tpu_torch.ops.pruning import mask_gradients
 from robocupvision_tpu_torch.train import optim
+from robocupvision_tpu_torch.utils import profiling
 
 Params = Dict[str, torch.Tensor]
 
@@ -224,47 +226,60 @@ def make_train_step(model: Model, tx: optim.GradientTransform, cfg: StepCfg,
     _, augment = color.AUGMENT_MODES[cfg.augment_mode]
     classify = cfg.loss == "ce"
     spatial = _spatial(mesh)
+    card = model.device.type == "cuda"
+    numbers = itertools.count()
 
     def step(state: TrainState, imgs, targets, sample_mask, draws, lr,
              prune_masks: Optional[Mapping[str, torch.Tensor]] = None,
              dropout: Optional[Mapping[str, torch.Tensor]] = None):
-        if cfg.augment:
-            # a class label has no pixels to flip
-            imgs, flipped = augment(imgs, None if classify else targets,
-                                    draws, cfg.jitter)
-            if not classify:
-                targets = flipped
-        targets = labels.mask_label(targets, nb, nr, ng, nl)
-        if cfg.packed:
-            targets = packed_mod.pack_targets(targets)
-        height = imgs.shape[1]
-        if spatial:
-            # augmented at full height (a vertical flip moves rows between
-            # ranks), then cut; an element dropout mask is cut as well
-            imgs, targets = _rows(mesh, imgs), _rows(mesh, targets)
-            if dropout is not None:
-                dropout = {k: _rows(mesh, v) if v.shape[1] > 1 else v
-                           for k, v in dropout.items()}
-        trainable, bn_state = L.split_params(state.params)
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in trainable.items()}
-        x = imgs.to(torch.bfloat16) if cfg.compute_dtype == "bfloat16" \
-            else imgs
+        with profiling.span("train.step", req=next(numbers)):
+            return phases(state, imgs, targets, sample_mask, draws, lr,
+                          prune_masks, dropout)
+
+    def phases(state, imgs, targets, sample_mask, draws, lr, prune_masks,
+               dropout):
+        with profiling.span("step.augment", card=card):
+            if cfg.augment:
+                # a class label has no pixels to flip
+                imgs, flipped = augment(imgs, None if classify else targets,
+                                        draws, cfg.jitter)
+                if not classify:
+                    targets = flipped
+            targets = labels.mask_label(targets, nb, nr, ng, nl)
+            if cfg.packed:
+                targets = packed_mod.pack_targets(targets)
+            height = imgs.shape[1]
+            if spatial:
+                # augmented at full height (a vertical flip moves rows
+                # between ranks), then cut; an element dropout mask is cut
+                # as well
+                imgs, targets = _rows(mesh, imgs), _rows(mesh, targets)
+                if dropout is not None:
+                    dropout = {k: _rows(mesh, v) if v.shape[1] > 1 else v
+                               for k, v in dropout.items()}
         with torch.enable_grad():
-            logits, mut = forward(leaves, bn_state, x, sample_mask, dropout,
-                                  height)
-            logits = _flat_logits(cfg, logits)
-            task = _loss(cfg, logits, targets, sample_mask, weights, mesh)
-            reg = torch.zeros((), device=logits.device)
-            if cfg.l1_decay:
-                reg = cfg.l1_decay * losses.l1_regularization(leaves)
-            # on a mesh the L1 term enters the summed loss once
-            total = task + reg if mesh is None or mesh.is_main else task
-            # a param the forward does not reach (the segmentation head of
-            # a net trained to classify) gets a zero gradient, as in JAX
-            grads = torch.autograd.grad(total, list(leaves.values()),
-                                        materialize_grads=True)
-        with torch.no_grad():
+            with profiling.span("step.forward", card=card):
+                trainable, bn_state = L.split_params(state.params)
+                leaves = {k: v.detach().requires_grad_(True)
+                          for k, v in trainable.items()}
+                x = imgs.to(torch.bfloat16) \
+                    if cfg.compute_dtype == "bfloat16" else imgs
+                logits, mut = forward(leaves, bn_state, x, sample_mask,
+                                      dropout, height)
+                logits = _flat_logits(cfg, logits)
+                task = _loss(cfg, logits, targets, sample_mask, weights, mesh)
+                reg = torch.zeros((), device=logits.device)
+                if cfg.l1_decay:
+                    reg = cfg.l1_decay * losses.l1_regularization(leaves)
+                # on a mesh the L1 term enters the summed loss once
+                total = task + reg if mesh is None or mesh.is_main else task
+            with profiling.span("step.backward", card=card):
+                # a param the forward does not reach (the segmentation
+                # head of a net trained to classify) gets a zero gradient,
+                # as in JAX
+                grads = torch.autograd.grad(total, list(leaves.values()),
+                                            materialize_grads=True)
+        with profiling.span("step.update", card=card), torch.no_grad():
             pred = torch.argmax(logits.detach(), dim=-1)
             m = torch.as_tensor(sample_mask, device=pred.device).float()
             correct = ((pred == targets).float()
@@ -277,10 +292,9 @@ def make_train_step(model: Model, tx: optim.GradientTransform, cfg: StepCfg,
                     img_cnt = torch.zeros_like(img_cnt)
                 *grads, total, correct, img_cnt = mesh.all_reduce_flat(
                     list(grads) + [total, correct, img_cnt])
-        grads = dict(zip(leaves, grads))
-        if prune_masks is not None:
-            grads = mask_gradients(grads, prune_masks)
-        with torch.no_grad():
+            grads = dict(zip(leaves, grads))
+            if prune_masks is not None:
+                grads = mask_gradients(grads, prune_masks)
             direction, opt_state = tx.update(grads, state.opt_state,
                                              trainable)
             new_trainable = optim.apply_updates(trainable, direction, lr,
