@@ -90,11 +90,14 @@ K2's int8 stages are held against the int8 ``chain_reference`` on every
 chain of the five families (VGA b1, bf16 and f32) and on one stage per
 feature, and K2 against ``chain_reference`` on random chains with random
 zero blocks in bf16, f32 and int8 and on bf16 chains at the slim nets'
-widths (``k2_fuzz``). K3, the fused conv3x3
-block, has no caller: it is held against its plain version alone, beside
-cuDNN, at the QVGA packed widths, at VGA and at widths that are no
-multiples of 16. One call of each K2 chain of a prepared graph and one
-K3 call must make no copy to the host (``no_host_copy``), and the device
+widths (``k2_fuzz``). K4, the legacy flips and ColorJitter, is held
+against ``legacy_augment_batch_plain`` and timed at the legacy training
+cell's b32 VGA batch and the legacy CLIs' shapes (``k4_timings``); the
+training phases then run it in every legacy step on the card. K3, the
+fused conv3x3 block, has no caller: it is held against its plain version
+alone, beside cuDNN, at the QVGA packed widths, at VGA and at widths that
+are no multiples of 16. One call of each K2 chain of a prepared graph and
+one K3 call must make no copy to the host (``no_host_copy``), and the device
 fps phase splits each graph's card time into K2 and the plain parts with
 ``torch.profiler``.
 
@@ -102,6 +105,7 @@ fps phase splits each graph's card time into K2 and the plain parts with
     python3 chip_smoke.py --compare-chains PATH_A PATH_B
     python3 chip_smoke.py --time-chains
     python3 chip_smoke.py --time-k1
+    python3 chip_smoke.py --time-k4
     python3 chip_smoke.py --mesh
 
 save K2's outputs on every f32 chain of the five families (on the inputs
@@ -112,8 +116,10 @@ chain and single-stage case; and print K1's costs on the maps the main
 paths give it (``K1_PATH_CASES``, recorded by ``K1Recorder`` in every
 path's counted run) at two label distributions: its card time alone, its
 device launches a call, its CUDA-event time, its bytes bound and the
-``torch.bincount`` yardstick (the same lines ``phase_k1`` prints); and
-run the mesh phase alone after the build.
+``torch.bincount`` yardstick (the same lines ``phase_k1`` prints); print
+K4's check against its plain version and its costs on ``K4_CASES`` (the
+same lines the full run prints); and run the mesh phase alone after the
+build.
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi reports them, and the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if
@@ -1348,6 +1354,160 @@ def phase_k3(dev, chk: Checks) -> dict:
                 emit(res)
                 results[tag] = res
     return results
+
+
+# ---------------------------------------------------------------------------
+# K4: the legacy flips and ColorJitter
+# ---------------------------------------------------------------------------
+
+
+# (case, (N, H, W, C), label dtype or None, jitter): the legacy training
+# cell's batch first (trainer.py --noScale at the benchmark's b32 VGA, its
+# int32 labels; the entry's case), with int64 and uint8 labels and flips
+# alone; the batches ``phase_legacy_train``'s loops give it (trainer's b32
+# and --finetune's b8 at 120x160, int32 labels; classTrainer's b32 and
+# classVal's b64 32x32 patches, no labels; labelPropTrain's b16 8-channel
+# pairs, flips alone); labelPropTrain at 240x320 with int64 labels; odd
+# sizes (a pixel a thread)
+K4_CASES = [
+    ("legacy_b32_vga", (32, *VGA, 3), torch.int32, True),
+    ("legacy_b32_vga_i64", (32, *VGA, 3), torch.int64, True),
+    ("legacy_b32_vga_u8", (32, *VGA, 3), torch.uint8, True),
+    ("flips_b32_vga", (32, *VGA, 3), torch.int32, False),
+    ("segment_b32_120x160", (32, 120, 160, 3), torch.int32, True),
+    ("finetune_b8_120x160", (8, 120, 160, 3), torch.int32, True),
+    ("class_b32_32x32", (32, 32, 32, 3), None, True),
+    ("class_b64_32x32", (64, 32, 32, 3), None, True),
+    ("label_prop_b16_120x160_8ch", (16, 120, 160, 8), torch.int32, False),
+    ("label_prop_b16_8ch", (16, 240, 320, 8), torch.int64, False),
+    ("odd_b24_37x53", (24, 37, 53, 3), torch.int32, True),
+]
+K4_TOL = 2e-5  # normalized YUV, absolute
+# RGB pixels that take the jitter's edge branches: black, white, grey,
+# saturated primaries, r == g == max, g == b == max, r == b == max, and a
+# red whose hue wraps past 0
+K4_HARD_RGB = [(0, 0, 0), (1, 1, 1), (0.5, 0.5, 0.5), (1, 0, 0), (0, 1, 0),
+               (0, 0, 1), (0.8, 0.8, 0.2), (0.1, 0.7, 0.7), (0.6, 0.3, 0.6),
+               (0.9, 0.05, 0.1)]
+
+
+def k4_inputs(shape, label_dtype, seed: int, dev):
+    """A batch for K4 on ``dev``: (N, H, W, C) images (C = 3: legacy-
+    normalized random RGB, the first row of each image starting with
+    ``K4_HARD_RGB`` and a quarter of the rows grey; else standard normal
+    channels), (N, H, W) labels in 0..4 of ``label_dtype`` (None: none)
+    and draws as ``draw_legacy_augment`` gives them, but sample i takes
+    the i % 24-th op order of the 24, hflip i % 2 and vflip (i // 2) % 2."""
+    import itertools
+
+    from robocupvision_tpu_torch.data import datasets
+
+    n, h, w, c = shape
+    rng = np.random.default_rng(seed)
+    if c == 3:
+        rgb = rng.random((n, h, w, 3), dtype=np.float32)
+        grey = rng.random((n, h, w, 1), dtype=np.float32)
+        rows = rng.random((n, h, 1, 1)) < 0.25
+        rgb = np.where(rows, np.repeat(grey, 3, axis=-1), rgb)
+        hard = np.asarray(K4_HARD_RGB, np.float32)[:w]
+        rgb[:, 0, :len(hard)] = hard
+        imgs = datasets.legacy_normalize(rgb)
+    else:
+        imgs = rng.standard_normal((n, h, w, c)).astype(np.float32)
+    labels = None if label_dtype is None else torch.from_numpy(
+        rng.integers(0, 5, (n, h, w))).to(dev, label_dtype)
+    perms = list(itertools.permutations(range(4)))
+    u = torch.from_numpy(rng.random((4, n), dtype=np.float32))
+    idx = torch.arange(n)
+    draws = {"hflip": idx % 2 == 1, "vflip": (idx // 2) % 2 == 1,
+             "b": 0.5 + u[0], "c": 0.5 + u[1], "s": 0.6 + 0.8 * u[2],
+             "h": -0.3 + 0.6 * u[3],
+             "order": torch.tensor([perms[i % 24] for i in range(n)])}
+    return (torch.from_numpy(imgs).to(dev), labels,
+            {k: v.to(dev) for k, v in draws.items()})
+
+
+def k4_timings(dev, chk: Checks) -> dict:
+    """K4 on every ``K4_CASES`` batch against ``legacy_augment_batch_plain``
+    on the same tensors: images within ``K4_TOL``, labels equal. Then its
+    CUDA-event time a call (the wrapper's host work included), its card
+    time alone (the profiler's rows of its two kernels, a call), the plain
+    version's time, and the bytes bound: the function's least traffic, the
+    images and the labels (at their dtype) read and written once. K4's
+    design reads the images once more with the jitter (pass 1, the
+    contrast means): ``design_bytes`` and ``design_bound_ms`` count that
+    read. No one PyTorch call computes the function: no library
+    yardstick."""
+    from robocupvision_tpu_torch.ops.color import (LEGACY_JITTER_TABLES,
+                                                   legacy_augment_batch_plain)
+    from robocupvision_tpu_torch.ops.cuda_kernels import legacy_jitter
+
+    out = {}
+    for i, (case, shape, ldt, jitter) in enumerate(K4_CASES):
+        imgs, labels, draws = k4_inputs(shape, ldt, SEED + 400 + i, dev)
+        before = legacy_jitter.launches
+        got_i, got_l = legacy_jitter(imgs, labels, draws, jitter,
+                                     LEGACY_JITTER_TABLES)
+        launches = legacy_jitter.launches - before
+        want_i, want_l = legacy_augment_batch_plain(imgs, labels, draws,
+                                                    jitter)
+        torch.cuda.synchronize()
+        err = float((got_i - want_i).abs().max())
+        labels_equal = (got_l is None and want_l is None) or bool(
+            torch.equal(got_l, want_l))
+        chk.expect(err <= K4_TOL and labels_equal,
+                   f"K4 {case}: max abs err {err} (tol {K4_TOL}), labels "
+                   f"equal {labels_equal}")
+        del want_i, want_l, got_i, got_l
+        call = lambda: legacy_jitter(  # noqa: E731
+            imgs, labels, draws, jitter, LEGACY_JITTER_TABLES)
+        big = shape[0] * shape[1] * shape[2] >= 32 * 480 * 640
+        rows = profile_calls(call, 20 if big else 100)
+        card = sum(ms for key, _, ms in rows or ()
+                   if "contrast_partials" in key or "augment_pixels" in key)
+        moved = 2 * nbytes(imgs) + (
+            0 if labels is None else 2 * nbytes(labels))
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        design = moved + (nbytes(imgs) if jitter else 0)
+        res = {"phase": "k4_time", "case": case, "shape": list(shape),
+               "labels": None if ldt is None else str(ldt)[6:],
+               "jitter": jitter, "max_abs_err": err,
+               "labels_equal": labels_equal, "launches_per_call": launches,
+               "kernel_ms": cuda_ms(call, 50 if big else 200),
+               "card_ms": card or None,
+               "device_rows": ([[k[:60], n, ms] for k, n, ms in rows]
+                               if rows else None),
+               "plain_ms": cuda_ms(lambda: legacy_augment_batch_plain(
+                   imgs, labels, draws, jitter), 3 if big else 20, 1),
+               "bound_ms": bound_ms, "bound_by": "bytes", "bytes": moved,
+               "bound_share": bound_ms / card if card else None,
+               "design_bytes": design,
+               "design_bound_ms": design / HBM_BYTES_PER_S * 1e3}
+        emit(res)
+        out[case] = res
+    return out
+
+
+def time_k4() -> int:
+    """``--time-k4``: ``k4_timings`` alone, one JSON line a case, then a
+    summary line with the card's name and power limit. Exits 1 if a case
+    differs from the plain version."""
+    from robocupvision_tpu_torch.csrc import build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    lib = build.build_all(["legacy_jitter.cu"])["legacy_jitter.cu"]
+    emit({"phase": "k4_build", "build_s": time.perf_counter() - t0,
+          "ptxas": lib.with_suffix(".log").read_text().strip().splitlines()})
+    chk = Checks()
+    out = k4_timings(torch.device("cuda"), chk)
+    emit({"phase": "time_k4", "nvidia_smi": smi_line(),
+          **{key: {c: r[key] for c, r in out.items()}
+             for key in ("max_abs_err", "kernel_ms", "card_ms", "plain_ms",
+                         "bound_ms", "bound_share")},
+          "failed": chk.failed})
+    return 1 if chk.failed else 0
 
 
 def phase_no_host_copy(model, dev, chk: Checks) -> dict:
@@ -3051,11 +3211,13 @@ def phase_legacy_train(dev, chk: Checks, smi: str) -> list:
                            and train_loss[-1] < train_loss[0],
                            f"legacy {name}: train loss {train_loss} does not "
                            "fall")
+                want_k4 = k4_want(tr, opt.epochs)
                 chk.expect(launches == {"confusion_count": want_k1,
                                         "fused_conv_chain": 0,
-                                        "fused_conv3x3_block": 0},
+                                        "fused_conv3x3_block": 0,
+                                        "legacy_jitter": want_k4},
                            f"legacy {name}: launches {launches}, want "
-                           f"{want_k1} K1 and no K2, K3")
+                           f"{want_k1} K1, {want_k4} K4 and no K2, K3")
                 chk.expect(verified == want_k1 and unequal == 0,
                            f"legacy {name}: K1 equal to plain on "
                            f"{verified - unequal} of {want_k1} validation "
@@ -3086,11 +3248,12 @@ def counted_run(fn):
     (``K1Recorder.verify``). -> (fn's result, launches, K1 calls verified,
     K1 calls unequal to plain, seconds)."""
     from robocupvision_tpu_torch.ops.cuda_kernels import (confusion_count,
-                                                          fused_conv3x3_block)
+                                                          fused_conv3x3_block,
+                                                          legacy_jitter)
     from robocupvision_tpu_torch.ops.cuda_packed import fused_conv_chain
 
     confusion_count.launches = fused_conv_chain.launches = 0
-    fused_conv3x3_block.launches = 0
+    fused_conv3x3_block.launches = legacy_jitter.launches = 0
     K1_REC.active = K1_REC.verify = True
     K1_REC.verified = K1_REC.unequal = 0
     t0 = time.perf_counter()
@@ -3102,8 +3265,22 @@ def counted_run(fn):
     wall = time.perf_counter() - t0
     return out, {"confusion_count": confusion_count.launches,
                  "fused_conv_chain": fused_conv_chain.launches,
-                 "fused_conv3x3_block": fused_conv3x3_block.launches}, \
+                 "fused_conv3x3_block": fused_conv3x3_block.launches,
+                 "legacy_jitter": legacy_jitter.launches}, \
         K1_REC.verified, K1_REC.unequal, wall
+
+
+def k4_want(tr, epochs: int) -> int:
+    """K4's launches in ``epochs`` train epochs of the Trainer ``tr`` on
+    the card: one call a step in the legacy modes, 2 launches a call with
+    the jitter and 1 without; none with ssyuv or without augmentation."""
+    from robocupvision_tpu_torch.data.device_cache import num_batches
+
+    cfg = tr.cfg
+    if not cfg.augment or cfg.augment_mode == "ssyuv":
+        return 0
+    return epochs * num_batches(tr.train_cache.n, tr.batch_size) * (
+        2 if cfg.jitter else 1)
 
 
 def worst_over_tol(got, want, rtol: float) -> tuple:
@@ -3182,9 +3359,10 @@ def phase_train_variants(dev, chk: Checks, smi: str) -> dict:
             "seconds": wall}
         chk.expect(launches == {"confusion_count": vnb,
                                 "fused_conv_chain": 0,
-                                "fused_conv3x3_block": 0},
+                                "fused_conv3x3_block": 0,
+                                "legacy_jitter": k4_want(tr, 1)},
                    f"train_variants {tag}: launches {launches}, want {vnb} "
-                   "K1 and no K2, K3")
+                   "K1 and no K2, K3, K4")
         chk.expect(verified == vnb and unequal == 0,
                    f"train_variants {tag}: K1 equal to plain on "
                    f"{verified - unequal} of {vnb} validation batches")
@@ -3325,9 +3503,9 @@ def phase_train_streamed(dev, chk: Checks, smi: str) -> dict:
            "k1_verified": verified, "k1_unequal_plain": unequal,
            "seconds": wall}
     chk.expect(launches == {"confusion_count": vnb, "fused_conv_chain": 0,
-                            "fused_conv3x3_block": 0},
+                            "fused_conv3x3_block": 0, "legacy_jitter": 0},
                f"train_streamed: launches {launches}, want {vnb} K1 and no "
-               "K2, K3")
+               "K2, K3, K4")
     chk.expect(verified == vnb and unequal == 0 and np.isfinite(ep.loss),
                f"train_streamed: K1 equal to plain on {verified - unequal} of "
                f"{vnb} validation batches, loss {ep.loss}")
@@ -3447,11 +3625,13 @@ def phase_classifier_clis(dev, chk: Checks, smi: str) -> list:
                            and train_loss[-1] < train_loss[0],
                            f"classifier_clis {name}: train loss {train_loss} "
                            "does not fall")
+                want_k4 = k4_want(tr, opt.epochs)
                 chk.expect(launches == {"confusion_count": 0,
                                         "fused_conv_chain": 0,
-                                        "fused_conv3x3_block": 0},
+                                        "fused_conv3x3_block": 0,
+                                        "legacy_jitter": want_k4},
                            f"classifier_clis {name}: launches {launches}, "
-                           "want none")
+                           f"want {want_k4} K4 and none else")
                 if cli is objDetEval:
                     chk.expect(res["false_neg_lines"] >= 1,
                                f"classifier_clis {name}: no false-negative "
@@ -3777,7 +3957,7 @@ def phase_optflow(nets, frames, dev, chk: Checks, smi: str) -> dict:
         "max_abs_diff_vs_cpu": diff, "maps_equal_cpu": same}
     chk.expect(n == 2 * FLOW_PAIRS and launches == {
         "confusion_count": FLOW_PAIRS, "fused_conv_chain": 0,
-        "fused_conv3x3_block": 0},
+        "fused_conv3x3_block": 0, "legacy_jitter": 0},
         f"flow baseline: {n} images, launches {launches}")
     chk.expect(verified == FLOW_PAIRS and unequal == 0,
                f"flow baseline: K1 {unequal} of {verified} calls != plain")
@@ -3841,7 +4021,8 @@ def phase_optflow(nets, frames, dev, chk: Checks, smi: str) -> dict:
     print("test.py --lProp chain: flow pair optflow_torch / "
           "warp_labels_torch on the card", flush=True)
     chk.expect(launches == {"confusion_count": LPROP_SEQS,
-                            "fused_conv_chain": 0, "fused_conv3x3_block": 0},
+                            "fused_conv_chain": 0, "fused_conv3x3_block": 0,
+                            "legacy_jitter": 0},
                f"--lProp evaluate: launches {launches}")
     chk.expect(verified == LPROP_SEQS and unequal == 0,
                f"--lProp evaluate: K1 {unequal} of {verified} calls != plain")
@@ -4330,7 +4511,9 @@ def phase_prune_clis(dev, chk: Checks, smi: str) -> list:
             chk.expect(res["checkpoint_loads"], f"prune_clis: {ckpt}")
             chk.expect(launches == {"confusion_count": want_k1,
                                     "fused_conv_chain": 0,
-                                    "fused_conv3x3_block": 0}
+                                    "fused_conv3x3_block": 0,
+                                    "legacy_jitter": k4_want(last["trainer"],
+                                                             epochs)}
                        and verified == want_k1 and unequal == 0,
                        f"prune_clis pruner: launches {launches}, K1 equal "
                        f"plain on {verified - unequal} of {want_k1}")
@@ -4398,7 +4581,8 @@ def phase_prune_clis(dev, chk: Checks, smi: str) -> list:
             chk.expect(ok, f"prune_clis --pruneStruct: {res}")
             chk.expect(launches == {"confusion_count": want_k1,
                                     "fused_conv_chain": 0,
-                                    "fused_conv3x3_block": 0}
+                                    "fused_conv3x3_block": 0,
+                                    "legacy_jitter": k4_want(tr, 25)}
                        and verified == want_k1 and unequal == 0,
                        f"prune_clis --pruneStruct: launches {launches}, K1 "
                        f"equal plain on {verified - unequal} of {want_k1}")
@@ -4774,7 +4958,8 @@ def phase_mesh(dev, chk: Checks, smi: str) -> dict:
                    f"{curve_diff} (curve)")
         chk.expect(launches == {"confusion_count": MESH_EPOCHS * vnb,
                                 "fused_conv_chain": 0,
-                                "fused_conv3x3_block": 0}
+                                "fused_conv3x3_block": 0,
+                                "legacy_jitter": k4_want(tr1, MESH_EPOCHS)}
                    and verified == MESH_EPOCHS * vnb and unequal == 0,
                    f"mesh world 1: launches {launches}, K1 equal to plain on "
                    f"{verified - unequal} of {MESH_EPOCHS * vnb}")
@@ -5169,6 +5354,8 @@ def main() -> int:
         return time_chain_kernels()
     if sys.argv[1:2] == ["--time-k1"]:
         return time_k1()
+    if sys.argv[1:2] == ["--time-k4"]:
+        return time_k4()
     if sys.argv[1:2] == ["--compare-chains"]:
         return compare_chain_outputs(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--mesh"]:
@@ -5208,6 +5395,7 @@ def main() -> int:
     k2q = phase_k2_int8(model, graphs, pb_model, lp_model, dev, chk)
     k2z = phase_k2_fuzz(dev, chk)
     k3 = phase_k3(dev, chk)
+    k4 = k4_timings(dev, chk)
     phase_no_host_copy(model, dev, chk)
     fused_conv3x3_block.launches = 0  # no main path below calls K3
 
@@ -5269,6 +5457,8 @@ def main() -> int:
     k1m = k1["tester", "random"]
     # K3 has no caller: its entry is the QVGA 64->64 bf16 Conv-block case
     k3m = k3["120x160_64to64_bf16_relu_bn"]
+    # K4's entry: the legacy training cell's batch
+    k4m = k4["legacy_b32_vga"]
     features = sorted({f for r in list(k2.values()) + list(k2f.values())
                        + list(k2lp.values()) + list(k2v.values())
                        + list(k2q.values()) + [k2z]
@@ -5297,6 +5487,15 @@ def main() -> int:
          "plain_ms": k3m["plain_ms"], "bound_ms": k3m["bound_ms"],
          "bound_by": k3m["bound_by"], "library_ms": k3m["library_ms"],
          "case": k3m["case"]},
+        {"name": "legacy_jitter", "route": "cuda",
+         "source": "robocupvision_tpu_torch/csrc/legacy_jitter.cu",
+         "replaces": None,  # the JAX legacy_augment_batch is plain jnp
+         "launches": sum(r.get("legacy_jitter", 0) for r in main_runs),
+         "max_abs_err": k4m["max_abs_err"], "ms": k4m["kernel_ms"],
+         "card_ms": k4m["card_ms"], "plain_ms": k4m["plain_ms"],
+         "bound_ms": k4m["bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "case": [k4m["shape"], "float32", k4m["labels"], "jitter"]},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

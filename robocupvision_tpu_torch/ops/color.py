@@ -141,6 +141,11 @@ def augment_batch(imgs: torch.Tensor, labels: Optional[torch.Tensor],
 LEGACY_B, LEGACY_C, LEGACY_S, LEGACY_H = 0.5, 0.5, 0.4, 0.3
 _GRAY_W = np.array([0.299, 0.587, 0.114], np.float32)  # PIL convert("L")
 _LEGACY_MEAN = (0.5, 0.0, 0.0)  # Normalize([.5, 0, 0], [.5, .5, .5])
+# K4's constants as the plain code rounds them to f32 (``cuda_kernels
+# .legacy_jitter``): RGB_FROM_YUV and YUV_FROM_RGB row-major, the grey weights
+LEGACY_JITTER_TABLES = np.concatenate([
+    np.asarray(RGB_FROM_YUV, np.float32).ravel(),
+    np.asarray(YUV_FROM_RGB, np.float32).ravel(), _GRAY_W])
 
 
 def draw_legacy_augment(gen: torch.Generator, n: int, use_vflip: bool = True
@@ -245,7 +250,25 @@ def legacy_augment_batch(imgs: torch.Tensor, labels: Optional[torch.Tensor],
     """The legacy augmentation of a batch of YUV-normalized NHWC images
     and their (N, H, W) labels (None: images only) with the given draws
     (:func:`draw_legacy_augment`): the horizontal, then the vertical flips
-    of image and label, then, with ``jitter``, the RGB ColorJitter."""
+    of image and label, then, with ``jitter``, the RGB ColorJitter. CUDA
+    tensors go through K4 (``cuda_kernels.legacy_jitter``, which raises
+    on what it does not take), others through
+    :func:`legacy_augment_batch_plain`."""
+    if imgs.device.type == "cuda":
+        from robocupvision_tpu_torch.ops import cuda_kernels
+
+        return cuda_kernels.legacy_jitter(imgs, labels, draws, jitter,
+                                          LEGACY_JITTER_TABLES)
+    return legacy_augment_batch_plain(imgs, labels, draws, jitter)
+
+
+def legacy_augment_batch_plain(
+        imgs: torch.Tensor, labels: Optional[torch.Tensor],
+        draws: Dict[str, torch.Tensor], jitter: bool = True
+        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """:func:`legacy_augment_batch` in plain PyTorch, on any device: each
+    flip as a ``flip`` and a ``torch.where``, and :func:`rgb_color_jitter`,
+    which runs every op at every position."""
     imgs = _flip(_flip(imgs, draws["hflip"], 2), draws["vflip"], 1)
     if labels is not None:
         labels = _flip(_flip(labels, draws["hflip"], 2), draws["vflip"], 1)

@@ -2,19 +2,27 @@
 with its plain PyTorch version:
 
 - K1 ``confusion_count`` (``confusion_matrix_pallas``, ``csrc/confusion.cu``);
-- K3 ``fused_conv3x3_block`` (``fused_conv3x3_block``, ``csrc/conv_block.cu``).
+- K3 ``fused_conv3x3_block`` (``fused_conv3x3_block``, ``csrc/conv_block.cu``);
 
-Each wrapper launches its kernel for CUDA tensors and runs its plain version
-for CPU tensors; nothing else selects between them. ``<wrapper>.launches``
-counts kernel launches.
+and K4 ``legacy_jitter`` (``csrc/legacy_jitter.cu``), which replaces no TPU
+kernel: the legacy flips and ColorJitter in one pass a pixel.
+
+K1's and K3's wrappers launch their kernel for CUDA tensors and run their
+plain version for CPU tensors; nothing else selects between them. K4's
+plain version is ``ops/color.py``'s ``legacy_augment_batch_plain``, and
+``color.legacy_augment_batch`` selects: CUDA tensors go to K4, with the
+plain version's constants, and K4's wrapper takes nothing else. ``<wrapper>.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from robocupvision_tpu_torch.utils import profiling
 
 _KERNEL_MAX_CLASSES = 16  # csrc/confusion.cu kMaxClasses
 # label types the kernel reads as they are, by element size (csrc/confusion.cu)
@@ -230,3 +238,111 @@ def fused_conv3x3_block(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 
 fused_conv3x3_block.launches = 0
+
+
+# ---- K4: the legacy flips and ColorJitter -----------------------------------
+
+_K4_MAX_PARTS = 64  # csrc/legacy_jitter.cu kMaxParts: partials a sample
+
+
+def _k4_lib():
+    """K4's C entry, at first use."""
+    if _k4_lib.fn is None:
+        from robocupvision_tpu_torch.csrc import build
+
+        fn = build.load("legacy_jitter.cu").rcv_legacy_jitter
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [ptr] * 4 + [i32] + [ptr] * 8 \
+            + [ctypes.POINTER(ctypes.c_float)] + [i32] * 5 + [ptr]
+        fn.restype = ctypes.c_int
+        _k4_lib.fn = fn
+    return _k4_lib.fn
+
+
+_k4_lib.fn = None
+
+_K4_DRAWS = (("hflip", torch.bool, ()), ("vflip", torch.bool, ()))
+_K4_JITTER_DRAWS = (("b", torch.float32, ()), ("c", torch.float32, ()),
+                    ("s", torch.float32, ()), ("h", torch.float32, ()),
+                    ("order", torch.int64, (4,)))
+
+
+def legacy_jitter(imgs: torch.Tensor, labels, draws, jitter: bool,
+                  tables: np.ndarray):
+    """:func:`color.legacy_augment_batch` of a CUDA batch through K4: the
+    YUV-normalized (N, H, W, C) f32 images and their (N, H, W) labels (None:
+    images only) flipped per ``draws["hflip"]`` / ``["vflip"]``, then, with
+    ``jitter``, each image's RGB ColorJitter with its factors ``b``, ``c``,
+    ``s``, ``h`` and op ``order`` (:func:`color.draw_legacy_augment`; each
+    order a permutation of 0..3). ``tables``: the 21 f32 constants of the
+    plain version (``color.LEGACY_JITTER_TABLES``). -> (images, labels or
+    None), new tensors.
+
+    Two launches with ``jitter`` (the contrast means, then the pixels), one
+    without; no host sync. The images must be contiguous f32 (C = 3 with
+    ``jitter``, any C without), the labels contiguous uint8, int32 or int64;
+    anything else raises. The draws are taken to the images' device and
+    dtype, and made contiguous (a mesh rank's draws are strided views).
+    Each call adds 1 to the tracer's counter ``k4.calls``."""
+    if imgs.device.type != "cuda":
+        raise ValueError(f"legacy_jitter runs on cuda, not {imgs.device}")
+    if imgs.dim() != 4:
+        raise ValueError(f"imgs must be (N, H, W, C), got {tuple(imgs.shape)}")
+    n, h, w, c = imgs.shape
+    if imgs.dtype != torch.float32:
+        raise TypeError(f"imgs must be float32, got {imgs.dtype}")
+    if jitter and c != 3:
+        raise ValueError(f"the jitter takes RGB's 3 channels, not {c}")
+    if not imgs.is_contiguous():
+        raise ValueError("imgs must be contiguous (NHWC)")
+    if labels is not None:
+        if tuple(labels.shape) != (n, h, w):
+            raise ValueError(f"labels must be {(n, h, w)}, got "
+                             f"{tuple(labels.shape)}")
+        if labels.device != imgs.device:
+            raise ValueError(f"labels on {labels.device}, imgs on "
+                             f"{imgs.device}")
+        if labels.dtype not in _KERNEL_LABEL_SIZE:
+            raise TypeError(f"labels must be uint8, int32 or int64, got "
+                            f"{labels.dtype}")
+        if not labels.is_contiguous():
+            raise ValueError("labels must be contiguous")
+    if n > 65535:
+        raise ValueError(f"the kernel's grid holds 65535 images, not {n}")
+    if tables.dtype != np.float32 or tables.shape != (21,) \
+            or not tables.flags.c_contiguous:
+        raise ValueError("tables must be 21 contiguous float32 values")
+    dev = imgs.device
+    d = {}
+    for key, dtype, tail in _K4_DRAWS + (_K4_JITTER_DRAWS if jitter else ()):
+        t = torch.as_tensor(draws[key]).to(device=dev, dtype=dtype)
+        if tuple(t.shape) != (n, *tail):
+            raise ValueError(f"draws[{key!r}] must be {(n, *tail)}, got "
+                             f"{tuple(t.shape)}")
+        d[key] = t.contiguous()
+    out = torch.empty_like(imgs)
+    lab_out = None if labels is None else torch.empty_like(labels)
+    partials = torch.empty(n * _K4_MAX_PARTS, dtype=torch.float64,
+                           device=dev) if jitter else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = _k4_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(imgs.data_ptr(), out.data_ptr(), ptr(labels), ptr(lab_out),
+                 0 if labels is None else _KERNEL_LABEL_SIZE[labels.dtype],
+                 d["hflip"].data_ptr(), d["vflip"].data_ptr(),
+                 *(ptr(d.get(k)) for k in ("b", "c", "s", "h", "order")),
+                 ptr(partials),
+                 tables.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                 n, h, w, c, int(jitter), stream)
+    if err != 0:
+        raise RuntimeError(f"legacy_jitter launch failed: CUDA error {err}")
+    legacy_jitter.launches += 2 if jitter else 1
+    profiling.count("k4.calls")
+    return out, lab_out
+
+
+legacy_jitter.launches = 0

@@ -25,6 +25,9 @@ The program's spans:
     train.step > step.augment, step.forward, step.backward, step.update
         one train step and its phases (train/step.py), the phases timed
         on the card as well; req: the step's number
+
+and counter ``k4.calls``: one call of K4, the legacy augmentation on the
+card (ops/cuda_kernels.py ``legacy_jitter``).
 """
 
 from __future__ import annotations

@@ -829,3 +829,102 @@ def test_export_serving_round_trip_on_card(cuda_device, tmp_path):
         torch.cuda.synchronize()
         assert ckp.fused_conv_chain.launches == before + 2
         assert torch.equal(got, live.infer_u8(x))
+
+
+_K4_LABELS = {"i64": torch.int64, "i32": torch.int32, "u8": torch.uint8,
+              "none": None}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,labels,jitter", [
+    ((24, 48, 64, 3), "i64", True),    # four pixels a thread
+    ((24, 48, 64, 3), "i32", True),
+    ((24, 48, 64, 3), "u8", True),
+    ((48, 32, 32, 3), "none", True),   # classification patches
+    ((24, 37, 53, 3), "i32", True),    # odd: a pixel a thread
+    ((24, 37, 53, 3), "none", True),
+    ((24, 48, 64, 3), "i64", False),   # flips alone
+    ((24, 37, 53, 3), "u8", False),
+    ((24, 48, 64, 8), "i64", False),   # LabelProp's 8 channels
+    ((24, 37, 53, 8), "i32", False),
+])
+def test_legacy_jitter_kernel_matches_plain(cuda_device, shape, labels,
+                                            jitter):
+    """K4 through ``legacy_augment_batch`` against
+    ``legacy_augment_batch_plain`` with the same draws: every one of the 24
+    op orders, each flip on and off, black, white, grey, saturated and
+    r == g == max pixels (``chip_smoke.k4_inputs``); images within 2e-5 in
+    normalized YUV (exact without the jitter), labels exact."""
+    import chip_smoke
+    from robocupvision_tpu_torch.ops import color
+    from robocupvision_tpu_torch.ops.cuda_kernels import legacy_jitter
+
+    imgs, lab, draws = chip_smoke.k4_inputs(shape, _K4_LABELS[labels], 7,
+                                            cuda_device)
+    before = legacy_jitter.launches
+    got_i, got_l = color.legacy_augment_batch(imgs, lab, draws, jitter)
+    torch.cuda.synchronize()
+    assert legacy_jitter.launches == before + (2 if jitter else 1)
+    want_i, want_l = color.legacy_augment_batch_plain(
+        imgs.cpu(), None if lab is None else lab.cpu(),
+        {k: v.cpu() for k, v in draws.items()}, jitter)
+    if jitter:
+        err = float((got_i.cpu() - want_i).abs().max())
+        assert err <= chip_smoke.K4_TOL, err
+    else:
+        assert torch.equal(got_i.cpu(), want_i)
+    if lab is None:
+        assert got_l is None
+    else:
+        assert got_l.dtype == lab.dtype and torch.equal(got_l.cpu(), want_l)
+
+
+@pytest.mark.cuda
+def test_legacy_jitter_kernel_takes_drawn_and_strided_draws(cuda_device):
+    """The Trainer's own draws (``draw_legacy_augment`` on the card) and a
+    mesh rank's strided view of them give what the plain version gives."""
+    import chip_smoke
+    from robocupvision_tpu_torch.ops import color
+
+    imgs, lab, _ = chip_smoke.k4_inputs((16, 48, 64, 3), torch.int64, 8,
+                                        cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    whole = color.draw_legacy_augment(gen, 32)
+    for draws in (color.draw_legacy_augment(gen, 16),
+                  {k: v[1::2] for k, v in whole.items()}):
+        got_i, got_l = color.legacy_augment_batch(imgs, lab, draws)
+        want_i, want_l = color.legacy_augment_batch_plain(imgs, lab, draws)
+        assert float((got_i - want_i).abs().max()) <= chip_smoke.K4_TOL
+        assert torch.equal(got_l, want_l)
+
+
+@pytest.mark.cuda
+def test_legacy_jitter_kernel_rejects_what_it_does_not_take(cuda_device):
+    from robocupvision_tpu_torch.ops import color
+    from robocupvision_tpu_torch.ops.cuda_kernels import legacy_jitter
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    draws = color.draw_legacy_augment(gen, 2)
+    x = torch.zeros((2, 8, 8, 3), device=cuda_device)
+    lab = torch.zeros((2, 8, 8), dtype=torch.int64, device=cuda_device)
+    before = legacy_jitter.launches
+    with pytest.raises(TypeError):
+        color.legacy_augment_batch(x.bfloat16(), lab, draws)
+    with pytest.raises(ValueError):
+        color.legacy_augment_batch(x.transpose(1, 2), lab, draws)
+    with pytest.raises(ValueError):
+        color.legacy_augment_batch(x, lab.transpose(1, 2), draws)
+    with pytest.raises(TypeError):
+        color.legacy_augment_batch(x, lab.to(torch.int16), draws)
+    with pytest.raises(ValueError):  # the jitter takes 3 channels
+        color.legacy_augment_batch(torch.zeros((2, 8, 8, 8),
+                                               device=cuda_device), lab, draws)
+    with pytest.raises(ValueError):
+        color.legacy_augment_batch(x, lab.cpu(), draws)
+    with pytest.raises(ValueError):
+        legacy_jitter(x.cpu(), lab.cpu(), draws, True,
+                      color.LEGACY_JITTER_TABLES)
+    with pytest.raises(ValueError):  # the constants in f64
+        legacy_jitter(x, lab, draws, True,
+                      color.LEGACY_JITTER_TABLES.astype(np.float64))
+    assert legacy_jitter.launches == before

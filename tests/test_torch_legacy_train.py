@@ -15,6 +15,8 @@ jax.random and torch's generators differ, so every test hands the port
 the values the JAX package drew.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 
@@ -224,6 +226,58 @@ def test_legacy_augment_with_jax_draws_matches_jax(mode, jitter):
     alone, none = color.legacy_augment_batch(torch.from_numpy(imgs), None,
                                              draws, jitter)
     assert none is None and torch.equal(alone, got_i)
+
+
+def _all_orders_draws(rng, n, hflip, vflip):
+    """Draws for n samples, sample i taking the i % 24-th of the 24 op
+    orders, with the given flips and random factors."""
+    perms = list(itertools.permutations(range(4)))
+    u = torch.from_numpy(rng.random((4, n)).astype(np.float32))
+    return {"hflip": torch.full((n,), hflip), "vflip": torch.full((n,), vflip),
+            "b": 0.5 + u[0], "c": 0.5 + u[1], "s": 0.6 + 0.8 * u[2],
+            "h": -0.3 + 0.6 * u[3],
+            "order": torch.tensor([perms[i % 24] for i in range(n)])}
+
+
+@pytest.mark.parametrize("hflip,vflip", [(True, False), (False, True),
+                                         (True, True)])
+def test_contrast_mean_is_the_unflipped_images(hflip, vflip):
+    """The identity K4's first pass rests on, in the plain code, over all
+    24 orders: the contrast op of a flipped batch blends toward the mean
+    grey of the unflipped image run through the ops before contrast. With
+    contrast factor 0 the op outputs that mean as a grey image, which the
+    ops after it keep uniform, so each output image is one value, read
+    from the mean, and the same flipped or not."""
+    rng = np.random.default_rng(4)
+    imgs = torch.from_numpy(_images(rng, 24, 12, 10))
+    draws = _all_orders_draws(rng, 24, hflip, vflip)
+    draws["c"] = torch.zeros(24)
+    flipped, _ = color.legacy_augment_batch_plain(imgs, None, draws)
+    plain, _ = color.legacy_augment_batch_plain(
+        imgs, None, {**draws, "hflip": torch.zeros(24, dtype=torch.bool),
+                     "vflip": torch.zeros(24, dtype=torch.bool)})
+    for out in (flipped, plain):
+        assert torch.equal(out, out[:, :1, :1].expand_as(out))
+    # the means differ only by the order of their sums
+    _close(flipped.numpy(), plain.numpy(), 1e-6)
+    assert float(plain[:, 0, 0, 0].std()) > 0.05  # the orders' means differ
+
+
+def test_legacy_augment_on_cpu_runs_the_plain_code():
+    """CPU tensors take the plain code, and K4 launches nothing."""
+    from robocupvision_tpu_torch.ops import cuda_kernels
+
+    rng = np.random.default_rng(6)
+    imgs = torch.from_numpy(_images(rng, 24, 12, 10))
+    labs = torch.from_numpy(rng.integers(0, 5, (24, 12, 10)))
+    draws = _all_orders_draws(rng, 24, True, True)
+    before = cuda_kernels.legacy_jitter.launches
+    for jitter in (True, False):
+        got_i, got_l = color.legacy_augment_batch(imgs, labs, draws, jitter)
+        want_i, want_l = color.legacy_augment_batch_plain(imgs, labs, draws,
+                                                          jitter)
+        assert torch.equal(got_i, want_i) and torch.equal(got_l, want_l)
+    assert cuda_kernels.legacy_jitter.launches == before
 
 
 def test_draw_legacy_augment_ranges():
