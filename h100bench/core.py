@@ -5,14 +5,22 @@ Everything that belongs to one configuration, one traffic mix, one limit
 set or one metric sits in a file of its own under this directory, found by
 the name ``BENCHMARK.json`` gives it:
 
-    configs/<config>.json        sizes, dtypes, peaks of a configuration
+    configs/<config>.json        sizes, dtypes, peaks of a configuration,
+                                 its ``family`` and the port's function
+                                 that builds its served graph
+    families/<family>.py         a model family: forward(p, cfg, x,
+                                 train=False), the plain f32 reference;
+                                 flops(cfg, h, w); optionally
+                                 k2_chains(config, n, h, w) and
+                                 WEIGHT_KINDS (weights.py)
     traffic/<traffic>.json       the parameters of a traffic mix, and the
                                  runner (runners/<runner>.py) that runs it
     limits/<workload>.json       the limit of each number ``correct`` compares
     end_to_end/<metric>.py       read(run) -> value or None
     metrics/<metric>.py          read(run) -> value or None (per-layer)
 
-A later cell, traffic mix or metric is added as new files of these kinds.
+A later cell, traffic mix, metric or model family is added as new files
+of these kinds, and the cell's entries in ``BENCHMARK.json``.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
-"""The plain reference forwards: ROBO_UNet (RoboCupVision model.py:461-536,
-the flagship: strided downs, additive skips) and PB_FCN in its
-segmentation mode (model.py:269-309 over the DownSampler, model.py:201-232).
+"""The blocks of the plain reference forwards, and the camera input they
+take: the conv families' forwards (``families/<family>.py``) are built
+from them.
 
 Plain PyTorch on NCHW tensors in f32, written from the layer equations of
 the reference's blocks:
@@ -83,61 +83,3 @@ def up(p, name, x, train):
                            p.get(name + ".conv.bias"), stride=2, padding=1,
                            output_padding=1)
     return F.relu(bn(p, name + ".bn", y, train))
-
-
-def robo_unet(p: Params, cfg: dict, x: torch.Tensor,
-              train: bool = False) -> torch.Tensor:
-    """The flagship ROBO_UNet: (N, 3, H, W) -> (N, classes, H, W) logits.
-    Depth ``depth`` (+1 with ``no_scale``); Level0 holds ``levels - 1``
-    Conv blocks (at least one), every deeper level a stride-2 Conv and
-    ``levels - 1`` more; the PB belly ``belly_size - 1`` Convs to
-    ``belly_planes`` and one back; each up adds its skip."""
-    if cfg.get("pool") or cfg.get("v2"):
-        raise ValueError("the reference holds the flagship ROBO_UNet only")
-    depth = cfg["depth"] + (1 if cfg["no_scale"] else 0)
-    lv = cfg["levels"]
-
-    def level(name, h, n_convs, stride):
-        h = conv_block(p, name + ".layers.Conv0", h, stride, train)
-        for i in range(1, n_convs):
-            h = conv_block(p, f"{name}.layers.Conv{i}", h, 1, train)
-        return h
-
-    downs = [level("downPart.Level0", x, max(lv - 1, 1), 1)]
-    for i in range(1, depth):
-        downs.append(level(f"downPart.Level{i}", downs[-1], lv, 2))
-    h = downs[-1]
-    if cfg["belly_size"] > 0:
-        h = level("PB.PB_1", h, cfg["belly_size"] - 1, 1)
-        h = level("PB.PB_2", h, 1, 1)
-    for i in range(depth - 1):
-        h = up(p, f"upPart.Up{i}", h, train) + downs[-(i + 2)]
-    k = cfg.get("class_size", 1)
-    return conv(p, "segmenter.layers.Class", h, 1, k // 2)
-
-
-def pb_fcn(p: Params, cfg: dict, x: torch.Tensor,
-           train: bool = False) -> torch.Tensor:
-    """PB_FCN, segmentation mode: (N, 3, H, W) -> (N, classes, H, W)."""
-    def cps(name, h, stride, padding, dilation):
-        return conv_pool_simple(p, "FCN." + name, h, stride, padding,
-                                dilation, train)
-
-    x0 = cps("conv0", x, 1, 2, 2)
-    x1 = cps("conv1", x0, 2, 1, 1)
-    x2 = conv_pool(p, "FCN.conv2", x1, train)
-    feats = [x0, x1, x2]
-    h = x2
-    if cfg["no_scale"]:
-        h = conv_pool(p, "FCN.conv_ext", h, train)
-        feats.append(h)
-    h = conv_pool(p, "FCN.conv3", h, train)
-    for i in range(4, 9):
-        h = cps(f"conv{i}", h, 1, 2, 2)
-    for j in range(len(feats)):
-        h = up(p, f"up{j + 1}", h, train) + feats[-(j + 1)]
-    k = cfg.get("kernel_size", 1)
-    return conv(p, "segmenter.classifier", h, 1, k // 2)
-
-
-FORWARDS = {"robo_unet": robo_unet, "pb_fcn": pb_fcn}

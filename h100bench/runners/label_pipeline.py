@@ -131,7 +131,7 @@ def judge(r: core.Run, ref_weights, log: np.ndarray, batch: int,
           n_log: int, sample, block: int = 8) -> float:
     """The widest logit gap of the sampled batches' served labels against
     the plain f32 reference (TF32 off), ``block`` frames at a time."""
-    fwd = nets.FORWARDS[r.config["family"]]
+    fwd = core.load_module("families", r.config["family"]).forward
     worst = 0.0
     with reference.tf32(False), torch.no_grad():
         for j, labels in sample:

@@ -27,9 +27,11 @@ def small_run(cell_name, seconds=0.3, trace=False, seed=SEED, limits=None,
     man = core.manifest()
     cell = core.workload(man, cell_name)
     cfg = core.config(cell["config"])
+    # the training size keeps its share of the frame: half of it where the
+    # cell trains at half the frame
+    (fh, fw), (th, tw) = cfg["frame"], cfg["train"]["size"]
     cfg["frame"] = [64, 96]
-    cfg["train"]["size"] = [32, 48] if cfg["family"] == "robo_unet" \
-        else [64, 96]
+    cfg["train"]["size"] = [64 * th // fh, 96 * tw // fw]
     tr = core.traffic(cell["traffic"])
     if tr["runner"] == "label_pipeline":
         tr.update(log_frames=8, batch=4, warmup_batches=2, sample_batches=2,

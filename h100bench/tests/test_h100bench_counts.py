@@ -9,6 +9,10 @@ from h100bench import core, counts
 from h100bench.reference import nets
 
 
+def family(name):
+    return core.load_module("families", core.config(name)["family"])
+
+
 PLAIN_CONV, PLAIN_TCONV = F.conv2d, F.conv_transpose2d
 
 
@@ -70,14 +74,15 @@ def test_model_flops_match_the_reference_forward(name, monkeypatch):
     monkeypatch.setattr(nets.F, "conv_transpose2d", tconv)
     h, w = 64, 96
     params = {}
-    for c in counts.CONVS[cfg["family"]](cfg["cfg"], h, w):
+    fam = family(name)
+    for c in fam.convs(cfg["cfg"], h, w):
         shape = (c.cin, c.cout, c.k, c.k) if c.transposed \
             else (c.cout, c.cin, c.k, c.k)
         params[c.name + ".weight"] = torch.zeros(shape)
         bn = c.name.rsplit(".", 1)[0] + ".bn"
         for s in ("weight", "bias", "running_mean", "running_var"):
             params[f"{bn}.{s}"] = torch.ones(c.cout)
-    nets.FORWARDS[cfg["family"]](params, cfg["cfg"], torch.zeros(1, 3, h, w))
+    fam.forward(params, cfg["cfg"], torch.zeros(1, 3, h, w))
     assert 2 * sum(seen) == counts.model_flops(cfg, h, w)
 
 
@@ -86,7 +91,7 @@ def test_flagship_vga_flops_by_hand():
     (480 + 2 * 479) * (640 + 2 * 639) taps; the whole net about 4.65
     GFLOP a frame."""
     cfg = core.config("robo_unet_vga")
-    stem = counts.robo_unet_convs(cfg["cfg"], 480, 640)[0]
+    stem = family("robo_unet_vga").convs(cfg["cfg"], 480, 640)[0]
     assert stem.macs == (480 + 2 * 479) * (640 + 2 * 639) * 3 * 8
     assert 4.6e9 < counts.model_flops(cfg, 480, 640) < 4.7e9
 
@@ -119,11 +124,48 @@ def test_k2_chains_hold_no_conv_twice():
         chains = counts.k2_chains(cfg, 2, 64, 96)
         convs = [c.name for ch in chains for c in ch.convs]
         assert len(convs) == len(set(convs))
-        every = {c.name for c in counts.CONVS[cfg["family"]](cfg["cfg"], 64,
-                                                              96)}
+        every = {c.name for c in family(name).convs(cfg["cfg"], 64, 96)}
         assert set(convs) <= every
         total = counts.model_flops(cfg, 64, 96)
         assert sum(ch.flops for ch in chains) < total
+
+
+# (size, forward FLOPs of an image, each K2 chain of a batch of 32 as
+# (tag, FLOPs, bytes read, bytes written)): frozen, so that any change to
+# the counts shows
+PARENT_COUNTS = {
+    "robo_unet_vga": [
+        ((480, 640), 4650944192, [
+            ("down", 1187631552, 59018640, 275251200),
+            ("deep", 2041577472, 11609088, 9830400),
+            ("up", 377181440, 275263108, 39321600)]),
+        ((240, 320), 1136430272, [
+            ("down", 295223232, 14781840, 68812800),
+            ("deep", 490340352, 4236288, 2457600),
+            ("up", 93973760, 68824708, 9830400)])],
+    "pb_fcn_vga": [
+        ((480, 640), 3868989696, [
+            ("down", 1708729344, 118063360, 629145600),
+            ("deep", 1307574272, 12196608, 9830400),
+            ("up", 377181440, 550525908, 39321600)])],
+}
+
+
+@pytest.mark.parametrize("name,size,flops,chains", [
+    pytest.param(name, size, flops, chains, id=f"{name}-{size[0]}x{size[1]}")
+    for name, cases in sorted(PARENT_COUNTS.items())
+    for size, flops, chains in cases])
+def test_counts_are_the_parents(name, size, flops, chains):
+    """At the frame and at the training size (PB_FCN trains at its frame
+    size): the family's FLOPs and K2 chains, to the integer."""
+    cfg = core.config(name)
+    assert {tuple(cfg["frame"]), tuple(cfg["train"]["size"])} == {
+        s for s, _, _ in PARENT_COUNTS[name]}
+    assert counts.model_flops(cfg, *size) == flops
+    assert family(name).flops(cfg["cfg"], *size) == flops
+    got = [(c.tag, c.flops, c.read_bytes, c.write_bytes)
+           for c in counts.k2_chains(cfg, 32, *size)]
+    assert got == chains
 
 
 def test_bound_is_the_larger_side():

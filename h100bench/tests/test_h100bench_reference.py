@@ -3,6 +3,8 @@ forwards, the camera preprocessing, the augmentations, the loss and the
 checked train steps (Adam and SGD). Tolerances are f32 rounding of two
 differently ordered computations of the same sums."""
 
+import hashlib
+
 import pytest
 import torch
 
@@ -27,10 +29,50 @@ def test_forward_matches_port(family, train, cpu_threads):
             got, _ = model.apply(model.flat(), x, train=True, dropout={})
         else:
             got = model(x)
-        want = nets.FORWARDS[family](w, r.config["cfg"],
-                                     x.permute(0, 3, 1, 2), train=train)
+        want = core.load_module("families", family).forward(
+            w, r.config["cfg"], x.permute(0, 3, 1, 2), train=train)
     torch.testing.assert_close(got, want.permute(0, 2, 3, 1), rtol=1e-4,
                                atol=1e-4)
+
+
+def digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().contiguous().numpy().tobytes()) \
+        .hexdigest()
+
+
+# sha256 of the seeded weights (seed 2**31 + 11, in state_dict order) and
+# of the reference's logits on them, eval and train: frozen, so that any
+# change to the draws or to the reference's arithmetic shows
+PARENT = {
+    "robo_unet_vga": (
+        "a03c43bd0475d579f2c4ba24414ecef473cf45a801facd62e9eee22c408d363f",
+        "22fb3c9bb1c6eb0f057317b086ca6db77c0de821bcb7cd12e344d7d0ddbdd21e",
+        "65547deb7fc51ef38be256629c7e6f82b8190cbed0f86e313b39cf859b436704"),
+    "pb_fcn_vga": (
+        "ee8a674b4bfc1b55503518a5c5a23a2cb1884bf372d352804be38861e874367d",
+        "5fa85fe1e34d1ff76a46615b0b8dd56795014afa0cf457c549bd1fd200d2d752",
+        "2be5e59d2dfca2c33ccabbf54f5efad4fa90b45ac672870379dd72e60f23e217"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PARENT))
+def test_weights_and_forward_are_the_parents(name, cpu_threads):
+    """The same seed draws the same weights, and the family's forward
+    gives the same logits, bit for bit. The logits are computed in f64
+    and rounded to f32, so that the digest does not hang on the order in
+    which a CPU's f32 conv kernels sum."""
+    cfg = core.config(name)
+    _, w = program.model(cfg, 2 ** 31 + 11, torch.device("cpu"))
+    want_w, want_eval, want_train = PARENT[name]
+    assert digest(torch.cat([v.reshape(-1) for v in w.values()])) == want_w
+    fwd = core.load_module("families", cfg["family"]).forward
+    x = torch.randn((2, 3, 32, 48), dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(7))
+    p64 = {k: v.double() for k, v in w.items()}
+    with torch.no_grad():
+        for train, want in ((False, want_eval), (True, want_train)):
+            y = fwd(p64, cfg["cfg"], x, train=train)
+            assert digest(y.float()) == want
 
 
 def test_camera_input_matches_port():

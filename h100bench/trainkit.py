@@ -21,7 +21,6 @@ import torch
 
 from h100bench import checks, core, program, scenes, trace
 from h100bench import reference
-from h100bench.reference import nets
 from h100bench.reference import train as ref_train
 
 
@@ -219,7 +218,7 @@ class Kit:
             idx = perm[i * b:i * b + keep]
             batches.append((imgs[idx], labs[idx]))
             draws.append({k: v[:keep] for k, v in self.draws[i].items()})
-        fwd = nets.FORWARDS[r.config["family"]]
+        fwd = core.load_module("families", r.config["family"]).forward
         cfg = r.config["cfg"]
         with reference.tf32(tf32):
             return ref_train.run_steps(

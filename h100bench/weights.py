@@ -6,6 +6,10 @@ them, scaled by its kind so that activations keep their size through the
 depth (He-normal kernels, BatchNorm near its identity with running
 statistics spread around it, small biases). The weights are f32, the
 type the state_dict holds: a graph built for bf16 rounds them itself.
+
+A kind this module does not know is drawn as the family's file says, in
+its ``WEIGHT_KINDS``: {kind: a normal scale, or (uniform span, uniform
+offset)}.
 """
 
 from __future__ import annotations
@@ -15,7 +19,11 @@ from typing import Dict, List, Tuple
 
 import torch
 
-# kind -> (normal scale or None for He, uniform span, uniform offset)
+from h100bench import core
+
+# the kernels, drawn He-normal
+_KERNELS = ("conv_w", "tconv_w", "lin_w")
+# kind -> (uniform span, uniform offset)
 _UNIFORM = {
     "conv_b": (0.2, -0.1), "tconv_b": (0.2, -0.1), "lin_b": (0.2, -0.1),
     "bn_w": (0.4, 0.8), "bn_b": (0.2, -0.1),
@@ -35,10 +43,32 @@ def _he_std(kind: str, shape: Tuple[int, ...]) -> float:
     return (2.0 / fan) ** 0.5
 
 
+def _draw(kind: str, shape: Tuple[int, ...],
+          family: str) -> Tuple[float, float, float]:
+    """(normal scale, uniform span, uniform offset) of a kind: this
+    module's, else the family file's ``WEIGHT_KINDS``."""
+    if kind in _UNIFORM:
+        return (0.0, *_UNIFORM[kind])
+    if kind in _KERNELS:
+        return _he_std(kind, shape), 0.0, 0.0
+    kinds = getattr(core.load_module("families", family), "WEIGHT_KINDS",
+                    {})
+    if kind not in kinds:
+        raise ValueError(
+            f"no draw for the parameter kind {kind!r}: add it to "
+            f"WEIGHT_KINDS in h100bench/families/{family}.py")
+    draw = kinds[kind]
+    if isinstance(draw, (tuple, list)):
+        span, off = draw
+        return 0.0, float(span), float(off)
+    return float(draw), 0.0, 0.0
+
+
 def make(specs: List[Tuple[str, Tuple[int, ...], Tuple[int, ...], str]],
-         seed: int, device) -> Dict[str, torch.Tensor]:
+         seed: int, device, family: str) -> Dict[str, torch.Tensor]:
     """``specs``: (name, shape in (kh, kw, cin, cout) order, stored shape,
-    kind) in state_dict order -> {name: f32 tensor of the stored shape}."""
+    kind) in state_dict order -> {name: f32 tensor of the stored shape}.
+    ``family``: whose file draws the kinds this module does not know."""
     sizes = [int(torch.Size(stored).numel()) for _, _, stored, _ in specs]
     total = sum(sizes)
     gen = torch.Generator(device=device).manual_seed(int(seed))
@@ -46,11 +76,8 @@ def make(specs: List[Tuple[str, Tuple[int, ...], Tuple[int, ...], str]],
     u = torch.rand(total, generator=gen, device=device)
     a, b, c = [], [], []
     for name, shape, _, kind in specs:
-        if kind in _UNIFORM:
-            span, off = _UNIFORM[kind]
-            a.append(0.0), b.append(span), c.append(off)
-        else:
-            a.append(_he_std(kind, shape)), b.append(0.0), c.append(0.0)
+        scale, span, off = _draw(kind, shape, family)
+        a.append(scale), b.append(span), c.append(off)
     reps = torch.tensor(sizes, device=device)
 
     def per_element(vals):
