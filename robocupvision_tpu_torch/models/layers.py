@@ -4,12 +4,14 @@ functions of the zoo's families.
 ``Registry`` is a copy of the JAX package's: it declares parameters in
 PyTorch state_dict order with PyTorch state_dict names (e.g.
 ``downPart.Level0.layers.Conv0.conv.weight``) and records each shape in the
-JAX package's layout (HWIO kernels), so the two registries compare equal.
+JAX package's layout (HWIO kernels), so the two registries compare equal
+(``ln``, a LayerNorm, is the port's own: only its SegFormer declares one).
 ``ParamSpec.torch_shape`` gives the layout the port stores:
 
   conv   (kh, kw, in, out) -> (out, in, kh, kw)
   tconv  (kh, kw, in, out) -> (in, out, kh, kw)   (unflipped, torch's own)
   linear (in, out)         -> (out, in)
+  every other kind (biases, BN and LayerNorm vectors) as declared
 
 ``RegistryModule`` holds those tensors as parameters (BN running stats as
 buffers) under exactly the registry names, so ``state_dict()`` keys and
@@ -59,7 +61,8 @@ Params = Dict[str, torch.Tensor]
 class ParamSpec:
     name: str
     shape: Tuple[int, ...]  # JAX-package layout (HWIO kernels)
-    kind: str  # conv_w|conv_b|tconv_w|tconv_b|lin_w|lin_b|bn_w|bn_b|bn_rm|bn_rv
+    # conv_w|conv_b|tconv_w|tconv_b|lin_w|lin_b|bn_w|bn_b|bn_rm|bn_rv|ln_w|ln_b
+    kind: str
 
     @property
     def torch_shape(self) -> Tuple[int, ...]:
@@ -108,6 +111,11 @@ class Registry:
         if bias:
             self._add(name + ".bias", (cout,), "lin_b")
 
+    def ln(self, name: str, c: int) -> None:
+        """A LayerNorm over the last axis of width ``c``."""
+        self._add(name + ".weight", (c,), "ln_w")
+        self._add(name + ".bias", (c,), "ln_b")
+
     def init(self, gen: torch.Generator) -> Params:
         """Torch-layout params with PyTorch layer defaults, drawn in registry
         order from ``gen`` (on the CPU)."""
@@ -128,9 +136,9 @@ class Registry:
             elif k == "lin_b":
                 wspec = self.specs[name[: -len(".bias")] + ".weight"]
                 params[name] = pinit.linear_bias(gen, *wspec.shape)
-            elif k in ("bn_w", "bn_rv"):
+            elif k in ("bn_w", "bn_rv", "ln_w"):
                 params[name] = pinit.bn_weight(spec.shape[0])
-            elif k in ("bn_b", "bn_rm"):
+            elif k in ("bn_b", "bn_rm", "ln_b"):
                 params[name] = pinit.bn_bias(spec.shape[0])
             else:  # pragma: no cover
                 raise ValueError(k)
@@ -211,6 +219,11 @@ def train_mode(drops: Optional[Mapping[str, Tuple[torch.Tensor, float]]]
     finally:
         _DROPS.reset(drop_token)
         _BN_TRAIN_MUT.reset(token)
+
+
+def in_train_mode() -> bool:
+    """True inside :func:`train_mode`."""
+    return _BN_TRAIN_MUT.get() is not None
 
 
 @contextlib.contextmanager

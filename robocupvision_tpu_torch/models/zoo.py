@@ -7,7 +7,9 @@ in its segmentation and classification modes; and the LabelProp net
 (model.py:538-567); and the classifier baselines of classVal.py and
 objDetEval.py: the FCN (model.py:311-330), BNN L and MC (model.py:569-619),
 and the standalone DownSampler and Classifier (classVal.py:60-61; the
-DownSampler's forward returns the encoder's feature tuple).
+DownSampler's forward returns the encoder's feature tuple); and SegFormer
+(``models/segformer.py``, B2 by default), a transformer that labels frames,
+in eval mode only: its train mode raises ValueError.
 
 ``make(family, ...)`` returns a :class:`Model`, an ``nn.Module`` whose
 ``state_dict`` carries the registry names; its ``forward`` takes NHWC input
@@ -29,6 +31,8 @@ import torch
 
 from robocupvision_tpu_torch.device import DeviceLike, resolve_device
 from robocupvision_tpu_torch.models import layers as L
+from robocupvision_tpu_torch.models.segformer import (
+    SegFormerCfg, segformer_apply, segformer_registry)
 from robocupvision_tpu_torch.ops import nn
 
 Params = L.Params
@@ -599,6 +603,8 @@ _FAMILIES = {
     "bnn": (BNNCfg, bnn_registry, bnn_apply, bnn_dropout_sites),
     "classifier": (ClassifierCfg, classifier_registry, classifier_apply,
                    _no_dropout_sites),
+    "segformer": (SegFormerCfg, segformer_registry, segformer_apply,
+                  _no_dropout_sites),
 }
 
 # family: {site: the site's activation (H, W) from the input's}, for the

@@ -3,7 +3,8 @@ explicit ``torch.Generator`` and returned in torch layout.
 
 Conv2d/ConvTranspose2d/Linear default to ``kaiming_uniform_(a=sqrt(5))``,
 i.e. U(-1/sqrt(fan_in), 1/sqrt(fan_in)); biases use the same bound.
-BatchNorm starts at gamma=1, beta=0, running_mean=0, running_var=1.
+BatchNorm starts at gamma=1, beta=0, running_mean=0, running_var=1;
+LayerNorm at weight=1, bias=0.
 
 fan_in (same as the JAX package's ops/init.py):
 - conv  (kh, kw, in, out):  in * kh * kw

@@ -46,11 +46,12 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
            stride: IntOrPair = 1, padding: IntOrPair = 0,
-           dilation: IntOrPair = 1) -> torch.Tensor:
-    """2-D convolution, NHWC x (out, in, kh, kw) -> NHWC, torch padding."""
+           dilation: IntOrPair = 1, groups: int = 1) -> torch.Tensor:
+    """2-D convolution, NHWC x (out, in / groups, kh, kw) -> NHWC, torch
+    padding."""
     bb = None if b is None else b.to(x.dtype)
     return _nhwc(F.conv2d(_nchw(x), w.to(x.dtype), bb, stride=stride,
-                          padding=padding, dilation=dilation))
+                          padding=padding, dilation=dilation, groups=groups))
 
 
 def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,

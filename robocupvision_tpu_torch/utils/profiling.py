@@ -25,9 +25,13 @@ The program's spans:
     train.step > step.augment, step.forward, step.backward, step.update
         one train step and its phases (train/step.py), the phases timed
         on the card as well; req: the step's number
+    seg.encoder, then seg.decoder
+        one SegFormer forward (models/segformer.py), the encoder and the
+        decoder timed on the card as well
 
-and counter ``k4.calls``: one call of K4, the legacy augmentation on the
-card (ops/cuda_kernels.py ``legacy_jitter``).
+and counters ``k4.calls``: one call of K4, the legacy augmentation on the
+card (ops/cuda_kernels.py ``legacy_jitter``); ``mit.attn``: one attention
+call of a SegFormer block.
 """
 
 from __future__ import annotations

@@ -67,7 +67,7 @@ def _entry_points():
                                              verifyDeploy)
     from robocupvision_tpu_torch.data.device_cache import DeviceCache
     from robocupvision_tpu_torch.data.streaming import StreamingBatches
-    from robocupvision_tpu_torch.models import packed, zoo
+    from robocupvision_tpu_torch.models import packed, segformer, zoo
     from robocupvision_tpu_torch.ops import metrics
     from robocupvision_tpu_torch.parallel import mesh
     from robocupvision_tpu_torch.tools import make_lp_images, structured_prune
@@ -115,6 +115,11 @@ def _entry_points():
             lambda: validLabelProp.flow_and_score(None, None, []),
         "make_lp_images.main": lambda: make_lp_images.main([]),
         "make_mesh": lambda: mesh.make_mesh(),
+        "zoo.make(segformer)": lambda: zoo.make("segformer"),
+        "build_segformer_infer": lambda: segformer.build_segformer_infer(
+            zoo.make("segformer", device="cpu", embed_dims=(8, 8, 8, 8),
+                     num_heads=(1, 1, 1, 1), depths=(1, 1, 1, 1),
+                     decoder_dim=8)),
     }
 
 
@@ -135,7 +140,9 @@ def _entry_points():
                                   "testDumper.main", "pruner.main",
                                   "detect.main", "structured_prune.main",
                                   "validLabelProp.flow_and_score",
-                                  "make_lp_images.main", "make_mesh"])
+                                  "make_lp_images.main", "make_mesh",
+                                  "zoo.make(segformer)",
+                                  "build_segformer_infer"])
 def test_entry_points_raise_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point runs there")

@@ -1,8 +1,9 @@
 """The port's tracer (utils/profiling.py: ``span``, ``count``, ``spans``,
 ``counters``, ``reset``) and the spans the program records with it: the
-serving pipeline's submit and fetch, K2's chains, the Trainer's epochs and
-the train step's phases. Each test records under a CPU ``torch.profiler``
-session, the tracer's switch; outputs are the same with it on and off."""
+serving pipeline's submit and fetch, K2's chains, the SegFormer's encoder
+and decoder, the Trainer's epochs and the train step's phases. Each test
+records under a CPU ``torch.profiler`` session, the tracer's switch;
+outputs are the same with it on and off."""
 
 import json
 import threading
@@ -188,6 +189,27 @@ def test_served_labels_equal_with_recording_on_and_off(small_graph):
         on = serve()
     assert len(named("serve.submit")) == len(frames)
     assert all(torch.equal(a, b) for a, b in zip(off, on))
+
+
+def test_segformer_forward_spans_and_attention_count():
+    """One forward: the encoder, then the decoder; one attention call a
+    block; the logits the same with recording off, where nothing is
+    recorded."""
+    depths = (2, 1, 1, 1)
+    model = zoo.make("segformer", device="cpu", embed_dims=(8, 8, 16, 16),
+                     num_heads=(1, 1, 2, 2), depths=depths, decoder_dim=8,
+                     generator=torch.Generator().manual_seed(6))
+    x = torch.randn(1, 32, 32, 3, generator=torch.Generator().manual_seed(7))
+    off = model(x)
+    assert profiling.spans() == [] and profiling.counters() == {}
+    with session():
+        on = model(x)
+    assert torch.equal(off, on)
+    enc, dec = named("seg.encoder"), named("seg.decoder")
+    assert len(enc) == len(dec) == 1 and enc[0].t1 <= dec[0].t0
+    assert enc[0].parent is None and dec[0].parent is None
+    assert enc[0].card_ms is None and dec[0].card_ms is None   # CPU
+    assert profiling.counters() == {"mit.attn": sum(depths)}
 
 
 H, W = 24, 32
