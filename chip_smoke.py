@@ -93,7 +93,10 @@ zero blocks in bf16, f32 and int8 and on bf16 chains at the slim nets'
 widths (``k2_fuzz``). K4, the legacy flips and ColorJitter, is held
 against ``legacy_augment_batch_plain`` and timed at the legacy training
 cell's b32 VGA batch and the legacy CLIs' shapes (``k4_timings``); the
-training phases then run it in every legacy step on the card. K3, the
+training phases then run it in every legacy step on the card. K5, the
+SegFormer's folded head gather, is held against ``seg_head_plain`` and
+timed at the SegFormer cell's b32 VGA maps in f32 and bf16 and at a ragged
+size (``k5_timings``); no phase here serves a SegFormer. K3, the
 fused conv3x3 block, has no caller: it is held against its plain version
 alone, beside cuDNN, at the QVGA packed widths, at VGA and at widths that
 are no multiples of 16. One call of each K2 chain of a prepared graph and
@@ -106,6 +109,7 @@ fps phase splits each graph's card time into K2 and the plain parts with
     python3 chip_smoke.py --time-chains
     python3 chip_smoke.py --time-k1
     python3 chip_smoke.py --time-k4
+    python3 chip_smoke.py --time-k5
     python3 chip_smoke.py --mesh
 
 save K2's outputs on every f32 chain of the five families (on the inputs
@@ -118,8 +122,8 @@ path's counted run) at two label distributions: its card time alone, its
 device launches a call, its CUDA-event time, its bytes bound and the
 ``torch.bincount`` yardstick (the same lines ``phase_k1`` prints); print
 K4's check against its plain version and its costs on ``K4_CASES`` (the
-same lines the full run prints); and run the mesh phase alone after the
-build.
+same lines the full run prints); the same for K5 on ``K5_CASES``; and run
+the mesh phase alone after the build.
 Every phase prints one JSON line; the line before the last is the card's
 name and power limit as nvidia-smi reports them, and the last line is
 ``{"ok": true, "device": {...}}``. Exits non-zero, without that line, if
@@ -1505,6 +1509,111 @@ def time_k4() -> int:
     emit({"phase": "time_k4", "nvidia_smi": smi_line(),
           **{key: {c: r[key] for c, r in out.items()}
              for key in ("max_abs_err", "kernel_ms", "card_ms", "plain_ms",
+                         "bound_ms", "bound_share")},
+          "failed": chk.failed})
+    return 1 if chk.failed else 0
+
+
+# ---------------------------------------------------------------------------
+# K5: the SegFormer's folded head gather
+# ---------------------------------------------------------------------------
+
+# (case, N, the quarter-resolution (H, W), D, K, dtype): the SegFormer
+# cell's b32 VGA batch at its served f32 and at its control's bf16, and a
+# ragged size (61 x 83: no size a multiple of the 32-pixel tile)
+K5_CASES = [
+    ("b32_vga_f32", 32, (120, 160), 768, 5, torch.float32),
+    ("b32_vga_bf16", 32, (120, 160), 768, 5, torch.bfloat16),
+    ("b3_61x83_f32", 3, (61, 83), 768, 5, torch.float32),
+]
+K5_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}  # of max |logit|
+
+
+def k5_inputs(n, quarter, d, k, dtype, seed: int, dev):
+    """Stage maps at the SegFormer's sizes from ``quarter`` (each stage
+    ceil(size / 2) of the one before), standard normal at ``dtype``; b'
+    with sd 0.5, W_pred with sd 1 / sqrt(D), b_pred standard normal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h, w = quarter
+    ys = []
+    for _ in range(4):
+        ys.append(torch.randn((n, h, w, d), generator=gen, device=dev)
+                  .to(dtype))
+        h, w = -(-h // 2), -(-w // 2)
+    return (ys, 0.5 * torch.randn(d, generator=gen, device=dev),
+            torch.randn((k, d), generator=gen, device=dev) / d ** 0.5,
+            torch.randn(k, generator=gen, device=dev))
+
+
+def k5_timings(dev, chk: Checks) -> dict:
+    """K5 on every ``K5_CASES`` batch against ``seg_head_plain`` on the
+    same tensors (within ``K5_TOL`` of the largest logit), then its
+    CUDA-event time a call (the wrapper's host work included), its card
+    time alone (the profiler's ``seg_head_kernel`` rows, a call), its
+    launches a call, the plain version's time, and the bytes bound: the
+    four maps read once and the logits written once. No one PyTorch call
+    computes the function: no library yardstick."""
+    from robocupvision_tpu_torch.ops.cuda_kernels import (seg_head,
+                                                          seg_head_plain)
+
+    out = {}
+    for i, (case, n, quarter, d, k, dtype) in enumerate(K5_CASES):
+        ys, bias, w_pred, b_pred = k5_inputs(n, quarter, d, k, dtype,
+                                             SEED + 500 + i, dev)
+        before = seg_head.launches
+        got = seg_head(ys, bias, w_pred, b_pred)
+        launches = seg_head.launches - before
+        want = seg_head_plain(ys, bias, w_pred, b_pred)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max()
+                    / want.float().abs().max())
+        chk.expect(err <= K5_TOL[dtype],
+                   f"K5 {case}: max err {err} of the largest logit (tol "
+                   f"{K5_TOL[dtype]})")
+        del want
+
+        def call():
+            return seg_head(ys, bias, w_pred, b_pred)
+
+        rows = profile_calls(call, 20)
+        card = sum(ms for key, _, ms in rows or ()
+                   if "seg_head_kernel" in key)
+        moved = sum(nbytes(y) for y in ys) + nbytes(got)
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        res = {"phase": "k5_time", "case": case, "n": n,
+               "quarter": list(quarter), "d": d, "k": k,
+               "dtype": str(dtype)[6:], "max_rel_err": err,
+               "launches_per_call": launches,
+               "kernel_ms": cuda_ms(call, 50),
+               "card_ms": card or None,
+               "device_rows": ([[key[:60], c, ms] for key, c, ms in rows]
+                               if rows else None),
+               "plain_ms": cuda_ms(lambda: seg_head_plain(
+                   ys, bias, w_pred, b_pred), 5, 1),
+               "bound_ms": bound_ms, "bound_by": "bytes", "bytes": moved,
+               "bound_share": bound_ms / card if card else None}
+        emit(res)
+        out[case] = res
+    return out
+
+
+def time_k5() -> int:
+    """``--time-k5``: ``k5_timings`` alone, one JSON line a case, then a
+    summary line with the card's name and power limit. Exits 1 if a case
+    differs from the plain version."""
+    from robocupvision_tpu_torch.csrc import build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    lib = build.build_all(["seg_head.cu"])["seg_head.cu"]
+    emit({"phase": "k5_build", "build_s": time.perf_counter() - t0,
+          "ptxas": lib.with_suffix(".log").read_text().strip().splitlines()})
+    chk = Checks()
+    out = k5_timings(torch.device("cuda"), chk)
+    emit({"phase": "time_k5", "nvidia_smi": smi_line(),
+          **{key: {c: r[key] for c, r in out.items()}
+             for key in ("max_rel_err", "kernel_ms", "card_ms", "plain_ms",
                          "bound_ms", "bound_share")},
           "failed": chk.failed})
     return 1 if chk.failed else 0
@@ -5356,6 +5465,8 @@ def main() -> int:
         return time_k1()
     if sys.argv[1:2] == ["--time-k4"]:
         return time_k4()
+    if sys.argv[1:2] == ["--time-k5"]:
+        return time_k5()
     if sys.argv[1:2] == ["--compare-chains"]:
         return compare_chain_outputs(sys.argv[2], sys.argv[3])
     if sys.argv[1:2] == ["--mesh"]:
@@ -5396,6 +5507,7 @@ def main() -> int:
     k2z = phase_k2_fuzz(dev, chk)
     k3 = phase_k3(dev, chk)
     k4 = k4_timings(dev, chk)
+    k5 = k5_timings(dev, chk)
     phase_no_host_copy(model, dev, chk)
     fused_conv3x3_block.launches = 0  # no main path below calls K3
 
@@ -5459,6 +5571,8 @@ def main() -> int:
     k3m = k3["120x160_64to64_bf16_relu_bn"]
     # K4's entry: the legacy training cell's batch
     k4m = k4["legacy_b32_vga"]
+    # K5's entry: the SegFormer cell's batch, at its served f32
+    k5m = k5["b32_vga_f32"]
     features = sorted({f for r in list(k2.values()) + list(k2f.values())
                        + list(k2lp.values()) + list(k2v.values())
                        + list(k2q.values()) + [k2z]
@@ -5496,6 +5610,16 @@ def main() -> int:
          "bound_ms": k4m["bound_ms"], "bound_by": "bytes",
          "library_ms": None,
          "case": [k4m["shape"], "float32", k4m["labels"], "jitter"]},
+        {"name": "seg_head", "route": "cuda",
+         "source": "robocupvision_tpu_torch/csrc/seg_head.cu",
+         "replaces": None,  # the JAX package has no SegFormer
+         "launches": None,  # no path of this script serves the SegFormer
+         "max_rel_err": k5m["max_rel_err"], "ms": k5m["kernel_ms"],
+         "card_ms": k5m["card_ms"], "plain_ms": k5m["plain_ms"],
+         "bound_ms": k5m["bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "case": [k5m["n"], *k5m["quarter"], k5m["d"], k5m["k"],
+                  k5m["dtype"]]},
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -29,7 +29,7 @@ from typing import Dict, Iterable
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "build"
 SOURCES = ("confusion.cu", "conv_chain.cu", "conv_block.cu",
-           "legacy_jitter.cu")
+           "legacy_jitter.cu", "seg_head.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -21,18 +21,34 @@ views without a copy. The eval forward, stage i = 1..4:
                 fc2 (4C -> C)
   LayerNorm (eps 1e-6)
 
-then the decoder, 768 wide: each stage's tokens through a linear C_i -> 768,
-bilinear to 1/4 of the frame (align_corners False), concatenated as [c4,
-c3, c2, c1], a 1x1 conv 3072 -> 768 without bias -> BN -> ReLU, a 1x1 conv
-768 -> classes, and bilinear back to the frame, as mmseg's EncoderDecoder
-resizes its logits. Attention runs through
-``torch.nn.functional.scaled_dot_product_attention``; everything else
-through PyTorch's own ops.
+then the decoder, 768 wide, as NVlabs writes it: each stage's tokens
+through a linear C_i -> 768, bilinear to 1/4 of the frame (align_corners
+False), concatenated as [c4, c3, c2, c1], a 1x1 conv 3072 -> 768 without
+bias -> BN -> ReLU, a 1x1 conv 768 -> classes, and bilinear back to the
+frame, as mmseg's EncoderDecoder resizes its logits.
+
+The port evaluates that decoder folded (``fold_head``). A bilinear resize
+(align_corners False) is a per-channel spatial map whose weights sum to 1,
+the fuse a per-pixel linear map and eval-mode BN a per-channel affine map,
+so BN(fuse(cat[up(L_4 x_4), ..., L_1 x_1])) = sum_i up(W'_i x_i) + b' with
+
+  W'_i = s * (F_i W_i)                 one C_i -> 768 matrix a stage
+  b'   = s * sum_i F_i b_i + t         a constant passes through a resize
+
+(``F_i`` the fuse's slice for stage i, ``W_i``, ``b_i`` its linear, BN's
+``s = gamma / sqrt(var + eps)``, ``t = beta - mean s``), exact in real
+arithmetic: each ``y_i = x_i W'_i^T`` runs at its stage's own resolution,
+and ``ops/cuda_kernels.seg_head`` (K5 on the card) gathers
+``W_pred ReLU(y_1 + up(y_2) + up(y_3) + up(y_4) + b') + b_pred`` at 1/4
+of the frame. No 3072-channel map and no upsampled 768-channel map is
+made. Attention runs through
+``torch.nn.functional.scaled_dot_product_attention``; the rest through
+PyTorch's own ops and K5.
 
 While the tracer records (utils/profiling.py) a forward is the span
 ``seg.encoder``, then ``seg.decoder``; both are timed on the card when the
-input is on one, and each attention call adds one to the counter
-``mit.attn``.
+input is on one, each attention call adds one to the counter ``mit.attn``
+and each K5 call one to ``k5.calls``.
 """
 
 from __future__ import annotations
@@ -47,12 +63,14 @@ from robocupvision_tpu_torch.device import DeviceLike, resolve_device
 from robocupvision_tpu_torch.models import layers as L
 from robocupvision_tpu_torch.ops import nn
 from robocupvision_tpu_torch.ops.color import raw_camera_preprocess
+from robocupvision_tpu_torch.ops.cuda_kernels import seg_head
 from robocupvision_tpu_torch.utils import profiling
 
 Params = L.Params
 
 TORCH_LN_EPS = 1e-5   # nn.LayerNorm's default: patch embeds, reductions
 BLOCK_LN_EPS = 1e-6   # mit_b2's norm_layer: the blocks' and the stages' LNs
+FUSE_BN_EPS = 1e-5    # the decoder's BatchNorm2d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,13 +138,6 @@ def _ln(p: Params, name: str, x: torch.Tensor, eps: float) -> torch.Tensor:
                         p[name + ".bias"], eps)
 
 
-def _resize(x: torch.Tensor, hw) -> torch.Tensor:
-    """Bilinear resize of NHWC ``x`` to ``hw`` (align_corners False)."""
-    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear",
-                      align_corners=False)
-    return y.permute(0, 2, 3, 1)
-
-
 def _attention(p: Params, name: str, x: torch.Tensor, hw, heads: int,
                sr: int) -> torch.Tensor:
     """Efficient self-attention of tokens ``x`` (N, L, C) on an ``hw``
@@ -184,54 +195,96 @@ def _encode(cfg: SegFormerCfg, p: Params,
     return feats
 
 
-def _decode(cfg: SegFormerCfg, p: Params, feats, frame) -> torch.Tensor:
-    """The stages' tokens -> NHWC logits at ``frame`` (H, W)."""
+@dataclasses.dataclass(frozen=True)
+class FoldedHead:
+    """The decoder folded (module docstring): ``stage_w[i - 1]`` is W'_i
+    (768, C_i), ``bias`` b' (768,), ``pred_w`` (classes, 768) and
+    ``pred_b`` (classes,) the pred conv's."""
+    stage_w: Tuple[torch.Tensor, ...]
+    bias: torch.Tensor
+    pred_w: torch.Tensor
+    pred_b: torch.Tensor
+
+
+def fold_head(cfg: SegFormerCfg, p: Params,
+              dtype: Optional[torch.dtype] = None) -> FoldedHead:
+    """The decoder of the NVlabs-named parameters ``p`` folded, composed in
+    f64 on their device and rounded to ``dtype`` (default: that of
+    ``p``'s stage linears)."""
+    d = cfg.decoder_dim
+    dtype = dtype or p["decode_head.linear_c1.proj.weight"].dtype
+
+    def f64(name):
+        return p["decode_head." + name].double()
+
+    fuse = f64("linear_fuse.conv.weight").reshape(d, 4 * d)
+    bn = "linear_fuse.bn."
+    s = torch.rsqrt(f64(bn + "running_var") + FUSE_BN_EPS) \
+        * f64(bn + "weight")
+    bias = f64(bn + "bias") - f64(bn + "running_mean") * s
+    stage_w = []
+    for i in (1, 2, 3, 4):   # the concat is [c4, c3, c2, c1]
+        f_i = fuse[:, (4 - i) * d:(5 - i) * d]
+        lin = f"linear_c{i}.proj."
+        stage_w.append((s[:, None] * (f_i @ f64(lin + "weight"))).to(dtype))
+        bias = bias + s * (f_i @ f64(lin + "bias"))
+    return FoldedHead(tuple(stage_w), bias.to(dtype),
+                      p["decode_head.linear_pred.weight"].reshape(
+                          cfg.num_classes, d).to(dtype),
+                      p["decode_head.linear_pred.bias"].to(dtype))
+
+
+def _decode(head: FoldedHead, feats, frame) -> torch.Tensor:
+    """The stages' tokens -> NHWC logits at ``frame`` (H, W), through the
+    folded head."""
     n = feats[0][0].shape[0]
-    quarter = feats[0][1]
-    parts = []
-    for i in (4, 3, 2, 1):
-        t, hw = feats[i - 1]
-        y = _linear(p, f"decode_head.linear_c{i}.proj", t).view(n, *hw, -1)
-        parts.append(y if i == 1 else _resize(y, quarter))
-    h = nn.conv2d(torch.cat(parts, dim=-1),
-                  p["decode_head.linear_fuse.conv.weight"])
-    bn = "decode_head.linear_fuse.bn"
-    h = nn.relu(nn.batch_norm(h, p[bn + ".weight"], p[bn + ".bias"],
-                              p[bn + ".running_mean"],
-                              p[bn + ".running_var"]))
-    logits = nn.conv2d(h, p["decode_head.linear_pred.weight"],
-                       p["decode_head.linear_pred.bias"])
-    return _resize(logits, frame)
+    ys = [F.linear(t, w).view(n, *hw, -1)
+          for (t, hw), w in zip(feats, head.stage_w)]
+    logits = seg_head(ys, head.bias, head.pred_w, head.pred_b)
+    return nn.resize_bilinear(logits, frame)
 
 
-def segformer_apply(cfg: SegFormerCfg, p: Params,
-                    x: torch.Tensor) -> torch.Tensor:
-    """NHWC frames -> NHWC logits at the frames' (H, W), in eval mode."""
-    if L.in_train_mode():
-        raise ValueError("the SegFormer runs in eval mode only: its "
-                         "training is not ported")
+def _forward(cfg: SegFormerCfg, p: Params, head: FoldedHead,
+             x: torch.Tensor) -> torch.Tensor:
     card = x.is_cuda
     with profiling.span("seg.encoder", card=card):
         feats = _encode(cfg, p, x)
     with profiling.span("seg.decoder", card=card):
-        return _decode(cfg, p, feats, x.shape[1:3])
+        return _decode(head, feats, x.shape[1:3])
+
+
+def segformer_apply(cfg: SegFormerCfg, p: Params,
+                    x: torch.Tensor) -> torch.Tensor:
+    """NHWC frames -> NHWC logits at the frames' (H, W), in eval mode; the
+    decoder folded from ``p`` on the fly."""
+    if L.in_train_mode():
+        raise ValueError("the SegFormer runs in eval mode only: its "
+                         "training is not ported")
+    return _forward(cfg, p, fold_head(cfg, p), x)
 
 
 class SegFormerInfer:
-    """A SegFormer's served graph: its weights rounded to ``dtype`` once,
+    """A SegFormer's served graph from its NVlabs-named state dict
+    ``params``: the encoder's weights rounded to ``dtype`` once, and the
+    decoder folded once (``fold_head``, f64, then rounded to ``dtype``),
     on ``device``."""
 
     def __init__(self, cfg: SegFormerCfg, params: Params,
                  dtype: torch.dtype, device: torch.device):
         self.cfg, self.dtype, self.device = cfg, dtype, device
-        self.params = params
+        self.params = {k: v.detach().to(device=device, dtype=dtype)
+                       for k, v in params.items()
+                       if k.startswith("backbone.")}
+        self.head = fold_head(cfg, {k: v.detach().to(device)
+                                    for k, v in params.items()
+                                    if k.startswith("decode_head.")}, dtype)
 
     def infer_u8_io(self, x_u8) -> torch.Tensor:
         """Raw camera bytes in, label bytes out: (N, H, W, 3) uint8 RGB ->
         (N, H, W) uint8 labels, the argmax of the full-resolution logits
         (ops/color.raw_camera_preprocess: /255, ToYUV, Normalize)."""
         x = raw_camera_preprocess(torch.as_tensor(x_u8, device=self.device))
-        logits = segformer_apply(self.cfg, self.params, x.to(self.dtype))
+        logits = _forward(self.cfg, self.params, self.head, x.to(self.dtype))
         return torch.argmax(logits, dim=-1).to(torch.uint8)
 
 
@@ -244,6 +297,4 @@ def build_segformer_infer(model, params: Optional[Params] = None,
     and cuDNN stay as PyTorch's defaults leave them."""
     dev = resolve_device(device)
     state = model.state_dict() if params is None else params
-    weights = {k: v.detach().to(device=dev, dtype=dtype)
-               for k, v in state.items()}
-    return SegFormerInfer(model.cfg, weights, dtype, dev)
+    return SegFormerInfer(model.cfg, state, dtype, dev)

@@ -4,11 +4,13 @@ with its plain PyTorch version:
 - K1 ``confusion_count`` (``confusion_matrix_pallas``, ``csrc/confusion.cu``);
 - K3 ``fused_conv3x3_block`` (``fused_conv3x3_block``, ``csrc/conv_block.cu``);
 
-and K4 ``legacy_jitter`` (``csrc/legacy_jitter.cu``), which replaces no TPU
-kernel: the legacy flips and ColorJitter in one pass a pixel.
+and two that replace no TPU kernel: K4 ``legacy_jitter``
+(``csrc/legacy_jitter.cu``), the legacy flips and ColorJitter in one pass a
+pixel; K5 ``seg_head`` (``csrc/seg_head.cu``), the SegFormer's folded
+decoder head gathered in one pass a pixel.
 
-K1's and K3's wrappers launch their kernel for CUDA tensors and run their
-plain version for CPU tensors; nothing else selects between them. K4's
+K1's, K3's and K5's wrappers launch their kernel for CUDA tensors and run
+their plain version for CPU tensors; nothing else selects between them. K4's
 plain version is ``ops/color.py``'s ``legacy_augment_batch_plain``, and
 ``color.legacy_augment_batch`` selects: CUDA tensors go to K4, with the
 plain version's constants, and K4's wrapper takes nothing else. ``<wrapper>.launches`` counts kernel launches.
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from robocupvision_tpu_torch.ops import nn
 from robocupvision_tpu_torch.utils import profiling
 
 _KERNEL_MAX_CLASSES = 16  # csrc/confusion.cu kMaxClasses
@@ -346,3 +349,117 @@ def legacy_jitter(imgs: torch.Tensor, labels, draws, jitter: bool,
 
 
 legacy_jitter.launches = 0
+
+
+# ---- K5: the SegFormer's folded head gather ---------------------------------
+
+_K5_MAX_WIDTH = 1024  # csrc/seg_head.cu: a thread a channel quad, 256 threads
+
+
+def seg_head_plain(ys, bias: torch.Tensor, w_pred: torch.Tensor,
+                   b_pred: torch.Tensor) -> torch.Tensor:
+    """The head's function in plain PyTorch, at f32 (f64 for f64 maps):
+    ``ys`` the four stage maps (N, H_i, W_i, D), the first at the output's
+    (H, W) -> ``W_pred ReLU(y_1 + b' + up(y_2) + up(y_3) + up(y_4)) +
+    b_pred``, (N, H, W, K) at ``ys``' dtype; ``up`` PyTorch's bilinear
+    resize to (H, W), align_corners False."""
+    y1 = ys[0]
+    acc = torch.promote_types(y1.dtype, torch.float32)
+    h = y1.to(acc) + bias.to(acc)
+    for y in ys[1:]:
+        h = h + nn.resize_bilinear(y.to(acc), y1.shape[1:3])
+    return F.linear(nn.relu(h), w_pred.to(acc), b_pred.to(acc)).to(y1.dtype)
+
+
+def _check_seg_head(ys, bias, w_pred, b_pred):
+    if len(ys) != 4 or any(y.dim() != 4 for y in ys):
+        raise ValueError("ys must be four (N, H_i, W_i, D) maps, got "
+                         f"{[tuple(y.shape) for y in ys]}")
+    n, _, _, d = ys[0].shape
+    if any(y.shape[0] != n or y.shape[3] != d for y in ys) \
+            or any(0 in y.shape[1:3] for y in ys):
+        raise ValueError(f"the maps differ in N or D, or one is empty: "
+                         f"{[tuple(y.shape) for y in ys]}")
+    if w_pred.dim() != 2 or w_pred.shape[1] != d:
+        raise ValueError(f"w_pred must be (K, {d}), got "
+                         f"{tuple(w_pred.shape)}")
+    k = w_pred.shape[0]
+    for name, t, shape in (("bias", bias, (d,)), ("b_pred", b_pred, (k,))):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    for t in (*ys[1:], bias, w_pred, b_pred):
+        if t.device != ys[0].device:
+            raise ValueError(f"a tensor on {t.device}, ys[0] on "
+                             f"{ys[0].device}")
+
+
+def _k5_lib():
+    """K5's C entry, at first use."""
+    if _k5_lib.fn is None:
+        from robocupvision_tpu_torch.csrc import build
+
+        fn = build.load("seg_head.cu").rcv_seg_head
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _k5_lib.fn = fn
+    return _k5_lib.fn
+
+
+_k5_lib.fn = None
+
+
+def seg_head(ys, bias: torch.Tensor, w_pred: torch.Tensor,
+             b_pred: torch.Tensor) -> torch.Tensor:
+    """K5: the SegFormer's folded decoder head (``models/segformer.py``)
+    at the first map's (H, W): ``ys`` the stage maps y_1..y_4 (N, H_i,
+    W_i, D), ``bias`` b' (D,), ``w_pred`` (K, D), ``b_pred`` (K,) ->
+    (N, H, W, K) logits at ``ys``' dtype, accumulated at f32.
+
+    CUDA tensors go through ``csrc/seg_head.cu``: the maps f32 or bf16,
+    all of one dtype, contiguous, D a multiple of 4 up to 1024, N and H at
+    most 65535; one launch for up to 8 classes, one more for each further
+    8. Anything else raises. Each call adds 1 to the tracer's counter
+    ``k5.calls``. CPU tensors go through :func:`seg_head_plain`."""
+    _check_seg_head(ys, bias, w_pred, b_pred)
+    y1 = ys[0]
+    if y1.device.type == "cpu":
+        return seg_head_plain(ys, bias, w_pred, b_pred)
+    if y1.device.type != "cuda":
+        raise ValueError(f"seg_head runs on cuda or cpu, not {y1.device}")
+    if y1.dtype not in (torch.float32, torch.bfloat16) \
+            or any(y.dtype != y1.dtype for y in ys):
+        raise TypeError(f"the maps must all be float32 or all bfloat16, got "
+                        f"{[y.dtype for y in ys]}")
+    if not all(y.is_contiguous() for y in ys):
+        raise ValueError("the maps must be contiguous (NHWC)")
+    n, h, w, d = y1.shape
+    if d % 4 or not 0 < d <= _K5_MAX_WIDTH:
+        raise ValueError(f"D={d}: the kernel takes a multiple of 4 up to "
+                         f"{_K5_MAX_WIDTH}")
+    if n > 65535 or h > 65535:
+        raise ValueError(f"the kernel's grid holds 65535 images and rows, "
+                         f"not {n} and {h}")
+    if any(y.data_ptr() % (4 * y.element_size()) for y in ys):
+        raise ValueError("the maps must start on a channel quad's alignment")
+    k = w_pred.shape[0]
+    out = torch.empty((n, h, w, k), dtype=y1.dtype, device=y1.device)
+    if out.numel() == 0:   # N = 0 or K = 0
+        return out
+    vecs = [t.float().contiguous() for t in (bias, w_pred, b_pred)]
+    vecs = [v if v.data_ptr() % 16 == 0 else v.clone() for v in vecs]
+    sizes = [s for y in ys for s in y.shape[1:3]]
+    fn = _k5_lib()
+    with torch.cuda.device(y1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(y.data_ptr() for y in ys), *(v.data_ptr() for v in vecs),
+                 out.data_ptr(), *sizes, n, d, k,
+                 int(y1.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"seg_head launch failed: CUDA error {err}")
+    seg_head.launches += -(-k // 8)
+    profiling.count("k5.calls")
+    return out
+
+
+seg_head.launches = 0

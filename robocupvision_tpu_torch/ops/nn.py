@@ -11,6 +11,8 @@ torch-layout weights (what the port's modules store).
                         masked out, summed over a mesh's ranks with
                         ``reduce``) and the new running statistics.
 - ``relu``, ``max_pool``, ``avg_pool``, ``adaptive_avg_pool_1``.
+- ``resize_bilinear``   F.interpolate(mode="bilinear", align_corners=False)
+                        on the NCHW view.
 - ``linear``            w (in, out), as the JAX package stores it.
 - ``pixel_shuffle``     torch.nn.PixelShuffle on the NCHW view.
 - ``softmax``.
@@ -135,6 +137,12 @@ def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0)
+
+
+def resize_bilinear(x: torch.Tensor, hw) -> torch.Tensor:
+    """Bilinear resize of NHWC ``x`` to ``hw`` (align_corners False)."""
+    return _nhwc(F.interpolate(_nchw(x), size=tuple(hw), mode="bilinear",
+                               align_corners=False))
 
 
 def max_pool(x: torch.Tensor, kernel: IntOrPair,

@@ -31,7 +31,8 @@ The program's spans:
 
 and counters ``k4.calls``: one call of K4, the legacy augmentation on the
 card (ops/cuda_kernels.py ``legacy_jitter``); ``mit.attn``: one attention
-call of a SegFormer block.
+call of a SegFormer block; ``k5.calls``: one call of K5, the SegFormer's
+folded head gathered on the card (ops/cuda_kernels.py ``seg_head``).
 """
 
 from __future__ import annotations

@@ -928,3 +928,115 @@ def test_legacy_jitter_kernel_rejects_what_it_does_not_take(cuda_device):
         legacy_jitter(x, lab, draws, True,
                       color.LEGACY_JITTER_TABLES.astype(np.float64))
     assert legacy_jitter.launches == before
+
+
+# ---- K5: the SegFormer's folded head gather ---------------------------------
+
+
+def _k5_inputs(n, sizes, d, k, dtype, dev, seed=0):
+    """Stage maps of ``sizes`` (the first the output's), standard normal,
+    at ``dtype``; b' with sd 0.5 (a ReLU that cuts about half the
+    channels); W_pred with sd 1 / sqrt(D); b_pred standard normal."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    ys = [randn(n, *hw, d).to(dtype) for hw in sizes]
+    return ys, 0.5 * randn(d), randn(k, d) / d ** 0.5, randn(k)
+
+
+def _quarter_stages(h, w):
+    """The SegFormer's stage sizes from its quarter-resolution (h, w): each
+    stage's stride-2 patch embed takes ceil(size / 2)."""
+    sizes = [(h, w)]
+    for _ in range(3):
+        h, w = -(-h // 2), -(-w // 2)
+        sizes.append((h, w))
+    return sizes
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp (8 significant bits) of |x|, 0 where x is 0."""
+    r = x.float().abs()
+    _, e = torch.frexp(r)
+    return torch.where(r > 0, torch.ldexp(torch.ones_like(r), e - 8),
+                       torch.zeros_like(r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("case,n,sizes,d,k", [
+    ("b32_vga", 32, _quarter_stages(120, 160), 768, 5),   # the cell's batch
+    ("odd_61x83", 3, _quarter_stages(61, 83), 768, 5),     # ragged tiles
+    ("one_pixel", 2, [(1, 1)] * 4, 768, 5),
+    ("narrow", 2, _quarter_stages(13, 37), 8, 5),          # one warp, 2 lanes
+    ("classes_19", 2, _quarter_stages(24, 40), 256, 19),   # 3 launches
+    ("larger_stages", 2, [(5, 3), (9, 2), (1, 4), (3, 1)], 64, 6),
+    # 1,024 channels read from maps twice as wide: the staged columns hold
+    # the tile to 4 pixels, fewer than a group of 8
+    ("small_tile", 1, [(3, 10)] + [(6, 20)] * 3, 1024, 5),
+])
+def test_seg_head_kernel_matches_plain(cuda_device, dt, case, n, sizes, d, k):
+    """K5 against ``seg_head_plain`` on the same tensors (PyTorch's CUDA
+    resize, TF32 off): f32 within 1e-5 of the largest logit (sums of 768
+    products in another order), bf16 within two bf16 ulps of each logit
+    (both round an f32 sum once; the floor 2**-8 of the largest logit
+    covers logits near 0, where the f32 sums' order moves them by more
+    than their own ulp)."""
+    from robocupvision_tpu_torch.ops.cuda_kernels import (seg_head,
+                                                          seg_head_plain)
+
+    ys, bias, w_pred, b_pred = _k5_inputs(n, sizes, d, k, _DT[dt],
+                                          cuda_device)
+    before = seg_head.launches
+    got = seg_head(ys, bias, w_pred, b_pred)
+    torch.cuda.synchronize()
+    assert seg_head.launches == before + -(-k // 8)
+    want = seg_head_plain(ys, bias, w_pred, b_pred)
+    assert got.shape == want.shape == (n, *sizes[0], k)
+    assert got.dtype == want.dtype == _DT[dt]
+    err = (got.float() - want.float()).abs()
+    if dt == "f32":
+        assert float(err.max()) <= 1e-5 * float(want.abs().max())
+    else:
+        floor = want.float().abs().clamp_min(
+            float(want.float().abs().max()) * 2.0 ** -8)
+        assert bool((err <= 2 * bf16_ulp(floor)).all()), float(err.max())
+
+
+@pytest.mark.cuda
+def test_seg_head_kernel_rejects_what_it_does_not_take(cuda_device):
+    from robocupvision_tpu_torch.ops.cuda_kernels import seg_head
+
+    ys, bias, w_pred, b_pred = _k5_inputs(2, _quarter_stages(8, 12), 16, 5,
+                                          torch.float32, cuda_device)
+    before = seg_head.launches
+
+    def call(maps=ys, b=bias, w=w_pred):
+        return seg_head(maps, b, w, b_pred)
+
+    with pytest.raises(ValueError):   # device: one map on the CPU
+        call([ys[0], ys[1].cpu(), ys[2], ys[3]])
+    with pytest.raises(ValueError):   # device: the weights on the CPU
+        call(w=w_pred.cpu())
+    with pytest.raises(TypeError):    # dtype: f16
+        call([y.half() for y in ys])
+    with pytest.raises(TypeError):    # dtype: f32 and bf16 mixed
+        call([ys[0], ys[1].bfloat16(), ys[2], ys[3]])
+    with pytest.raises(ValueError):   # contiguity
+        call([ys[0].transpose(1, 2).contiguous().transpose(1, 2), *ys[1:]])
+    with pytest.raises(ValueError):   # shape: D not a multiple of 4
+        m, b, w, _ = _k5_inputs(2, _quarter_stages(8, 12), 6, 5,
+                                torch.float32, cuda_device)
+        call(m, b, w)
+    with pytest.raises(ValueError):   # shape: D beyond the block
+        m, b, w, _ = _k5_inputs(1, [(2, 2)] * 4, 1028, 5, torch.float32,
+                                cuda_device)
+        call(m, b, w)
+    with pytest.raises(ValueError):   # shape: bias
+        call(b=bias[:8])
+    with pytest.raises(ValueError):   # alignment: a map one channel in
+        flat = torch.zeros(ys[0].numel() + 1, device=cuda_device)
+        call([flat[1:].view(ys[0].shape), *ys[1:]])
+    assert seg_head.launches == before

@@ -67,8 +67,9 @@ def _entry_points():
                                              verifyDeploy)
     from robocupvision_tpu_torch.data.device_cache import DeviceCache
     from robocupvision_tpu_torch.data.streaming import StreamingBatches
+    from robocupvision_tpu_torch.device import resolve_device
     from robocupvision_tpu_torch.models import packed, segformer, zoo
-    from robocupvision_tpu_torch.ops import metrics
+    from robocupvision_tpu_torch.ops import cuda_kernels, metrics
     from robocupvision_tpu_torch.parallel import mesh
     from robocupvision_tpu_torch.tools import make_lp_images, structured_prune
     from robocupvision_tpu_torch.utils.serving import ServingPipeline
@@ -120,7 +121,17 @@ def _entry_points():
             zoo.make("segformer", device="cpu", embed_dims=(8, 8, 8, 8),
                      num_heads=(1, 1, 1, 1), depths=(1, 1, 1, 1),
                      decoder_dim=8)),
+        # K5's wrapper follows its tensors' device: its inputs made where
+        # the port runs by default
+        "seg_head": lambda: cuda_kernels.seg_head(*_seg_head_inputs(
+            resolve_device())),
     }
+
+
+def _seg_head_inputs(dev):
+    maps = [torch.zeros((1, s, s, 8), device=dev) for s in (8, 4, 2, 1)]
+    return (maps, torch.zeros(8, device=dev), torch.zeros((5, 8), device=dev),
+            torch.zeros(5, device=dev))
 
 
 @pytest.mark.parametrize("name", ["zoo.make", "build_packed_infer",
@@ -142,7 +153,7 @@ def _entry_points():
                                   "validLabelProp.flow_and_score",
                                   "make_lp_images.main", "make_mesh",
                                   "zoo.make(segformer)",
-                                  "build_segformer_infer"])
+                                  "build_segformer_infer", "seg_head"])
 def test_entry_points_raise_without_cuda(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the entry point runs there")
